@@ -1,0 +1,22 @@
+"""The paper's KGAT config (section 4.1.4: dim 64, 3 layers, Amazon-Book
+scale); port of ``repro/configs/kgnn_paper.py``, KGAT only."""
+
+from repro_torch.models.kgnn import KGNNConfig
+
+from .base import ArchSpec, _s
+
+# Amazon-Book statistics from paper Table 1
+_AB = dict(n_users=70679, n_entities=88572 + 24915, n_relations=2 * 39 + 2)
+
+_KG_SHAPES = (
+    _s("paper_full", "kgnn_train", n_triples=2 * 2557746 + 2 * 847733,
+       batch=1024),
+    _s("bench_small", "kgnn_train", n_triples=40000, batch=1024),
+)
+
+KGAT = ArchSpec(
+    name="kgat", family="kgnn", source="arXiv:1905.07854 / paper §4.1.2",
+    model_cfg=KGNNConfig(model="kgat", dim=64, n_layers=3, n_bases=4,
+                         readout="concat", **_AB),
+    shapes=_KG_SHAPES,
+)

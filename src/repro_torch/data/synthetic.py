@@ -1,0 +1,131 @@
+"""Synthetic KG recommendation dataset (port of
+``repro/data/synthetic.py:31-131``).
+
+``gen_kg_dataset`` makes the same numpy calls in the same order as the JAX
+package's, so the same arguments and seed give identical arrays: latent-factor
+user/item affinities plus an item KG whose relations link items to attributes
+that share latent directions. The CKG node space is
+``[users | items | attrs]``; relation 0 is ``interact`` (both directions), KG
+relations are shifted by 1 with distinct inverses, and self loops take the
+last relation id.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+__all__ = ["KGDataset", "gen_kg_dataset"]
+
+
+@dataclasses.dataclass
+class KGDataset:
+    src: np.ndarray           # (E,) int32 CKG edge sources
+    dst: np.ndarray           # (E,) int32 CKG edge destinations
+    rel: np.ndarray           # (E,) int32 relation ids
+    n_nodes: int
+    n_users: int
+    n_items: int
+    n_entities: int           # items + attributes
+    n_relations: int
+    train_pos: np.ndarray     # (n_train, 2) user, item
+    test_pos: np.ndarray      # (n_test, 2)
+
+    def graph(self, device="cuda", **layout_kw):
+        """The CKG as tensors on ``device``, with its blocked-CSR layout."""
+        from repro_torch.models.kgnn import CKG
+
+        return CKG.build(self.src, self.dst, self.rel, n_nodes=self.n_nodes,
+                         n_relations=self.n_relations, device=device,
+                         **layout_kw)
+
+    def interaction_matrices(self, n_users: int | None = None):
+        """Dense bool (U, I) train/test matrices for Recall/NDCG eval, over
+        the first ``n_users`` users (all by default)."""
+        u = self.n_users if n_users is None else n_users
+        out = []
+        for pos in (self.train_pos, self.test_pos):
+            m = np.zeros((u, self.n_items), bool)
+            pos = pos[pos[:, 0] < u]
+            m[pos[:, 0], pos[:, 1]] = True
+            out.append(m)
+        return tuple(out)
+
+
+def gen_kg_dataset(*, n_users=200, n_items=300, n_attrs=150, n_relations=6,
+                   n_triples=2000, inter_per_user=20, d_latent=8,
+                   test_frac=0.2, seed=0) -> KGDataset:
+    """User-item interactions + item KG with shared latent structure."""
+    rng = np.random.default_rng(seed)
+    u_lat = rng.normal(size=(n_users, d_latent)).astype(np.float32)
+    i_lat = rng.normal(size=(n_items, d_latent)).astype(np.float32)
+    a_lat = rng.normal(size=(n_attrs, d_latent)).astype(np.float32)
+
+    if n_users * n_items <= 4_000_000:
+        # small graphs: exact per-user top items
+        scores = u_lat @ i_lat.T \
+            + 0.5 * rng.gumbel(size=(n_users, n_items)).astype(np.float32)
+        items = np.argsort(-scores, axis=1)[:, :inter_per_user]
+        inter = np.stack([
+            np.repeat(np.arange(n_users), inter_per_user),
+            items.reshape(-1)], axis=1).astype(np.int64)
+    else:
+        # large graphs: per-user top items among a candidate sample,
+        # chunked (the dense users x items score matrix would not fit)
+        n_cand = min(max(8 * inter_per_user, 64), n_items)
+        chunk = max(1, min(n_users, (1 << 22) // n_cand))
+        inter_u, inter_i = [], []
+        for u0 in range(0, n_users, chunk):
+            u1 = min(u0 + chunk, n_users)
+            cand = rng.integers(0, n_items, (u1 - u0, n_cand))
+            scores = np.einsum("ud,ucd->uc", u_lat[u0:u1], i_lat[cand]) \
+                + 0.5 * rng.gumbel(
+                    size=(u1 - u0, n_cand)).astype(np.float32)
+            top = np.argpartition(-scores, inter_per_user - 1,
+                                  axis=1)[:, :inter_per_user]
+            inter_u.append(np.repeat(np.arange(u0, u1), inter_per_user))
+            inter_i.append(np.take_along_axis(cand, top, axis=1).reshape(-1))
+        inter = np.stack([np.concatenate(inter_u),
+                          np.concatenate(inter_i)], axis=1).astype(np.int64)
+        inter = np.unique(inter, axis=0)  # candidate sampling can repeat
+    rng.shuffle(inter)
+    n_test = int(len(inter) * test_frac)
+    test_pos, train_pos = inter[:n_test], inter[n_test:]
+
+    # KG triples: relation r links item->attr when their latents align on
+    # a relation-specific direction (so relations carry signal)
+    rel_dirs = rng.normal(size=(n_relations, d_latent))
+    heads = rng.integers(0, n_items, n_triples)
+    rels = rng.integers(0, n_relations, n_triples)
+    cand = rng.integers(0, n_attrs, (n_triples, 8))
+    align = np.einsum("td,tcd->tc", i_lat[heads] * rel_dirs[rels],
+                      a_lat[cand])
+    tails = cand[np.arange(n_triples), np.argmax(align, 1)]
+
+    # CKG node space: [users | items | attrs]
+    n_entities = n_items + n_attrs
+    src_list, dst_list, rel_list = [], [], []
+    u_nodes = train_pos[:, 0]
+    i_nodes = n_users + train_pos[:, 1]
+    src_list += [u_nodes, i_nodes]
+    dst_list += [i_nodes, u_nodes]
+    rel_list += [np.zeros(len(train_pos), np.int64)] * 2
+    h_nodes = n_users + heads
+    t_nodes = n_users + n_items + tails
+    src_list += [h_nodes, t_nodes]
+    dst_list += [t_nodes, h_nodes]
+    rel_list += [rels + 1, rels + 1 + n_relations]  # inverse rels distinct
+    n_nodes = n_users + n_entities
+    loops = np.arange(n_nodes)
+    src_list.append(loops)
+    dst_list.append(loops)
+    rel_list.append(np.full(n_nodes, 2 * n_relations + 1, np.int64))
+
+    return KGDataset(
+        src=np.concatenate(src_list).astype(np.int32),
+        dst=np.concatenate(dst_list).astype(np.int32),
+        rel=np.concatenate(rel_list).astype(np.int32),
+        n_nodes=n_nodes, n_users=n_users, n_items=n_items,
+        n_entities=n_entities, n_relations=2 * n_relations + 2,
+        train_pos=train_pos, test_pos=test_pos)

@@ -1,0 +1,71 @@
+"""Device dispatch over the hand-written kernels (port of
+``repro/kernels/ops.py``).
+
+The one routing rule of the port lives here: a CUDA tensor goes to the
+kernel, a CPU tensor to the kernel's plain PyTorch version, anything else
+raises. There is no fallback from one to the other; a kernel that cannot
+build or launch raises. ``LAUNCH_COUNTS`` (the counterpart of the JAX
+package's trace-time ``TRACE_COUNTS``) counts real kernel launches by name:
+``quant_pack``, ``spmm`` and ``topk_score``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import quant_pack as _qp
+from . import spmm as _spmm
+from . import topk_score as _tk
+from .backend import LAUNCH_COUNTS
+
+__all__ = ["quant_pack", "spmm", "topk", "LAUNCH_COUNTS"]
+
+
+def _on_card(x: torch.Tensor, op: str) -> bool:
+    if x.is_cuda:
+        return True
+    if x.device.type != "cpu":
+        raise ValueError(f"{op} runs on cuda or cpu, not {x.device}")
+    return False
+
+
+def quant_pack(x: torch.Tensor, seed: int, *, bits: int,
+               stochastic: bool = True):
+    """(rows, d) float -> (packed uint8 (rows, dp), scale (rows, 1),
+    zero (rows, 1)); see kernels/quant_pack.py."""
+    if _on_card(x, "quant_pack"):
+        return _qp.quant_pack_cuda(x.to(torch.float32).contiguous(), seed,
+                                   bits=bits, stochastic=stochastic)
+    return _qp.quant_pack_plain(x, seed, bits=bits, stochastic=stochastic)
+
+
+def spmm(x: torch.Tensor, ew: torch.Tensor | None, layout, *,
+         transpose: bool = False) -> torch.Tensor:
+    """Fused gather + scale + segment-accumulate over a blocked-CSR layout.
+
+    x   : (n_src, d) float (the output gradient for ``transpose=True``)
+    ew  : (E,) float edge weights in ORIGINAL edge order, or None
+    returns (n_out, d), n_out = n_dst (forward) / n_src (transpose);
+    see kernels/spmm.py.
+    """
+    if _on_card(x, "spmm"):
+        out = _spmm.spmm_cuda(x.to(torch.float32).contiguous(),
+                              None if ew is None
+                              else ew.to(torch.float32).contiguous(),
+                              layout, transpose=transpose)
+        return out.to(x.dtype)
+    return _spmm.spmm_plain(x, ew, layout, transpose=transpose)
+
+
+def topk(q: torch.Tensor, items, excl: torch.Tensor, *, k: int):
+    """Top-``k`` of ``q @ dequant(items)ᵀ`` with per-row exclusions.
+
+    q     : (B, d) fp32 query rows
+    items : ``QTensor`` (packed rows, any bits/width) or (I, d) fp32 table
+    excl  : (B, P) int32 item ids forced to -inf per row; -1 pads
+    returns (values (B, k) fp32, indices (B, k) int32).
+    """
+    if _on_card(q, "topk"):
+        return _tk.topk_cuda(q.to(torch.float32).contiguous(), items,
+                             excl.to(torch.int32).contiguous(), k=k)
+    return _tk.topk_plain(q, items, excl.to(torch.int32), k=k)

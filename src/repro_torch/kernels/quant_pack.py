@@ -1,0 +1,87 @@
+"""Fused per-row min/max + quantize + bit-pack: CUDA kernel and plain version.
+
+Port of ``repro/kernels/quant_pack.py:_quant_kernel`` (the TPU kernel) and
+its oracle ``repro/kernels/ref.py:ref_quant_pack``. The kernel is
+``csrc/quant_pack.cu``; its source note says what bounds it on the H100.
+
+``kernels.ops.quant_pack`` sends a CUDA tensor to ``quant_pack_cuda`` and a
+CPU tensor to ``quant_pack_plain``; both return ``(packed, scale, zero)``
+with identical bits: the plain version keeps the kernel's fp32 operation
+order.
+
+Rounding of ``scale``: the reference writes ``R / B`` with the constant
+``B = 2^b - 1``, and XLA compiles that (inside the Pallas kernel, or any
+jitted caller) into ``R * fl(1/B)``, a multiply by the float32-rounded
+reciprocal. Only an eager, op-by-op run of ``ref_quant_pack`` divides. The
+port keeps the compiled rounding, so its packed stores are bit-identical to
+the JAX package's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.quant import pack_bits
+
+from . import backend
+from .hashrng import hash_uniform
+
+__all__ = ["quant_pack_plain", "quant_pack_cuda"]
+
+_EPS = 1e-12
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_P, _I, _I, _I, _I, ctypes.c_uint, _P, _P, _P, _P)
+
+
+def quant_pack_plain(x: torch.Tensor, seed: int, *, bits: int,
+                     stochastic: bool = True):
+    """Plain PyTorch version (the ``ref_quant_pack`` oracle)."""
+    rows, d = x.shape
+    xf = x.to(torch.float32)
+    lo = xf.amin(dim=-1, keepdim=True)
+    hi = xf.amax(dim=-1, keepdim=True)
+    rng = hi - lo
+    bins = torch.full_like(rng, float(2**bits - 1))
+    # tensor / tensor: a true division on every device (a python scalar
+    # divisor may be applied as a multiply by its reciprocal)
+    normed = (xf - lo) * (bins / torch.clamp_min(rng, _EPS))
+    if stochastic:
+        gidx = (torch.arange(rows, dtype=torch.int64, device=x.device)[:, None]
+                * d + torch.arange(d, dtype=torch.int64, device=x.device))
+        u = hash_uniform(gidx, seed)
+        floor = torch.floor(normed)
+        codes_f = floor + (u < (normed - floor)).to(torch.float32)
+    else:
+        codes_f = torch.round(normed)       # half to even, as jnp.round
+    codes = torch.minimum(torch.clamp_min(codes_f, 0.0), bins)
+    recip = torch.full_like(rng, _recip(bits))
+    return pack_bits(codes.to(torch.uint8), bits), rng * recip, lo
+
+
+def _recip(bits: int) -> float:
+    """fl32(1 / (2^bits - 1)), the constant XLA multiplies by for R / B."""
+    return float(torch.tensor(1.0) / torch.tensor(float(2**bits - 1)))
+
+
+def quant_pack_cuda(x: torch.Tensor, seed: int, *, bits: int,
+                    stochastic: bool = True):
+    """Launch ``csrc/quant_pack.cu`` on a contiguous fp32 CUDA table."""
+    backend.check_cuda(x, torch.float32, 2, "x")
+    backend.require_sm90(x.device)
+    if bits not in (1, 2, 4, 8):
+        raise ValueError(f"unsupported bit-width {bits}")
+    rows, d = x.shape
+    dp = -(-d // (8 // bits))
+    packed = torch.empty((rows, dp), dtype=torch.uint8, device=x.device)
+    scale = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    zero = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    fn = backend.kernel_fn("quant_pack", "quant_pack_launch", _ARGTYPES)
+    with torch.cuda.device(x.device):
+        backend.launch(fn, x.data_ptr(), rows, d, bits, int(stochastic),
+                       int(seed) & 0xFFFFFFFF, packed.data_ptr(),
+                       scale.data_ptr(), zero.data_ptr(), backend.stream_of(x))
+    backend.count_launch("quant_pack")
+    return packed, scale, zero
+

@@ -27,3 +27,7 @@ def pytest_configure(config):
         "markers",
         "slow: heavy interpret-mode/statistical cases; deselect with "
         '-m "not slow" for the fast tier')
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA Hopper GPU and nvcc; skipped without a card "
+        "(the port's kernel tests, run on the card)")
