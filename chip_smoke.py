@@ -5,18 +5,26 @@ their plain versions.
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit as nvidia-smi reports them.
-2. Builds the three kernels of the serving path from src/repro_torch/csrc
-   for sm_90a (one nvcc per source, started together, while the full-width
-   dataset is generated) and prints ptxas's register/spill report.
-3. For each kernel, at the shapes the serving path gives it, compares the
-   kernel with its plain PyTorch version on the same inputs on the card:
+2. Builds the kernels of the serving and training paths from
+   src/repro_torch/csrc for sm_90a (one nvcc per source, started together,
+   while the full-width dataset is generated) and prints ptxas's
+   register/spill report.
+3. For each kernel, at the shapes its path gives it, compares the kernel
+   with its plain PyTorch version on the same inputs on the card:
      quant_pack  codes, scale and zero bit-identical (70,679x256 and
                  24,915x256, bits 8 and 4, nearest and SR, odd widths);
      spmm        <= 1e-5 relative (max |diff| / max |plain|) on the
                  full-width KGAT graph, and bit-identical across two runs;
      topk_score  indices and values bit-identical on integer-valued inputs
                  full of ties; on random inputs values <= 1e-5 relative and
-                 indices equal except between scores within that tolerance.
+                 indices equal except between scores within that tolerance;
+     sddmm       <= 1e-5 relative on the full-width graph at d 64 (the
+                 FP32 layers' gradient) and d 1 (the edge softmax's ones
+                 column) and bit-identical across two runs;
+     dequant_sddmm  the same at bits 8/4/2/1 (d 64) and on a padded pack
+                 (d 37, bits 2);
+     dequant_matmul <= 1e-5 relative at R 184,166, 64 x 64, bits 8/4/2/1,
+                 and a padded pack (d 37), bit-identical across two runs;
    and times kernel, plain version and (where one PyTorch call computes the
    same function) that call, as medians of CUDA-event timings, beside the
    bound: max(bytes / 3.35 TB/s, fp32 ops / 67 TFLOP/s), the H100 SXM's
@@ -35,7 +43,33 @@ their plain versions.
    (<= 1e-5 relative), the served store against the plain quantizer on
    that rollout (bit-identical), and the engine's responses for a sample of
    users against the plain top-K on the served store (as in 3).
-7. Prints the kernels JSON line, then last the ok line.
+7. Drives the training path at full width through ``train_kgnn``: the same
+   config and graph, BPR batch 1024, Adam, seed-0 parameters, a few steps
+   each under FP32, INT8, INT4 and INT2 (stochastic rounding). Launch
+   counts are reset just before and read just after each schedule's run;
+   every kernel of its path must have launched. Prints per schedule the
+   losses (finite), the median step time, peak allocated memory, the ACT
+   bytes of the recorded residuals and their ratio to FP32, and launches
+   per step by kernel.
+8. Profiles one INT2 training step (torch.profiler, CUDA activity): device
+   time by kernel, the step's device busy time and idle share.
+9. One full-width step's gradients with the kernels against the same step
+   with every kernel's plain version, from the same seeds, parameters and
+   batch. FP32: both against the same step run in float64; per parameter
+   the kernels' error (rms of the difference over the rms of the float64
+   gradient) must be within four times the plain versions' error, or within
+   1e-5 (readings 1.1-1.9 on correct kernels). Summation orders differ between the two and the backward cancels
+   terms, so each is off float64 by up to about 1e-3 of max |grad|
+   (printed beside the rms), and which of the two lands nearer float64 for
+   one parameter is chance: the margin stands between that spread and a
+   wrong kernel. INT2: max |kernels - plain| within 1e-2 of that
+   parameter's SR quantization noise, max |INT2 grad - FP32 grad|
+   (readings up to 8.4e-4 on correct kernels; an SR code can flip
+   between the two runs where the SPMM's summation order moves a
+   quantization input across a rounding threshold; one flip moves a
+   gradient by one rounding step of one residual element, the noise sums
+   such steps over every element).
+10. Prints the kernels JSON line, then last the ok line.
 
 Exits non-zero, printing no result, without CUDA, outside a checkout of the
 repository, or when any check fails.
@@ -45,6 +79,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -61,6 +96,12 @@ DEV = "cuda"
 DATASET = dict(n_users=70679, n_items=24915, n_attrs=88572, n_relations=39,
                n_triples=2557746, inter_per_user=12, seed=0)
 QUANT_ROWS = (70679, 24915)    # the store's user and item tables
+SERVING = ("quant_pack", "spmm", "topk_score")
+TRAIN_BATCH = 1024
+TRAIN_STEPS = 4              # per schedule
+SCHEDULES = ("fp32", "int8", "int4", "int2")
+GRAD_FP64_RATIO = 4.0
+GRAD_NOISE_SHARE = 1e-2
 TOPK_BATCH = (8, 128)          # an engine batch, an eval user chunk
 REQUESTS = 400
 DENSE_USERS = 8192
@@ -283,6 +324,142 @@ def check_topk(torch, tk, gen):
     return entry     # the B=128 shape: the streaming eval's calls
 
 
+def _sddmm_library(torch, g):
+    """cuSPARSE SDDMM over the graph's coalesced CSR pattern (duplicate
+    edges merged), and a map from each edge to its value's position."""
+    m = g.layout.meta
+    src, dst = g.src.long(), g.dst.long()
+    with warnings.catch_warnings():      # CSR support is marked beta
+        warnings.simplefilter("ignore", UserWarning)
+        a = torch.sparse_coo_tensor(
+            torch.stack([dst, src]),
+            torch.ones(m.n_edges, device=DEV), (m.n_dst, m.n_src)
+        ).coalesce().to_sparse_csr()
+    rows = torch.repeat_interleave(
+        torch.arange(m.n_dst, device=DEV), a.crow_indices().diff())
+    keys = rows * m.n_src + a.col_indices()
+    pos = torch.searchsorted(keys, dst * m.n_src + src)
+
+    def run(x, grad):
+        return torch.sparse.sampled_addmm(a, grad, x.T, beta=0.0)
+
+    return run, pos
+
+
+def _entry(name, source, replaces, err, ms, plain, lib, n_bytes, n_ops,
+           shape, **extra):
+    bnd, by = bound_ms(n_bytes, n_ops)
+    log(f"  time {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+        f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, "
+        f"{n_ops / 1e9:.3f} GFLOP)")
+    return dict(name=name, route="cuda",
+                source=f"src/repro_torch/csrc/{source}.cu",
+                replaces=replaces, max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+                shape=shape, **extra)
+
+
+def check_sddmm(torch, sp, g, gen):
+    """The fp32-residual SDDMM at full width: the FP32 layers' ∇ew (d 64)
+    and the edge softmax's denominators (d 1, every schedule)."""
+    log("[sddmm] kernel vs plain on the full-width KGAT graph")
+    m = g.layout.meta
+    for d in (1, 64):
+        x = torch.randn((m.n_src, d), generator=gen, device=DEV) * 0.1
+        grad = torch.randn((m.n_dst, d), generator=gen, device=DEV) * 1e-3
+        out1 = sp.sddmm_cuda(x, grad, g.layout)
+        same = torch.equal(out1, sp.sddmm_cuda(x, grad, g.layout))
+        ref = sp.sddmm_plain(x, grad, g.layout)
+        rel, err = _rel(out1, ref), float((out1 - ref).abs().max())
+        log(f"  d={d}: rel {rel:.3e} (max abs {err:.3e}), two runs "
+            f"{'bit-identical' if same else 'DIFFER'}")
+        check(rel <= TOL and same,
+              f"sddmm d={d}: rel {rel}, deterministic {same}")
+    # timing: the FP32 layers' call at d 64 (the last case)
+    lib_fn, pos = _sddmm_library(torch, g)
+    lib_rel = _rel(lib_fn(x, grad).values()[pos], ref)
+    check(lib_rel <= TOL, f"library sampled_addmm disagrees ({lib_rel})")
+    ms = time_ms(lambda: sp.sddmm_cuda(x, grad, g.layout), 20)
+    plain = time_ms(lambda: sp.sddmm_plain(x, grad, g.layout), 5)
+    lib = time_ms(lambda: lib_fn(x, grad), 20)
+    # the function's bytes: x and g read once, two indices in and one value
+    # out per edge
+    n_bytes = (m.n_src + m.n_dst) * d * 4 + m.n_edges * 12
+    return _entry("sddmm", "sddmm", "src/repro/kernels/spmm.py:334", err, ms,
+                        plain, lib, n_bytes, 2 * m.n_edges * d,
+                        f"E={m.n_edges} n={m.n_dst} d={d} fp32")
+
+
+def check_dequant_sddmm(torch, sp, g, gen):
+    """The packed-residual SDDMM (the INT-b ∇ew) at full width."""
+    from repro_torch.core.quant import dequantize, quantize
+
+    log("[dequant_sddmm] kernel vs plain on the full-width KGAT graph")
+    m = g.layout.meta
+    lib_fn, pos = _sddmm_library(torch, g)
+    for bits, d in ((8, 64), (4, 64), (1, 64), (2, 37), (2, 64)):
+        x = torch.randn((m.n_src, d), generator=gen, device=DEV) * 0.1
+        grad = torch.randn((m.n_dst, d), generator=gen, device=DEV) * 1e-3
+        q = quantize(x, 0xACE + bits, bits=bits, stochastic=True)
+        out1 = sp.dequant_sddmm_cuda(q, grad, g.layout)
+        same = torch.equal(out1, sp.dequant_sddmm_cuda(q, grad, g.layout))
+        ref = sp.dequant_sddmm_plain(q, grad, g.layout)
+        rel, err = _rel(out1, ref), float((out1 - ref).abs().max())
+        log(f"  bits={bits} d={d} (dp {q.packed.shape[1]}): rel {rel:.3e} "
+            f"(max abs {err:.3e}), two runs "
+            f"{'bit-identical' if same else 'DIFFER'}")
+        check(rel <= TOL and same,
+              f"dequant_sddmm bits={bits} d={d}: rel {rel}, "
+              f"deterministic {same}")
+    # timing: the main path's INT2 call at d 64 (the last case)
+    lib_rel = _rel(lib_fn(dequantize(q), grad).values()[pos], ref)
+    check(lib_rel <= TOL, f"library dequantize+sampled_addmm disagrees "
+          f"({lib_rel})")
+    ms = time_ms(lambda: sp.dequant_sddmm_cuda(q, grad, g.layout), 20)
+    plain = time_ms(lambda: sp.dequant_sddmm_plain(q, grad, g.layout), 5)
+    lib = time_ms(lambda: lib_fn(dequantize(q), grad), 20)
+    dp = q.packed.shape[1]
+    # packed table, scale/zero, g once; two indices in, one value out per
+    # edge. Operations: dequantize each residual element once, then the dot
+    n_bytes = m.n_src * (dp + 8) + m.n_dst * d * 4 + m.n_edges * 12
+    return _entry("dequant_sddmm", "sddmm", "src/repro/kernels/spmm.py:398",
+                  err, ms, plain, lib, n_bytes,
+                  2 * m.n_edges * d + 2 * m.n_src * d,
+                  f"E={m.n_edges} n={m.n_dst} d={d} INT2",
+                  also_replaces="src/repro/kernels/spmm.py:466")
+
+
+def check_dequant_matmul(torch, dq, gen):
+    """dW = dequant(q)ᵀ @ g at the training path's shape: every node's row,
+    64 features in and out."""
+    from repro_torch.core.quant import dequantize, quantize
+
+    rows, n = DATASET["n_users"] + DATASET["n_items"] + DATASET["n_attrs"], 64
+    log(f"[dequant_matmul] kernel vs plain, R={rows}, N={n}")
+    for bits, d in ((8, 64), (4, 64), (1, 64), (2, 37), (2, 64)):
+        x = torch.randn((rows, d), generator=gen, device=DEV) * 0.1
+        grad = torch.randn((rows, n), generator=gen, device=DEV) * 1e-3
+        q = quantize(x, 0xBEE + bits, bits=bits, stochastic=True)
+        out1 = dq.dequant_matmul_cuda(q, grad)
+        same = torch.equal(out1, dq.dequant_matmul_cuda(q, grad))
+        ref = dq.dequant_matmul_plain(q, grad)
+        rel, err = _rel(out1, ref), float((out1 - ref).abs().max())
+        log(f"  bits={bits} d={d}: rel {rel:.3e} (max abs {err:.3e}), two "
+            f"runs {'bit-identical' if same else 'DIFFER'}")
+        check(rel <= TOL and same,
+              f"dequant_matmul bits={bits} d={d}: rel {rel}, "
+              f"deterministic {same}")
+    ms = time_ms(lambda: dq.dequant_matmul_cuda(q, grad), 50)
+    plain = time_ms(lambda: dq.dequant_matmul_plain(q, grad), 20)
+    lib = time_ms(lambda: dequantize(q).T @ grad, 50)
+    dp = q.packed.shape[1]
+    n_bytes = rows * (dp + 8) + rows * n * 4 + d * n * 4
+    return _entry("dequant_matmul", "dequant_matmul",
+                  "src/repro/kernels/dequant_matmul.py:35", err, ms, plain,
+                  lib, n_bytes, 2 * rows * d * n + 2 * rows * d,
+                  f"R={rows} {d}x{n} INT2")
+
+
 def check_reduced_rollout(torch):
     from repro_torch.configs import get
     from repro_torch.configs.smoke import reduced
@@ -321,9 +498,9 @@ def run_main_path(torch, cfg, ds, g, params):
     log(f"[main] torch.cuda.max_memory_allocated {peak} B "
         f"({peak / 2**30:.2f} GiB)")
     log(f"[main] engine {res['stats']}")
-    for name in backend.SOURCES:
+    for name in SERVING:
         check(counts.get(name, 0) > 0,
-              f"kernel {name} never launched on the main path")
+              f"kernel {name} never launched on the serving path")
 
     store = res["store"]
     width = (cfg.n_layers + 1) * cfg.dim            # concat readout
@@ -338,6 +515,229 @@ def run_main_path(torch, cfg, ds, g, params):
     check(res["dense_delta"] <= 1e-6,
           f"streaming eval vs dense reference |delta| {res['dense_delta']}")
     return counts, res
+
+
+# -- the training path -------------------------------------------------------
+
+
+def _path_kernels(label):
+    return ("spmm", "sddmm") + (() if label == "fp32" else
+                                ("quant_pack", "dequant_sddmm",
+                                 "dequant_matmul"))
+
+
+def run_training(torch, cfg, ds, g):
+    """Train at full width under each schedule from the same seed-0
+    parameters; the launch counts of each run are its own."""
+    from repro_torch.core.policy import parse_schedule
+    from repro_torch.kernels import backend
+    from repro_torch.launch.train import train_kgnn
+    from repro_torch.models import kgnn
+
+    runs = {}
+    for label in SCHEDULES:
+        params = kgnn.init_params(cfg, seed=0, device=DEV)
+        torch.cuda.synchronize()
+        backend.reset_counts()
+        res = train_kgnn(cfg, ds, params, parse_schedule(label), TRAIN_STEPS,
+                         batch=TRAIN_BATCH, device=DEV, graph=g,
+                         log=lambda _: None)
+        counts = dict(backend.LAUNCH_COUNTS)
+        steps = res["steps"]
+        del res, params
+        losses = [r["loss"] for r in steps]
+        act = steps[0]["act"]
+        per_step = steps[-1]["launches"]
+        runs[label] = dict(
+            counts=counts, losses=losses, per_step=per_step,
+            step_ms=statistics.median(r["seconds"] for r in steps) * 1e3,
+            first_ms=steps[0]["seconds"] * 1e3,
+            peak=max(r["max_memory_allocated"] for r in steps),
+            act_bytes=act["total_bytes"], act_fp32=act["total_fp32_bytes"])
+        r = runs[label]
+        log(f"[train] {label}: losses {[f'{v:.6f}' for v in losses]}")
+        log(f"[train] {label}: step {r['step_ms']:.2f} ms median of "
+            f"{len(steps)} (first {r['first_ms']:.2f} ms), "
+            f"max_memory_allocated {r['peak']} B ({r['peak'] / 2**30:.2f} "
+            f"GiB), ACT residual bytes {r['act_bytes']} "
+            f"({r['act_bytes'] / 1e6:.1f} MB; FP32 {r['act_fp32'] / 1e6:.1f} "
+            f"MB, {r['act_fp32'] / r['act_bytes']:.2f}x)")
+        log(f"[train] {label}: launches per step "
+            f"{json.dumps(per_step, sort_keys=True)}; run total "
+            f"{json.dumps(counts, sort_keys=True)}")
+        check(all(math.isfinite(v) for v in losses),
+              f"{label}: non-finite loss")
+        for name in _path_kernels(label):
+            check(counts.get(name, 0) > 0,
+                  f"kernel {name} never launched on the {label} training "
+                  f"path")
+        check(all(s_["launches"] == per_step for s_ in steps),
+              f"{label}: launches differ between steps")
+    n_sites = 5 * cfg.n_layers
+    want = n_sites * cfg.n_nodes * cfg.dim * 4
+    check(all(r["act_fp32"] == want for r in runs.values())
+          and runs["fp32"]["act_bytes"] == want,
+          f"FP32 ACT bytes are not {n_sites} sites x {cfg.n_nodes} x "
+          f"{cfg.dim} fp32")
+    check(runs["int2"]["act_bytes"] == n_sites * cfg.n_nodes
+          * (cfg.dim * 2 // 8 + 8), "INT2 ACT bytes")
+    log(f"[train] traced ACT bytes INT2 / FP32: "
+        f"{runs['int2']['act_bytes']} / {runs['fp32']['act_bytes']} = 1 / "
+        f"{runs['fp32']['act_bytes'] / runs['int2']['act_bytes']:.2f}")
+    return runs
+
+
+def profile_step(torch, cfg, ds, g, label="int2"):
+    """torch.profiler over one steady training step: device time by
+    kernel, busy time and idle share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.policy import parse_schedule
+    from repro_torch.launch.train import ROOT_SEED
+    from repro_torch.models.registry import build_step
+    from repro_torch.training.optimizer import adam
+    from repro_torch.training.step import make_train_step
+
+    step = build_step("kgat", ds=ds, cfg=cfg, batch_size=TRAIN_BATCH,
+                      device=DEV, graph=g)
+    opt = adam(step.lr)
+    params = step.init(0)
+    train = make_train_step(step, opt, schedule=parse_schedule(label),
+                            root_seed=ROOT_SEED)
+    batches = step.batches()
+    state = (params, opt.init(params))
+    state, m = train(state, next(batches), 0)         # warm
+    batch = next(batches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = train(state, batch, 1)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"[profile] {label} step: wall {wall * 1e3:.2f} ms, device busy "
+        f"{busy:.2f} ms, idle share "
+        + (f"{1 - busy / (wall * 1e3):.3f}" if busy > 0 else
+           "not measured (no device events)"))
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"x{e.count:<4d} {e.key[:110]}")
+
+
+def _grads(torch, step, params, batch, label):
+    from repro_torch.core.context import act_context
+    from repro_torch.core.policy import parse_schedule
+    from repro_torch.launch.train import ROOT_SEED
+    from repro_torch.models.layers import param_leaves
+
+    ctx = act_context(parse_schedule(label), ROOT_SEED, step=0)
+    loss = step.loss(params, batch, ctx=ctx)
+    grads = torch.autograd.grad(loss, param_leaves(params))
+    return float(loss.detach()), grads
+
+
+def _fp64_versions(torch, g):
+    """SPMM and SDDMM over the graph's COO edges in the inputs' dtype (the
+    float64 reference step of ``check_train_grads``)."""
+    src, dst = g.src.long(), g.dst.long()
+
+    def spmm(x, ew, layout, *, transpose=False):
+        a, b = (dst, src) if transpose else (src, dst)
+        m = layout.meta
+        out = torch.zeros((m.n_src if transpose else m.n_dst,
+                           x.shape[1]), dtype=x.dtype, device=x.device)
+        msgs = x.index_select(0, a)
+        if ew is not None:
+            msgs = msgs * ew.to(x.dtype)[:, None]
+        return out.index_add_(0, b, msgs)
+
+    def grad_ew(res, grad, layout):
+        return (res.index_select(0, src) * grad.index_select(0, dst)).sum(-1)
+
+    return spmm, grad_ew
+
+
+def _err64(got, ref):
+    """(rms, max) of ``got - ref`` relative to ``ref``'s rms and max."""
+    diff = got.double() - ref
+    return (float(diff.square().mean().sqrt() / ref.square().mean().sqrt()),
+            float(diff.abs().max() / ref.abs().max()))
+
+
+def check_train_grads(torch, cfg, ds, g):
+    """One full-width step with the kernels against the same step with
+    every kernel's plain version (same seeds, parameters and batch); at
+    FP32 both against the same step in float64."""
+    from repro_torch.core.quant import QTensor
+    from repro_torch.kernels import dequant_matmul as dq
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.kernels import spmm as sp
+    from repro_torch.models.layers import param_leaves
+    from repro_torch.models.registry import build_step
+    from repro_torch.training.step import trainable
+
+    def grad_ew_plain(res, grad, layout):
+        if isinstance(res, QTensor):
+            return sp.dequant_sddmm_plain(res, grad, layout)
+        return sp.sddmm_plain(res, grad, layout)
+
+    step = build_step("kgat", ds=ds, cfg=cfg, batch_size=TRAIN_BATCH,
+                      device=DEV, graph=g)
+    batch = next(step.batches())
+    params = step.init(0)
+    names = [f"{k}[{i}]" if isinstance(params[k], list) else k
+             for k in sorted(params)
+             for i in range(len(params[k]) if isinstance(params[k], list)
+                            else 1)]
+    check(len(names) == len(param_leaves(params)), "parameter names")
+    got = {}
+    for label in ("fp32", "int2"):
+        got[label, "kernels"] = _grads(torch, step, params, batch, label)
+        with plain_versions(ops, spmm=sp.spmm_plain,
+                            quant_pack=qp.quant_pack_plain,
+                            spmm_grad_ew=grad_ew_plain,
+                            dequant_matmul=dq.dequant_matmul_plain):
+            got[label, "plain"] = _grads(torch, step, params, batch, label)
+    spmm64, grad_ew64 = _fp64_versions(torch, g)
+    p64 = trainable({k: [t.double() for t in v] if isinstance(v, list)
+                     else v.double() for k, v in params.items()})
+    with plain_versions(ops, spmm=spmm64, spmm_grad_ew=grad_ew64):
+        l64, g64 = _grads(torch, step, p64, batch, "fp32")
+    for label in ("fp32", "int2"):
+        (lk, gk), (lp, gp) = got[label, "kernels"], got[label, "plain"]
+        check(abs(lk - lp) <= TOL * abs(lp),
+              f"{label} loss with kernels {lk} vs plain {lp}")
+        worst = 0.0
+        for i, name in enumerate(names):
+            diff = float((gk[i] - gp[i]).abs().max())
+            if label == "fp32":
+                err_k, max_k = _err64(gk[i], g64[i])
+                err_p, max_p = _err64(gp[i], g64[i])
+                share = err_k / max(err_p, TOL / GRAD_FP64_RATIO)
+                ok = err_k <= max(GRAD_FP64_RATIO * err_p, TOL)
+                note = (f", error vs float64 (rms; max): kernels {err_k:.3e}"
+                        f"; {max_k:.3e}, plain {err_p:.3e}; {max_p:.3e}")
+            else:
+                noise = float((gk[i] - got["fp32", "kernels"][1][i])
+                              .abs().max())
+                share = diff / noise
+                ok = share <= GRAD_NOISE_SHARE
+                note = f", share of SR noise {share:.3e}"
+            worst = max(worst, share)
+            log(f"[grads] {label} {name}: max |kernels - plain| {diff:.3e}, "
+                f"rel {diff / float(gp[i].abs().max()):.3e}{note}")
+            check(ok, f"{label} gradient of {name} out of tolerance")
+        log(f"[grads] {label}: loss kernels {lk:.8f} plain {lp:.8f}"
+            + (f" float64 {l64:.8f}; worst rms error ratio kernels / "
+               f"max(plain, {TOL / GRAD_FP64_RATIO:g}) "
+               f"{worst:.3f} (limit {GRAD_FP64_RATIO})"
+               if label == "fp32" else
+               f"; worst SR-noise share {worst:.3e} (limit "
+               f"{GRAD_NOISE_SHARE})"))
 
 
 @contextlib.contextmanager
@@ -437,12 +837,14 @@ def main() -> int:
     from repro_torch.configs import get
     from repro_torch.data.synthetic import gen_kg_dataset
     from repro_torch.kernels import backend
+    from repro_torch.kernels import dequant_matmul as dq
     from repro_torch.kernels import quant_pack as qp
     from repro_torch.kernels import spmm as sp
     from repro_torch.kernels import topk_score as tk
     from repro_torch.models import kgnn
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     info = backend.probe()
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {info.name} sm_{info.capability[0]}{info.capability[1]} "
@@ -482,17 +884,38 @@ def main() -> int:
     gen = torch.Generator(device=DEV).manual_seed(0)
     entries = [check_quant_pack(torch, qp, gen),
                check_spmm(torch, sp, g, params["entity"], gen),
-               check_topk(torch, tk, gen)]
+               check_topk(torch, tk, gen),
+               check_sddmm(torch, sp, g, gen),
+               check_dequant_sddmm(torch, sp, g, gen),
+               check_dequant_matmul(torch, dq, gen)]
     check_reduced_rollout(torch)
 
     counts, res = run_main_path(torch, cfg, ds, g, params)
     check_served_path(torch, cfg, ds, g, params, res)
+    del res
+    runs = run_training(torch, cfg, ds, g)
+    profile_step(torch, cfg, ds, g)
+    check_train_grads(torch, cfg, ds, g)
+    # launches: the sum over the main-path runs (serving, then training
+    # under each schedule), each counted from 0 just before it
     for e in entries:
-        e["launches"] = counts[e["name"]]
+        by_path = {"serve": counts.get(e["name"], 0)}
+        by_path.update({f"train_{label}": r["counts"].get(e["name"], 0)
+                        for label, r in runs.items()})
+        e["launches_by_path"] = by_path
+        e["launches_per_train_step"] = {
+            label: r["per_step"].get(e["name"], 0)
+            for label, r in runs.items()}
+        e["launches"] = sum(by_path.values())
+        check(e["launches"] > 0, f"kernel {e['name']} never launched")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "launches_by_path", "launches_per_train_step")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
+    print(json.dumps({"kernels": [
+        {k: e[k] for k in keys + (("also_replaces",)
+                                  if "also_replaces" in e else ())}
+        for e in entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,271 @@
+"""Activation-compressed ops (port of ``repro/core/act.py``, the paper's core
+mechanism, section 3.3).
+
+Each op computes an EXACT full-precision forward; what differs from vanilla
+autograd is the *residual* it saves for the backward pass:
+
+  vanilla:  save x (fp32)                  -> O(N*d*4) bytes
+  TinyKG:   save Quant(x) (b-bit packed)   -> O(N*d*b/8) bytes (+2 fp32/row)
+
+Under an active policy each ``torch.autograd.Function`` below saves the
+packed ``QTensor`` and never the fp32 input; under FP32 it saves the input,
+as vanilla autograd would. The backward computes full-precision gradients
+from the dequantized residual, unbiased because the quantizer is
+(Proposition 1). The port has the reference's layout path only: the SPMM's
+backward runs the SPMM kernel on the transpose arrays for ∇x and the SDDMM
+(fp32 or packed residual) for ∇ew; ``act_matmul``'s ∇W is the fused
+dequant-matmul kernel. ``act_rmsnorm`` and ``act_remat`` come with the
+non-KG models.
+
+Site resolution follows the reference: explicit ``seed=`` / ``policy=``
+kwargs first, then the ambient ``ActContext`` at the site named ``scope``;
+with neither, the policy is FP32. Every resolved site records its residual
+(shape, bits) on the context for the activation-memory report.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ops
+
+from .context import current_context
+from .policy import FP32, ACTPolicy
+from .quant import QTensor, dequantize
+
+__all__ = ["act_matmul", "act_dense", "act_relu", "act_nonlin", "act_spmm",
+           "weighted_spmm", "NONLIN"]
+
+
+def _resolve_site(op_kind: str, scope: str | None, seed,
+                  policy: ACTPolicy | None):
+    """(scope, policy, seed, ctx) for one op call; see module docstring."""
+    ctx = current_context()
+    name = None
+    if ctx is not None:
+        name = ctx.qualify(scope or op_kind)
+        if policy is None:
+            policy = ctx.policy_for(op_kind, name)
+        if seed is None:
+            seed = ctx.key_for(name)
+    if policy is None:
+        policy = FP32
+    if seed is None:
+        if policy.requires_key:
+            raise ValueError(
+                f"act op {name or scope or op_kind!r}: stochastic rounding "
+                "under an active policy needs a seed; pass seed=, or run "
+                "inside act_context(..., root_seed=...). (A fixed default "
+                "seed would replay identical rounding noise.)")
+        seed = 0
+    return name, policy, seed, ctx
+
+
+def _record(ctx, name, op_kind, shape, policy: ACTPolicy) -> None:
+    # bits=None prices the uncompressed fp32 residual: what vanilla
+    # autograd keeps when the policy is inactive
+    if ctx is not None and name is not None:
+        ctx.record(name, op_kind, shape,
+                   policy.bits if policy.active else None)
+
+
+def _save(fctx, x: torch.Tensor, seed: int, policy: ACTPolicy, *rest):
+    """Save ``x`` as the op's residual (quantized under an active policy)
+    plus the tensors ``rest``."""
+    if policy.active:
+        fctx.q = ops.quantize(x.detach().reshape(-1, x.shape[-1]), seed,
+                              bits=policy.bits, stochastic=policy.stochastic)
+        fctx.save_for_backward(*rest)
+    else:
+        fctx.q = None
+        fctx.save_for_backward(x, *rest)
+    fctx.x_shape = x.shape
+
+
+def _load(fctx):
+    """(residual, rest): a 2-D ``QTensor`` or the saved fp32 input."""
+    saved = fctx.saved_tensors
+    if fctx.q is not None:
+        return fctx.q, saved
+    return saved[0], saved[1:]
+
+
+def _xhat(res, shape) -> torch.Tensor:
+    return dequantize(res).reshape(shape) if isinstance(res, QTensor) else res
+
+
+# -- matmul / dense -----------------------------------------------------------
+
+
+class _ActMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, w, policy, seed):
+        _save(fctx, x, seed, policy, w)
+        return x @ w
+
+    @staticmethod
+    def backward(fctx, g):
+        res, (w,) = _load(fctx)
+        dx = dw = None
+        if fctx.needs_input_grad[0]:
+            dx = g @ w.T
+        if fctx.needs_input_grad[1]:
+            g2 = g.reshape(-1, g.shape[-1])
+            if isinstance(res, QTensor):
+                dw = ops.dequant_matmul(res, g2)    # x_hat never formed
+            else:
+                dw = res.reshape(-1, res.shape[-1]).T @ g2
+        return dx, dw, None, None
+
+
+def act_matmul(x, w, *, seed=None, policy: ACTPolicy | None = None,
+               scope: str | None = None):
+    """``x @ w`` with b-bit residual storage of ``x``; ∇W runs the fused
+    dequant-matmul kernel under an active policy, ∇x is ``g @ wᵀ``."""
+    name, policy, seed, ctx = _resolve_site("matmul", scope, seed, policy)
+    _record(ctx, name, "matmul", x.shape, policy)
+    return _ActMatmul.apply(x, w, policy, seed)
+
+
+def act_dense(x, w, b, *, seed=None, policy: ACTPolicy | None = None,
+              scope: str | None = None):
+    """Affine layer; the bias gradient needs no activation."""
+    out = act_matmul(x, w, seed=seed, policy=policy, scope=scope)
+    return out if b is None else out + b
+
+
+# -- elementwise nonlinearities -----------------------------------------------
+
+
+class _ActRelu(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x):
+        mask = x > 0
+        fctx.save_for_backward(mask)       # bool mask: 1 bit/elt in principle
+        return torch.where(mask, x, 0.0)
+
+    @staticmethod
+    def backward(fctx, g):
+        (mask,) = fctx.saved_tensors
+        return torch.where(mask, g, 0.0)
+
+
+def act_relu(x, *, scope: str | None = None):
+    """ReLU with a 1-bit exact mask residual (paper section 4.1.4): lossless
+    at any policy; under a context the mask is still recorded."""
+    ctx = current_context()
+    if ctx is not None:
+        ctx.record(ctx.qualify(scope or "relu"), "relu", x.shape, 1,
+                   exact_mask=True)
+    return _ActRelu.apply(x)
+
+
+# tanh-approximate gelu; the constant rounded to fp32 as the reference's
+# jnp.sqrt(2 / jnp.pi) is
+_GELU_C = float(torch.sqrt(torch.tensor(2 / math.pi, dtype=torch.float32)))
+
+
+def _gelu(x):
+    return 0.5 * x * (1 + torch.tanh(_GELU_C * (x + 0.044715 * (x * x * x))))
+
+
+def _d_gelu(x):
+    t = torch.tanh(_GELU_C * (x + 0.044715 * (x * x * x)))
+    dt = (1 - t * t) * _GELU_C * (1 + 3 * 0.044715 * (x * x))
+    return 0.5 * (1 + t) + 0.5 * x * dt
+
+
+def _d_silu(x):
+    s = torch.sigmoid(x)
+    return s * (1 + x * (1 - s))
+
+
+def _d_sigmoid(x):
+    s = torch.sigmoid(x)
+    return s * (1 - s)
+
+
+def _d_tanh(x):
+    t = torch.tanh(x)
+    return 1 - t * t
+
+
+NONLIN = {
+    "silu": (torch.nn.functional.silu, _d_silu),
+    "gelu": (_gelu, _d_gelu),
+    "tanh": (torch.tanh, _d_tanh),
+    "sigmoid": (torch.sigmoid, _d_sigmoid),
+    "leaky_relu": (lambda x: torch.where(x > 0, x, 0.01 * x),
+                   lambda x: torch.where(x > 0, 1.0, 0.01).to(x.dtype)),
+}
+
+
+class _ActNonlin(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, fn, policy, seed):
+        _save(fctx, x, seed, policy)
+        fctx.fn = fn
+        return NONLIN[fn][0](x)
+
+    @staticmethod
+    def backward(fctx, g):
+        res, _ = _load(fctx)
+        dfn = NONLIN[fctx.fn][1]
+        return g * dfn(_xhat(res, fctx.x_shape)), None, None, None
+
+
+def act_nonlin(x, *, fn: str, seed=None, policy: ACTPolicy | None = None,
+               scope: str | None = None):
+    """Elementwise nonlinearity (``NONLIN``) saving a quantized copy of its
+    input; the backward evaluates the derivative at the dequantized input."""
+    name, policy, seed, ctx = _resolve_site("nonlin", scope or fn, seed,
+                                            policy)
+    _record(ctx, name, "nonlin", x.shape, policy)
+    return _ActNonlin.apply(x, fn, policy, seed)
+
+
+# -- SPMM (KG message passing, paper Eq. 2) -----------------------------------
+
+
+class _Spmm(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ew, layout, policy, seed):
+        _save(fctx, x, seed, policy, *(() if ew is None else (ew,)))
+        fctx.layout = layout
+        return ops.spmm(x, ew, layout)
+
+    @staticmethod
+    def backward(fctx, g):
+        res, rest = _load(fctx)
+        ew = rest[0] if rest else None
+        dx = dew = None
+        if fctx.needs_input_grad[0]:
+            # ∇x: the same kernel on the layout's src-sorted direction
+            dx = ops.spmm(g, ew, fctx.layout, transpose=True)
+        if fctx.needs_input_grad[1]:
+            # ∇ew: the SDDMM, reading a packed residual directly
+            dew = ops.spmm_grad_ew(res, g, fctx.layout)
+        return dx, dew, None, None, None
+
+
+def weighted_spmm(x, ew, layout):
+    """Differentiable SPMM with an fp32 residual that is no ACT site and
+    records nothing (the edge-softmax denominators; the reference's
+    ``segment_sum``)."""
+    return _Spmm.apply(x, ew, layout, FP32, 0)
+
+
+def act_spmm(x, ew, layout, *, seed=None, policy: ACTPolicy | None = None,
+             scope: str | None = None):
+    """Weighted aggregation ``H[v] = Σ_{(u,r,v)} w_e · x[u]`` over the
+    blocked-CSR ``layout`` of the graph. ``x`` is needed only for ∇ew, so it
+    is what the site saves (quantized under an active policy). With
+    ``ew=None`` the op is linear with index-only residuals: nothing to
+    compress and nothing recorded."""
+    if ew is None:
+        return weighted_spmm(x, None, layout)
+    name, policy, seed, ctx = _resolve_site("spmm", scope, seed, policy)
+    _record(ctx, name, "spmm", x.shape, policy)
+    return _Spmm.apply(x, ew, layout, policy, seed)

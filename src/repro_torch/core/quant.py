@@ -21,7 +21,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["QTensor", "quantize", "dequantize", "pack_bits", "unpack_bits"]
+__all__ = ["QTensor", "quantize", "dequantize", "pack_bits", "unpack_bits",
+           "act_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,3 +120,16 @@ def dequantize(q: QTensor) -> torch.Tensor:
     """``x_hat = code * scale + zero`` (two roundings), in ``q.dtype``."""
     codes = unpack_bits(q.packed, q.bits, q.dim).to(torch.float32)
     return (codes * q.scale + q.zero).to(q.dtype)
+
+
+def act_bytes(shape, bits: int | None, itemsize: int = 4) -> int:
+    """Bytes to store an activation of ``shape`` at ``bits`` (None: the
+    uncompressed fp32 baseline), the per-row scale and zero included."""
+    n = 1
+    for s in shape:
+        n *= s
+    if bits is None:
+        return n * itemsize
+    d = shape[-1]
+    rows = n // d
+    return rows * ((d * bits + 7) // 8) + rows * 2 * 4

@@ -1,10 +1,11 @@
-"""Synthetic KG recommendation dataset (port of
-``repro/data/synthetic.py:31-131``).
+"""Synthetic KG recommendation dataset and BPR sampler (port of
+``repro/data/synthetic.py:31-131,184-197``).
 
-``gen_kg_dataset`` makes the same numpy calls in the same order as the JAX
-package's, so the same arguments and seed give identical arrays: latent-factor
-user/item affinities plus an item KG whose relations link items to attributes
-that share latent directions. The CKG node space is
+``gen_kg_dataset`` and ``bpr_batches`` make the same numpy calls in the same
+order as the JAX package's, so the same arguments and seed give identical
+arrays. The dataset is latent-factor user/item affinities plus an item KG
+whose relations link items to attributes that share latent directions. The
+CKG node space is
 ``[users | items | attrs]``; relation 0 is ``interact`` (both directions), KG
 relations are shifted by 1 with distinct inverses, and self loops take the
 last relation id.
@@ -16,7 +17,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["KGDataset", "gen_kg_dataset"]
+__all__ = ["KGDataset", "gen_kg_dataset", "bpr_batches"]
 
 
 @dataclasses.dataclass
@@ -129,3 +130,21 @@ def gen_kg_dataset(*, n_users=200, n_items=300, n_attrs=150, n_relations=6,
         n_nodes=n_nodes, n_users=n_users, n_items=n_items,
         n_entities=n_entities, n_relations=2 * n_relations + 2,
         train_pos=train_pos, test_pos=test_pos)
+
+
+def bpr_batches(ds: KGDataset, batch_size: int, *, seed=0):
+    """Infinite (user, pos, neg) sampler with rejection on train positives;
+    numpy int32 arrays."""
+    rng = np.random.default_rng(seed)
+    pos_set = set(map(tuple, ds.train_pos))
+    n = len(ds.train_pos)
+    while True:
+        idx = rng.integers(0, n, batch_size)
+        users = ds.train_pos[idx, 0]
+        pos = ds.train_pos[idx, 1]
+        neg = rng.integers(0, ds.n_items, batch_size)
+        for i in range(batch_size):  # cheap rejection (sparse interactions)
+            while (users[i], neg[i]) in pos_set:
+                neg[i] = rng.integers(0, ds.n_items)
+        yield {"user": users.astype(np.int32), "pos": pos.astype(np.int32),
+               "neg": neg.astype(np.int32)}

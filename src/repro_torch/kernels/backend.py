@@ -19,7 +19,10 @@ are written for Hopper (``sm_90a``): asking for them on any other card raises.
 ``LAUNCH_COUNTS`` counts real kernel launches by name. Each kernel wrapper
 adds one where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels (``chip_smoke.py`` resets the counts
-before the path and reads them after).
+before the path and reads them after). A count is one call of the wrapper's C
+entry point: ``dequant_matmul`` (partial tiles, then their fixed-order sum)
+and ``topk_score`` (per-chunk lists, then their merge) each start two CUDA
+kernels per count.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ __all__ = ["DeviceInfo", "probe", "resolve_device", "require_sm90", "build",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quant_pack", "spmm", "topk_score")
+SOURCES = ("quant_pack", "spmm", "topk_score", "sddmm", "dequant_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

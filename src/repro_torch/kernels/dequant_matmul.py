@@ -1,0 +1,67 @@
+"""Fused dequantize + transposed GEMM for the ACT weight gradient: CUDA
+kernel and plain version.
+
+Port of ``repro/kernels/dequant_matmul.py:dequant_matmul`` (TPU kernel
+``_dqmm_kernel``) and its oracle ``repro/kernels/ref.py:ref_dequant_matmul``:
+``dW = dequant(q)ᵀ @ g`` in fp32, the weight gradient ∇Θ = Ĥᵀ∇J of paper
+Eq. (2), without writing ``x_hat`` to device memory. The kernel is
+``csrc/dequant_matmul.cu`` (R split across CTAs, partial tiles summed in a
+fixed order by a second pass); its source note says what bounds it.
+
+``kernels.ops.dequant_matmul`` sends CUDA tensors to ``dequant_matmul_cuda``
+and CPU tensors to ``dequant_matmul_plain``. Both dequantize with the same
+two roundings and sum in different orders, so they agree to fp32
+reassociation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.quant import QTensor, dequantize
+
+from . import backend
+
+__all__ = ["dequant_matmul_plain", "dequant_matmul_cuda"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P)
+
+
+def dequant_matmul_plain(q: QTensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version (the ``ref_dequant_matmul`` oracle): dequantize, then
+    an fp32 ``x_hatᵀ @ g``."""
+    return dequantize(q).to(torch.float32).T @ g.to(torch.float32)
+
+
+def dequant_matmul_cuda(q: QTensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/dequant_matmul.cu``: (rows, dp) packed and (rows, n)
+    fp32 g -> (dim, n) fp32."""
+    backend.check_cuda(q.packed, torch.uint8, 2, "packed")
+    backend.check_cuda(q.scale, torch.float32, 2, "scale")
+    backend.check_cuda(q.zero, torch.float32, 2, "zero")
+    backend.check_cuda(g, torch.float32, 2, "g")
+    backend.require_sm90(g.device)
+    rows, dp = q.packed.shape
+    if dp * (8 // q.bits) < q.dim or q.scale.shape != (rows, 1) \
+            or q.zero.shape != (rows, 1) or g.shape[0] != rows:
+        raise ValueError(f"packed table {tuple(q.packed.shape)} at "
+                         f"{q.bits} bits, width {q.dim}, against g of shape "
+                         f"{tuple(g.shape)}")
+    n = g.shape[1]
+    chunks = backend.kernel_fn("dequant_matmul", "dequant_matmul_chunks",
+                               (_I,))(rows)
+    partial = torch.empty((chunks, q.dim, n), dtype=torch.float32,
+                          device=g.device)
+    out = torch.empty((q.dim, n), dtype=torch.float32, device=g.device)
+    fn = backend.kernel_fn("dequant_matmul", "dequant_matmul_launch",
+                           _ARGTYPES)
+    with torch.cuda.device(g.device):
+        backend.launch(fn, q.packed.data_ptr(), dp, q.bits, q.dim,
+                       q.scale.data_ptr(), q.zero.data_ptr(), g.data_ptr(),
+                       rows, n, partial.data_ptr(), out.data_ptr(),
+                       backend.stream_of(g))
+    backend.count_launch("dequant_matmul")
+    return out

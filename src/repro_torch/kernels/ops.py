@@ -6,19 +6,27 @@ kernel, a CPU tensor to the kernel's plain PyTorch version, anything else
 raises. There is no fallback from one to the other; a kernel that cannot
 build or launch raises. ``LAUNCH_COUNTS`` (the counterpart of the JAX
 package's trace-time ``TRACE_COUNTS``) counts real kernel launches by name:
-``quant_pack``, ``spmm`` and ``topk_score``.
+``quant_pack``, ``spmm``, ``topk_score``, ``sddmm``, ``dequant_sddmm`` and
+``dequant_matmul``, one per wrapper call (``dequant_matmul`` and
+``topk_score`` start two CUDA kernels a call; see ``backend``). ``quantize(x, seed, *, bits, stochastic)`` is
+``core.quant.quantize``: the ``quant_pack`` route wrapped into a
+``QTensor``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quant import QTensor, quantize
+
+from . import dequant_matmul as _dqmm
 from . import quant_pack as _qp
 from . import spmm as _spmm
 from . import topk_score as _tk
 from .backend import LAUNCH_COUNTS
 
-__all__ = ["quant_pack", "spmm", "topk", "LAUNCH_COUNTS"]
+__all__ = ["quant_pack", "quantize", "spmm", "spmm_grad_ew",
+           "dequant_matmul", "topk", "LAUNCH_COUNTS"]
 
 
 def _on_card(x: torch.Tensor, op: str) -> bool:
@@ -55,6 +63,30 @@ def spmm(x: torch.Tensor, ew: torch.Tensor | None, layout, *,
                               layout, transpose=transpose)
         return out.to(x.dtype)
     return _spmm.spmm_plain(x, ew, layout, transpose=transpose)
+
+
+def spmm_grad_ew(res, g: torch.Tensor, layout) -> torch.Tensor:
+    """∇ew of the SPMM: ``dew[e] = <x_hat[src_e], g[dst_e]>``, (E,) fp32 in
+    original edge order. ``res`` is the saved forward residual: a packed
+    ``QTensor`` (read directly, unpacked in the kernel) or the fp32
+    activation; see kernels/spmm.py."""
+    if isinstance(res, QTensor):
+        if _on_card(g, "spmm_grad_ew"):
+            return _spmm.dequant_sddmm_cuda(res, g.to(torch.float32)
+                                            .contiguous(), layout)
+        return _spmm.dequant_sddmm_plain(res, g, layout)
+    if _on_card(g, "spmm_grad_ew"):
+        return _spmm.sddmm_cuda(res.to(torch.float32).contiguous(),
+                                g.to(torch.float32).contiguous(), layout)
+    return _spmm.sddmm_plain(res, g, layout)
+
+
+def dequant_matmul(q: QTensor, g: torch.Tensor) -> torch.Tensor:
+    """``dequant(q)ᵀ @ g`` for a (rows, dp) packed table and (rows, n) g:
+    the ACT weight gradient, (dim, n) fp32; see kernels/dequant_matmul.py."""
+    if _on_card(g, "dequant_matmul"):
+        return _dqmm.dequant_matmul_cuda(q, g.to(torch.float32).contiguous())
+    return _dqmm.dequant_matmul_plain(q, g)
 
 
 def topk(q: torch.Tensor, items, excl: torch.Tensor, *, k: int):

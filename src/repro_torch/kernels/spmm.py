@@ -1,7 +1,8 @@
-"""Weighted SPMM over a blocked-CSR layout: CUDA kernel and plain version.
+"""Weighted SPMM and its edge-weight gradient (SDDMM) over a blocked-CSR
+layout: CUDA kernels and plain versions.
 
-Port of ``repro/kernels/spmm.py:spmm`` (TPU kernels ``_spmm_kernel`` and
-``_spmm_dma_kernel``, which compute the same function). The op is
+SPMM: port of ``repro/kernels/spmm.py:spmm`` (TPU kernels ``_spmm_kernel``
+and ``_spmm_dma_kernel``, which compute the same function). The op is
 ``out[v] = sum_{e=(u->v)} ew[e] * x[u]`` for the forward direction, and
 ``Aᵀ(g * ew)`` for ``transpose=True`` (the layout's src-sorted arrays run
 through the same kernel). ``ew=None`` aggregates unweighted.
@@ -10,9 +11,16 @@ The kernel is ``csrc/spmm.cu``: one CTA per destination tile, each output
 element one sequential sum in slot order, no atomics, so two runs give the
 same bits. Its source note says what bounds it on the H100.
 
-``kernels.ops.spmm`` sends CUDA tensors to ``spmm_cuda`` and CPU tensors to
-``spmm_plain``. The two sum in different orders, so they agree to fp32
-reassociation, not bit for bit.
+SDDMM: port of ``sddmm_ew`` (TPU kernel ``_sddmm_kernel``) and
+``dequant_sddmm_ew`` (``_dq_sddmm_kernel`` and ``_dq_sddmm_dma_kernel``):
+``dew[e] = <x_hat[src_e], g[dst_e]>`` in original edge order, from an fp32
+residual or a packed ``QTensor`` (unpacked in the kernel). Both run through
+``csrc/sddmm.cu``: a group of lanes per slot of the forward direction, the
+result written straight to ``dew[perm[slot]]``, no atomics.
+
+``kernels.ops`` sends CUDA tensors to the ``*_cuda`` launchers and CPU
+tensors to the ``*_plain`` versions. Each pair sums in different orders, so
+they agree to fp32 reassociation, not bit for bit.
 """
 
 from __future__ import annotations
@@ -21,12 +29,17 @@ import ctypes
 
 import torch
 
+from repro_torch.core.quant import QTensor, dequantize
+
 from . import backend
 
-__all__ = ["spmm_plain", "spmm_cuda"]
+__all__ = ["spmm_plain", "spmm_cuda", "sddmm_plain", "sddmm_cuda",
+           "dequant_sddmm_plain", "dequant_sddmm_cuda"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P)
+_SDDMM_ARGTYPES = (_P, _I, _P, _I, _P, _P, _P, _I, _P, _P)
+_DQ_SDDMM_ARGTYPES = (_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P)
 
 
 def spmm_plain(x: torch.Tensor, ew: torch.Tensor | None, layout, *,
@@ -81,3 +94,80 @@ def spmm_cuda(x: torch.Tensor, ew: torch.Tensor | None, layout, *,
     backend.count_launch("spmm")
     return out
 
+
+# -- the edge-weight gradient: SDDMM ------------------------------------------
+
+
+def sddmm_plain(x: torch.Tensor, g: torch.Tensor, layout) -> torch.Tensor:
+    """Plain version: gather both rows of every real slot, multiply, sum,
+    and place each result at its edge."""
+    m = layout.meta
+    perm = layout.perm_blk.reshape(-1).long()
+    real = perm < m.n_edges
+    src = layout.src_blk.reshape(-1)[real].long()
+    dst = layout.dstg_blk.reshape(-1)[real].long()
+    vals = (x.to(torch.float32)[src] * g.to(torch.float32)[dst]).sum(dim=-1)
+    out = torch.zeros(m.n_edges, dtype=torch.float32, device=x.device)
+    out[perm[real]] = vals
+    return out
+
+
+def dequant_sddmm_plain(q: QTensor, g: torch.Tensor, layout) -> torch.Tensor:
+    """Plain version from the packed residual: ``dequantize`` (the kernel's
+    two roundings) then ``sddmm_plain``."""
+    return sddmm_plain(dequantize(q).to(torch.float32), g, layout)
+
+
+def _check_sddmm(g: torch.Tensor, layout, n_rows: int, d: int):
+    m = layout.meta
+    backend.check_cuda(g, torch.float32, 2, "g")
+    backend.require_sm90(g.device)
+    if n_rows != m.n_src or g.shape != (m.n_dst, d):
+        raise ValueError(f"residual of {n_rows} rows and g of shape "
+                         f"{tuple(g.shape)} against a layout of {m.n_src} "
+                         f"sources and {m.n_dst} destinations, width {d}")
+    for name in ("src_blk", "dstg_blk", "perm_blk"):
+        arr = getattr(layout, name)
+        backend.check_cuda(arr, torch.int32, 2, name)
+        if arr.device != g.device:
+            raise ValueError(f"layout is on {arr.device}, g on {g.device}")
+    return torch.empty(m.n_edges, dtype=torch.float32, device=g.device)
+
+
+def sddmm_cuda(x: torch.Tensor, g: torch.Tensor, layout) -> torch.Tensor:
+    """Launch ``csrc/sddmm.cu`` on an fp32 residual."""
+    backend.check_cuda(x, torch.float32, 2, "x")
+    out = _check_sddmm(g, layout, x.shape[0], x.shape[1])
+    m = layout.meta
+    fn = backend.kernel_fn("sddmm", "sddmm_launch", _SDDMM_ARGTYPES)
+    with torch.cuda.device(x.device):
+        backend.launch(fn, x.data_ptr(), x.shape[1], g.data_ptr(),
+                       layout.perm_blk.numel(), layout.src_blk.data_ptr(),
+                       layout.dstg_blk.data_ptr(), layout.perm_blk.data_ptr(),
+                       m.n_edges, out.data_ptr(), backend.stream_of(x))
+    backend.count_launch("sddmm")
+    return out
+
+
+def dequant_sddmm_cuda(q: QTensor, g: torch.Tensor, layout) -> torch.Tensor:
+    """Launch ``csrc/sddmm.cu`` on a packed residual (any bits, any width)."""
+    backend.check_cuda(q.packed, torch.uint8, 2, "packed")
+    backend.check_cuda(q.scale, torch.float32, 2, "scale")
+    backend.check_cuda(q.zero, torch.float32, 2, "zero")
+    rows, dp = q.packed.shape
+    if dp * (8 // q.bits) < q.dim or q.scale.shape != (rows, 1) \
+            or q.zero.shape != (rows, 1):
+        raise ValueError(f"packed table {tuple(q.packed.shape)} at "
+                         f"{q.bits} bits cannot hold width {q.dim}")
+    out = _check_sddmm(g, layout, rows, q.dim)
+    m = layout.meta
+    fn = backend.kernel_fn("sddmm", "dequant_sddmm_launch",
+                           _DQ_SDDMM_ARGTYPES)
+    with torch.cuda.device(g.device):
+        backend.launch(fn, q.packed.data_ptr(), dp, q.bits, q.dim,
+                       q.scale.data_ptr(), q.zero.data_ptr(), g.data_ptr(),
+                       layout.perm_blk.numel(), layout.src_blk.data_ptr(),
+                       layout.dstg_blk.data_ptr(), layout.perm_blk.data_ptr(),
+                       m.n_edges, out.data_ptr(), backend.stream_of(g))
+    backend.count_launch("dequant_sddmm")
+    return out

@@ -1,5 +1,5 @@
 """KGAT over a collaborative knowledge graph (port of ``repro/models/kgnn.py``,
-KGAT only, FP32 forward).
+KGAT only): the FP32 serving rollout and activation-compressed training.
 
 Users, items and attribute entities share one node space; user-item
 interactions are the ``interact`` relation, merged with the item KG. KGAT's
@@ -9,11 +9,20 @@ section 3), softmaxed over each destination's edges; each layer aggregates
 with the SPMM kernel over the graph's blocked-CSR layout and applies the
 bi-interaction aggregator; the readout concatenates every layer.
 
+One layer function serves both paths. Its five sites (``spmm``, ``w1``,
+``w2``, ``act1``, ``act2`` under ``kgat/layer<l>/``) are ACT ops
+(``repro_torch.core.act``) that resolve their policy and seed from the
+ambient ``ActContext``: ``bpr_loss`` runs them under the training schedule,
+``propagate`` under FP32 with autograd off. The attention is not an ACT
+site, as in the reference: autograd keeps its (E, d) tensors uncompressed.
+
 Aggregation sums are deterministic on the card: the SPMM kernel sums each
 destination in slot order without atomics, and the edge-softmax
-denominators are that same kernel run over a ones column. The bi-interaction
-matmuls stay ``torch.matmul`` (the JAX package leaves them to XLA), in full
-fp32: TF32 is switched off for them.
+denominators are that same kernel run over a ones column (their ∇ew the
+SDDMM kernel on the same column). The attention's own gathers
+backpropagate through ``index_add``, which uses atomics on CUDA, so two
+training steps on the card may differ in the last bits. Every matmul runs in
+full fp32: TF32 is switched off on the card.
 """
 
 from __future__ import annotations
@@ -23,15 +32,18 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.act import act_matmul, act_nonlin, act_spmm, \
+    weighted_spmm
+from repro_torch.core.context import act_context, model_context
+from repro_torch.core.policy import FP32
 from repro_torch.data.csr import attach_layout
-from repro_torch.kernels import ops
 from repro_torch.kernels.backend import resolve_device
 
-from .layers import glorot, normal_init
+from .layers import glorot, normal_init, param_leaves
 
 __all__ = ["KGNNConfig", "CKG", "segment_softmax", "kgat_bi_interaction",
-           "init_params", "params_from_jax", "propagate", "readout",
-           "score_pairs"]
+           "init_params", "params_from_jax", "forward_reps", "propagate",
+           "readout", "score_pairs", "bpr_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +81,7 @@ class KGNNConfig:
     n_layers: int = 3            # paper fixes 3
     layer_dims: tuple = ()       # per-layer out dims; default = dim each
     n_bases: int = 4             # relation-projection bases
+    l2: float = 1e-5             # L2 weight of bpr_loss
     readout: str = "concat"      # concat (KGAT) | sum | last
 
     @property
@@ -89,18 +102,22 @@ def _check_kgat(cfg: KGNNConfig) -> None:
 def segment_softmax(logits: torch.Tensor, g: CKG) -> torch.Tensor:
     """Numerically stable softmax of per-edge logits over each destination.
 
-    The max is ``scatter_reduce(amax)`` (order-free); the denominators are
-    the SPMM of a ones column with the exponentials as edge weights, so they
-    are summed in the layout's dst-sorted slot order, deterministically.
+    The max is ``scatter_reduce(amax)`` (order-free) and carries no
+    gradient: the softmax does not depend on the shift, so its derivative
+    through the max is zero. The denominators are the SPMM of a ones column
+    with the exponentials as edge weights, summed in the layout's dst-sorted
+    slot order, deterministically; their ∇ew (``g_den[dst_e]``) is the SDDMM
+    of the same column. That SPMM is no ACT site and records nothing.
     """
     seg = g.dst.long()
     mx = torch.full((g.n_nodes,), float("-inf"), dtype=logits.dtype,
                     device=logits.device)
-    mx = mx.scatter_reduce(0, seg, logits, reduce="amax", include_self=True)
-    ex = torch.exp(logits - mx[seg])
+    mx = mx.scatter_reduce(0, seg, logits.detach(), reduce="amax",
+                           include_self=True)
+    ex = torch.exp(logits - mx.index_select(0, seg))
     ones = torch.ones((g.n_nodes, 1), dtype=ex.dtype, device=ex.device)
-    den = ops.spmm(ones, ex, g.layout)[:, 0]
-    return ex / (den[seg] + 1e-16)
+    den = weighted_spmm(ones, ex, g.layout)[:, 0]
+    return ex / (den.index_select(0, seg) + 1e-16)
 
 
 def init_params(cfg: KGNNConfig, *, seed: int = 0, device="cuda") -> dict:
@@ -140,15 +157,14 @@ def _to_device(p: dict, dev: torch.device) -> dict:
             for k, v in p.items()}
 
 
-def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    return torch.where(x > 0, x, 0.01 * x)
-
-
 def kgat_bi_interaction(p: dict, layer: int, e: torch.Tensor,
                         e_n: torch.Tensor) -> torch.Tensor:
-    """LeakyReLU(W1(e + eN)) + LeakyReLU(W2(e * eN))."""
-    add = _leaky_relu((e + e_n) @ p["w1"][layer])
-    mul = _leaky_relu((e * e_n) @ p["w2"][layer])
+    """LeakyReLU(W1(e + eN)) + LeakyReLU(W2(e * eN)), four ACT sites
+    resolved from the ambient context (``w1``, ``w2``, ``act1``, ``act2``)."""
+    add = act_matmul(e + e_n, p["w1"][layer], scope="w1")
+    mul = act_matmul(e * e_n, p["w2"][layer], scope="w2")
+    add = act_nonlin(add, fn="leaky_relu", scope="act1")
+    mul = act_nonlin(mul, fn="leaky_relu", scope="act2")
     return add + mul
 
 
@@ -159,24 +175,32 @@ def _kgat_attention(p: dict, e: torch.Tensor, g: CKG) -> torch.Tensor:
     edge. The JAX package gathers them as ``(B, E, d)`` tensors and contracts
     with one einsum; the port sums the ``B`` bases one ``(E, d)`` term at a
     time, which is the same function with a quarter of the peak memory.
+
+    Every gather is ``index_select``, whose backward is ``index_add_``. A
+    ``tensor[idx]`` gather backpropagates through a sort-based
+    ``index_put_`` instead, which on the card walks each index's
+    duplicates serially: the relation tables (80 rows) take about 83,000
+    edges a row at full width.
     """
     src, dst, rel = g.src.long(), g.dst.long(), g.rel.long()
     proj = torch.stack([e @ p["att_basis"][b]
                         for b in range(p["att_basis"].shape[0])])
-    coef = p["att_coef"][rel]                               # (E, B)
+    coef = p["att_coef"].index_select(0, rel)               # (E, B)
     eh = et = None
     for b in range(proj.shape[0]):
         c = coef[:, b:b + 1]
-        th, tt = c * proj[b][src], c * proj[b][dst]
+        th = c * proj[b].index_select(0, src)
+        tt = c * proj[b].index_select(0, dst)
         eh = th if eh is None else eh + th
         et = tt if et is None else et + tt
-    logits = torch.sum(et * torch.tanh(eh + p["relation"][rel]), dim=-1)
+    logits = torch.sum(
+        et * torch.tanh(eh + p["relation"].index_select(0, rel)), dim=-1)
     return segment_softmax(logits, g)
 
 
 def _kgat_layer(p: dict, layer: int, e: torch.Tensor, g: CKG,
                 att: torch.Tensor) -> torch.Tensor:
-    e_n = ops.spmm(e, att, g.layout)
+    e_n = act_spmm(e, att, g.layout, scope="spmm")
     return kgat_bi_interaction(p, layer, e, e_n)
 
 
@@ -188,22 +212,47 @@ def readout(outs: list, cfg: KGNNConfig) -> torch.Tensor:
     return outs[-1]
 
 
-@torch.no_grad()
-def propagate(params: dict, g: CKG, cfg: KGNNConfig) -> torch.Tensor:
-    """L layers of FP32 KGAT message passing; the readout of every node."""
+def forward_reps(params: dict, g: CKG, cfg: KGNNConfig) -> torch.Tensor:
+    """L layers of KGAT message passing under the ambient ``ActContext``
+    (FP32 without one); the readout of every node. Under an active
+    stochastic policy the context must carry a seed source: there is no
+    silent constant seed (``ActContext.check_key``)."""
     _check_kgat(cfg)
     if g.src.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False   # full fp32, as XLA
-    e = params["entity"]
-    outs = [e]
-    att = _kgat_attention(params, e, g)
-    for layer in range(cfg.n_layers):
-        e = _kgat_layer(params, layer, e, g, att)
-        outs.append(e)
+    ctx = model_context()
+    ctx.check_key(f"propagate({cfg.model})")
+    with ctx, ctx.scope(cfg.model):
+        e = params["entity"]
+        outs = [e]
+        att = _kgat_attention(params, e, g)
+        for layer in range(cfg.n_layers):
+            with ctx.scope(f"layer{layer}"):
+                e = _kgat_layer(params, layer, e, g, att)
+            outs.append(e)
     return readout(outs, cfg)
+
+
+@torch.no_grad()
+def propagate(params: dict, g: CKG, cfg: KGNNConfig) -> torch.Tensor:
+    """The FP32 serving rollout: ``forward_reps`` with autograd off."""
+    with act_context(FP32):
+        return forward_reps(params, g, cfg)
 
 
 def score_pairs(reps: torch.Tensor, users: torch.Tensor, items: torch.Tensor,
                 n_users: int) -> torch.Tensor:
     """y_uv = e_uᵀ e_v; item node ids are offset by n_users in the CKG."""
     return torch.sum(reps[users.long()] * reps[items.long() + n_users], dim=-1)
+
+
+def bpr_loss(params: dict, g: CKG, batch: dict,
+             cfg: KGNNConfig) -> torch.Tensor:
+    """BPR pairwise ranking loss + L2 over every parameter (the KGAT
+    objective); the sites resolve from the ambient context."""
+    reps = forward_reps(params, g, cfg)
+    pos = score_pairs(reps, batch["user"], batch["pos"], cfg.n_users)
+    neg = score_pairs(reps, batch["user"], batch["neg"], cfg.n_users)
+    loss = -torch.mean(torch.nn.functional.logsigmoid(pos - neg))
+    reg = sum(torch.sum(x ** 2) for x in param_leaves(params))
+    return loss + cfg.l2 * reg

@@ -12,7 +12,7 @@ import math
 
 import torch
 
-__all__ = ["glorot", "normal_init"]
+__all__ = ["glorot", "normal_init", "param_leaves"]
 
 
 def glorot(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
@@ -26,3 +26,14 @@ def glorot(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
 def normal_init(gen: torch.Generator, shape, stddev=0.02,
                 dtype=torch.float32) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=dtype) * stddev
+
+
+def param_leaves(params: dict) -> list:
+    """The parameter tensors in the reference's pytree leaf order: keys
+    sorted, list entries in order (sums over them round as the reference's
+    do)."""
+    out = []
+    for k in sorted(params):
+        v = params[k]
+        out.extend(v if isinstance(v, (list, tuple)) else [v])
+    return out

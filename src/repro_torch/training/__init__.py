@@ -1,1 +1,1 @@
-"""Dense ranking metrics (the reference the streaming evaluator is held to)."""
+"""Training: the reference's optimizer, the step, the trainer and metrics."""

@@ -5,8 +5,8 @@ without them (the kernels have no CPU or interpret mode). Run on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Small shapes; ``chip_smoke.py`` repeats the checks at the serving path's
-full-width shapes.
+Small shapes; ``chip_smoke.py`` repeats the checks at the serving and
+training paths' full-width shapes.
 """
 
 from __future__ import annotations
@@ -19,12 +19,17 @@ from repro_torch.configs import get
 from repro_torch.configs.smoke import reduced
 from repro_torch.core.quant import QTensor, dequantize, pack_bits, quantize
 from repro_torch.data.csr import build_spmm_layout
+from repro_torch.core.policy import schedule_from_cli
 from repro_torch.kernels import backend
+from repro_torch.kernels import dequant_matmul as dq
 from repro_torch.kernels import quant_pack as qp
 from repro_torch.kernels import spmm as sp
 from repro_torch.kernels import topk_score as tk
 from repro_torch.launch.serve import reduced_dataset, serve_kgnn
+from repro_torch.launch.train import train_kgnn
 from repro_torch.models import kgnn
+
+SERVING = ("quant_pack", "spmm", "topk_score")
 
 pytestmark = pytest.mark.cuda
 
@@ -125,5 +130,72 @@ def test_reduced_serving_path_runs_the_kernels(cuda):
     res = serve_kgnn(cfg, ds, kgnn.init_params(cfg, device=cuda), bits=8,
                      k=10, requests=12, device=cuda, log=lambda _: None)
     counts = dict(backend.LAUNCH_COUNTS)
-    assert all(counts.get(n, 0) > 0 for n in backend.SOURCES), counts
+    assert all(counts.get(n, 0) > 0 for n in SERVING), counts
     assert res["dense_delta"] <= 1e-6
+
+
+def _rel(a, ref):
+    return float((a - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("d", [1, 37, 64, 200])
+def test_sddmm_kernel_close_and_deterministic(cuda, d):
+    layout = _layout(cuda, 500, 700, 6000, d)         # pad slots, empty tiles
+    m = layout.meta
+    assert bool((layout.perm_blk == m.n_edges).any())
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn((m.n_src, d), generator=gen, device=cuda)
+    g = torch.randn((m.n_dst, d), generator=gen, device=cuda)
+    a = sp.sddmm_cuda(x, g, layout)
+    assert torch.equal(a, sp.sddmm_cuda(x, g, layout))
+    assert _rel(a, sp.sddmm_plain(x, g, layout)) <= 1e-5
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("dim", [64, 37])
+def test_dequant_sddmm_kernel_close_and_deterministic(cuda, bits, dim):
+    layout = _layout(cuda, 500, 700, 6000, bits + dim)
+    m = layout.meta
+    gen = torch.Generator(device=cuda).manual_seed(bits)
+    q = quantize(torch.randn((m.n_src, dim), generator=gen, device=cuda),
+                 5, bits=bits, stochastic=True)
+    g = torch.randn((m.n_dst, dim), generator=gen, device=cuda)
+    a = sp.dequant_sddmm_cuda(q, g, layout)
+    assert torch.equal(a, sp.dequant_sddmm_cuda(q, g, layout))
+    assert _rel(a, sp.dequant_sddmm_plain(q, g, layout)) <= 1e-5
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("rows,dim,n", [(4099, 64, 64), (1000, 37, 24),
+                                        (70000, 130, 70)])
+def test_dequant_matmul_kernel_close_and_deterministic(cuda, bits, rows,
+                                                       dim, n):
+    gen = torch.Generator(device=cuda).manual_seed(rows + bits)
+    q = quantize(torch.randn((rows, dim), generator=gen, device=cuda), 3,
+                 bits=bits, stochastic=True)
+    g = torch.randn((rows, n), generator=gen, device=cuda)
+    a = dq.dequant_matmul_cuda(q, g)
+    assert a.shape == (dim, n)
+    assert torch.equal(a, dq.dequant_matmul_cuda(q, g))
+    assert _rel(a, dq.dequant_matmul_plain(q, g)) <= 1e-5
+
+
+@pytest.mark.parametrize("bits", [0, 2])
+def test_reduced_training_runs_the_kernels(cuda, bits):
+    """A few reduced KGAT steps on the card follow the CPU's plain versions;
+    every kernel of the schedule's path launches."""
+    cfg = reduced(get("kgat")).model_cfg
+    ds = reduced_dataset(cfg)
+    sched = schedule_from_cli(None, bits)
+    runs = {}
+    for dev in ("cpu", cuda):
+        backend.reset_counts()
+        runs[str(dev)] = train_kgnn(
+            cfg, ds, kgnn.init_params(cfg, device=dev), sched, 3, batch=32,
+            device=dev, log=lambda _: None)
+    want = ("spmm", "sddmm") + (("quant_pack", "dequant_sddmm",
+                                 "dequant_matmul") if bits else ())
+    launches = runs[str(cuda)]["steps"][0]["launches"]
+    assert all(launches.get(k, 0) > 0 for k in want), launches
+    losses = [[r["loss"] for r in run["steps"]] for run in runs.values()]
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)

@@ -15,7 +15,9 @@ import torch
 
 from repro_torch.configs import get
 from repro_torch.configs.smoke import reduced
+from repro_torch.core.quant import quantize
 from repro_torch.data.csr import build_spmm_layout
+from repro_torch.kernels import dequant_matmul as tdqmm
 from repro_torch.kernels import spmm as tspmm
 from repro_torch.launch import serve as tserve
 from repro_torch.models import kgnn
@@ -67,6 +69,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     layout = build_spmm_layout(src, src[::-1].copy(), n_dst=4, device="cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):
         tspmm.spmm_cuda(torch.zeros((4, 2)), None, layout)
+    q = quantize(torch.randn((4, 3)), 1, bits=2)
+    for launch in (lambda: tspmm.sddmm_cuda(torch.zeros((4, 3)),
+                                            torch.zeros((4, 3)), layout),
+                   lambda: tspmm.dequant_sddmm_cuda(q, torch.zeros((4, 3)),
+                                                    layout),
+                   lambda: tdqmm.dequant_matmul_cuda(q, torch.zeros((4, 2)))):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            launch()
 
 
 def test_chip_smoke_refuses_without_cuda_or_checkout(tmp_path, monkeypatch,
