@@ -18,6 +18,7 @@ their plain versions.
      topk_score  indices and values bit-identical on integer-valued inputs
                  full of ties; on random inputs values <= 1e-5 relative and
                  indices equal except between scores within that tolerance;
+                 both again at k 200 (past the former 128 limit);
      sddmm       <= 1e-5 relative on the full-width graph at d 64 (the
                  FP32 layers' gradient) and d 1 (the edge softmax's ones
                  column) and bit-identical across two runs;
@@ -25,11 +26,19 @@ their plain versions.
                  (d 37, bits 2);
      dequant_matmul <= 1e-5 relative at R 184,166, 64 x 64, bits 8/4/2/1,
                  and a padded pack (d 37), bit-identical across two runs;
+     coarse_topm values and indices bit-identical at I 24,915, d 256, INT8
+                 and INT4, on ties and random inputs, at B 8 and 128 with
+                 m 80 and at B 8 with m = n_items;
+     dequant_unpack bit-identical on the item table (INT8, INT4), the
+                 re-rank's 640 candidate rows, bits 2/1 and padded packs;
    and times kernel, plain version and (where one PyTorch call computes the
    same function) that call, as medians of CUDA-event timings, beside the
-   bound: max(bytes / 3.35 TB/s, fp32 ops / 67 TFLOP/s), the H100 SXM's
-   published peaks, with the bytes the function must move (each input
-   read once, each output written once).
+   bound: max(bytes / 3.35 TB/s, ops / peak), the H100 SXM's published
+   peaks, with the bytes the function must move (each input read once,
+   each output written once). The peak is the fp32 rate outside the tensor
+   cores (67 TFLOP/s), except for coarse_topm: its dot multiplies int8
+   query codes by unsigned codes and is exact at the int8 tensor-core rate
+   (1,979 TOP/s).
 4. Cross-checks the reduced KGAT rollout on the card against the CPU.
 5. Drives the main path at full width through ``serve_kgnn``: the paper's
    KGAT config (70,679 users, 113,487 entities, 80 relations, d 64, 3
@@ -43,7 +52,24 @@ their plain versions.
    (<= 1e-5 relative), the served store against the plain quantizer on
    that rollout (bit-identical), and the engine's responses for a sample of
    users against the plain top-K on the served store (as in 3).
-7. Drives the training path at full width through ``train_kgnn``: the same
+7. Drives the tier-2 serving path at full width through ``serve_kgnn``
+   (counts reset just before, read just after; every kernel of the path
+   must have launched): two-stage C 4, 2 item shards, a 4,096-entry cache,
+   400 zipfian requests (a 1.1, seed 0), 2 FP32 BPR steps, a re-roll and a
+   delta refresh, a second burst. Prints QPS and p50/p99 beside a
+   single-stage engine's on the same requests, the stage times, the
+   candidate share and the cache hit rate. Checks the live store against
+   the new rollout (bit-identical) and every cache hit: its stamp is the
+   live version and it agrees with a fresh score (as in 3). Holds the
+   coarse kernel to its plain version on the served store's two shard
+   tables (12,457 and 12,458 items) with the burst's users and exclusions
+   at batch 1/2/4/8 and m 80 (bit-identical), and the first burst's
+   responses for 256 users to two-stage retrieval run on the plain
+   versions per shard and merged on the host (as in 3). Then prints
+   two-stage recall@20 against single stage on all users and holds the
+   m = n_items anchor on 256 users to the single-stage kernel (indices
+   equal except between scores within 1e-5 relative).
+8. Drives the training path at full width through ``train_kgnn``: the same
    config and graph, BPR batch 1024, Adam, seed-0 parameters, a few steps
    each under FP32, INT8, INT4 and INT2 (stochastic rounding). Launch
    counts are reset just before and read just after each schedule's run;
@@ -51,9 +77,9 @@ their plain versions.
    losses (finite), the median step time, peak allocated memory, the ACT
    bytes of the recorded residuals and their ratio to FP32, and launches
    per step by kernel.
-8. Profiles one INT2 training step (torch.profiler, CUDA activity): device
+9. Profiles one INT2 training step (torch.profiler, CUDA activity): device
    time by kernel, the step's device busy time and idle share.
-9. One full-width step's gradients with the kernels against the same step
+10. One full-width step's gradients with the kernels against the same step
    with every kernel's plain version, from the same seeds, parameters and
    batch. FP32: both against the same step run in float64; per parameter
    the kernels' error (rms of the difference over the rms of the float64
@@ -69,7 +95,8 @@ their plain versions.
    quantization input across a rounding threshold; one flip moves a
    gradient by one rounding step of one residual element, the noise sums
    such steps over every element).
-10. Prints the kernels JSON line, then last the ok line.
+11. Prints the kernels JSON line (launches per path: serve, serve_tier2,
+    train_<schedule>), the card's line, then last the ok line.
 
 Exits non-zero, printing no result, without CUDA, outside a checkout of the
 repository, or when any check fails.
@@ -90,6 +117,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core rate
 TOL = 1e-5
 DEV = "cuda"
 # the paper's Amazon-Book-sized CKG (KGAT config: configs/kgnn_paper.py)
@@ -97,12 +125,20 @@ DATASET = dict(n_users=70679, n_items=24915, n_attrs=88572, n_relations=39,
                n_triples=2557746, inter_per_user=12, seed=0)
 QUANT_ROWS = (70679, 24915)    # the store's user and item tables
 SERVING = ("quant_pack", "spmm", "topk_score")
+TIER2_KERNELS = SERVING + ("coarse_topm", "dequant_unpack", "sddmm")
 TRAIN_BATCH = 1024
 TRAIN_STEPS = 4              # per schedule
 SCHEDULES = ("fp32", "int8", "int4", "int2")
 GRAD_FP64_RATIO = 4.0
 GRAD_NOISE_SHARE = 1e-2
 TOPK_BATCH = (8, 128)          # an engine batch, an eval user chunk
+LARGE_K = 200                  # past the top-K kernel's former 128 limit
+COARSE_BATCH = TOPK_BATCH
+COARSE_M = 4 * 20              # two-stage C 4 at k 20
+TIER2 = dict(two_stage=4, item_shards=2, cache=4096, refresh_steps=2)
+ZIPF_A = 1.1
+ANCHOR_USERS = 256
+PROFILED_BATCHES = 20
 REQUESTS = 400
 DENSE_USERS = 8192
 SERVED_USERS = 256           # engine responses held against plain top-K
@@ -140,9 +176,10 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             peak: float = FP32_FLOPS) -> tuple[float, str]:
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_o = n_ops / FP32_FLOPS * 1e3
+    t_o = n_ops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -243,6 +280,7 @@ def check_spmm(torch, sp, g, x, gen):
     return dict(name="spmm", route="cuda",
                 source="src/repro_torch/csrc/spmm.cu",
                 replaces="src/repro/kernels/spmm.py:91",
+                also_replaces="src/repro/kernels/spmm.py:180",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                 bound_by=by, library_ms=lib,
                 shape=f"E={m.n_edges} n={m.n_dst} d={d} weighted")
@@ -321,7 +359,140 @@ def check_topk(torch, tk, gen):
                      max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                      bound_by=by, library_ms=lib,
                      shape=f"B={b} I={n_items} d={d} k={k} int8")
+    # k past the old 128 limit: the merge rounds of the shared selection
+    for ties in (True, False):
+        q, items, excl = _topk_inputs(torch, quantize, gen, TOPK_BATCH[0],
+                                      n_items, d, ties=ties)
+        kv, ki = tk.topk_cuda(q, items, excl, k=LARGE_K)
+        pv, pi = tk.topk_plain(q, items, excl, k=LARGE_K)
+        scale = float(pv.abs().max())
+        err = float((kv - pv).abs().max())
+        near = bool(((kv - pv).abs()[ki != pi] <= TOL * scale).all())
+        same = torch.equal(ki, pi) and torch.equal(kv, pv)
+        log(f"  k={LARGE_K} B={TOPK_BATCH[0]} "
+            f"{'integer-valued ties' if ties else 'random'}: "
+            f"{'bit-identical' if same else f'values rel {err / scale:.3e}'}")
+        check(same if ties else (err <= TOL * scale and near),
+              f"topk k={LARGE_K} ties={ties} differs")
     return entry     # the B=128 shape: the streaming eval's calls
+
+
+def _unpack_affine(torch, q8, qmeta, items):
+    """The coarse score matrix from library calls: unpack, one fp32
+    product, the affine step."""
+    from repro_torch.core.quant import unpack_bits
+
+    codes = unpack_bits(items.packed, items.bits, items.dim).to(torch.float32)
+    return ((q8 @ codes.T) * (qmeta[:, 0:1] * items.scale.T)
+            + qmeta[:, 1:2] * items.zero.T)
+
+
+def check_coarse(torch, tk, gen):
+    """The coarse scan at the store's item-table shape: INT8 (dp 256) and
+    INT4 (dp 128), the engine's batch and m, the eval's user chunk, and the
+    m = n_items anchor; bit-identical to the plain version."""
+    from repro_torch.core.quant import quantize
+    from repro_torch.serving.scorer import quantize_query
+
+    n_items, d = DATASET["n_items"], 256
+    log(f"[coarse_topm] kernel vs plain (values and indices bit-identical), "
+        f"I={n_items} d={d}, 12 exclusions")
+    timed = {}
+    for bits in (8, 4):
+        for b, m in ((COARSE_BATCH[0], COARSE_M), (COARSE_BATCH[1], COARSE_M),
+                     (COARSE_BATCH[0], n_items)):
+            for ties in (True, False):
+                q, items, excl = _topk_inputs(torch, quantize, gen, b,
+                                              n_items, d, ties=ties)
+                if bits == 4:
+                    items = quantize(torch.randn((n_items, d), generator=gen,
+                                                 device=DEV) * 0.3, 0,
+                                     bits=4)
+                q8, qmeta = quantize_query(q)
+                kv, ki = tk.coarse_topm_cuda(q8, qmeta, items, excl, m=m)
+                pv, pi = tk.coarse_topm_plain(q8, qmeta, items, excl, m=m)
+                same = torch.equal(ki, pi) and torch.equal(kv, pv)
+                log(f"  bits={bits} B={b} m={m} "
+                    f"{'ties' if ties and bits == 8 else 'random'}: "
+                    f"{'bit-identical' if same else 'MISMATCH'}")
+                check(same, f"coarse_topm bits={bits} B={b} m={m} differs")
+            if bits == 8 and m == COARSE_M:
+                timed[b] = (q8, qmeta, items, excl)
+    entries = []
+    for b, (q8, qmeta, items, excl) in timed.items():
+        m = COARSE_M
+        ms = time_ms(lambda: tk.coarse_topm_cuda(q8, qmeta, items, excl,
+                                                 m=m), 50)
+        plain = time_ms(lambda: tk.coarse_topm_plain(q8, qmeta, items, excl,
+                                                     m=m), 5)
+        err = float((tk.coarse_topm_cuda(q8, qmeta, items, excl, m=m)[0]
+                     - tk.coarse_topm_plain(q8, qmeta, items, excl, m=m)[0])
+                    .abs().max())
+        lib = time_ms(lambda: torch.topk(_unpack_affine(torch, q8, qmeta,
+                                                        items), m), 50)
+        dp = items.packed.shape[1]
+        n_bytes = (n_items * dp + 8 * n_items + b * d * 4 + b * 8
+                   + excl.numel() * 4 + b * m * 8)
+        entries.append(_entry(
+            "coarse_topm", "coarse_topm",
+            "src/repro/kernels/topk_score.py:129", err, ms, plain, lib,
+            n_bytes, 2 * b * n_items * d,
+            f"B={b} I={n_items} d={d} m={m} int8", peak=INT8_OPS,
+            library_call="torch.topk(affine(q8 @ unpack(packed).T), m), "
+                         "no exclusions"))
+    return _with_other_shape(entries[1], entries[0])
+
+
+def _with_other_shape(entry, other):
+    """``entry`` (the JSON line's shape) carrying the timings of ``other``."""
+    entry["other_shape"] = {k: other[k] for k in (
+        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}
+    return entry
+
+
+def check_dequant_unpack(torch, qp, gen):
+    """Unpack + dequantize at the item table's shape (INT8 and INT4) and at
+    the re-rank's (B*m candidate rows), bits 2 and 1, and a padded pack;
+    bit-identical to the plain version."""
+    from repro_torch.core.quant import quantize
+
+    n_items, d = DATASET["n_items"], 256
+    rerank_rows = COARSE_BATCH[0] * COARSE_M
+    log(f"[dequant_unpack] kernel vs plain (bit-identical)")
+    out = {}
+    for rows, dim, bits in ((n_items, d, 8), (n_items, d, 4),
+                            (rerank_rows, d, 8), (4096, d, 2), (4096, d, 1),
+                            (4096, 37, 4), (4096, 37, 2)):
+        q = quantize(torch.randn((rows, dim), generator=gen, device=DEV)
+                     * 0.3, 0xD0 + bits, bits=bits, stochastic=True)
+        got = qp.dequant_unpack_cuda(q.packed, q.scale, q.zero, bits=bits,
+                                     dim=dim)
+        ref = qp.dequant_unpack_plain(q.packed, q.scale, q.zero, bits=bits,
+                                      dim=dim)
+        same = torch.equal(got, ref)
+        log(f"  {rows}x{dim} bits={bits} (dp {q.packed.shape[1]}): "
+            f"{'bit-identical' if same else 'MISMATCH'}")
+        check(same, f"dequant_unpack {rows}x{dim} bits={bits} differs")
+        if dim == d and bits == 8:
+            out[rows] = q
+    entries = []
+    for rows in (rerank_rows, n_items):
+        q = out[rows]
+        args = (q.packed, q.scale, q.zero)
+        err = float((qp.dequant_unpack_cuda(*args, bits=8, dim=d)
+                     - qp.dequant_unpack_plain(*args, bits=8, dim=d))
+                    .abs().max())
+        ms = time_ms(lambda: qp.dequant_unpack_cuda(*args, bits=8, dim=d),
+                     100)
+        plain = time_ms(lambda: qp.dequant_unpack_plain(*args, bits=8,
+                                                        dim=d), 20)
+        n_bytes = rows * q.packed.shape[1] + 8 * rows + rows * d * 4
+        entries.append(_entry(
+            "dequant_unpack", "dequant_unpack",
+            "src/repro/kernels/quant_pack.py:171", err, ms, plain, None,
+            n_bytes, 2 * rows * d, f"R={rows} d={d} int8"))
+    return _with_other_shape(entries[1], entries[0])   # the item table
 
 
 def _sddmm_library(torch, g):
@@ -347,11 +518,12 @@ def _sddmm_library(torch, g):
 
 
 def _entry(name, source, replaces, err, ms, plain, lib, n_bytes, n_ops,
-           shape, **extra):
-    bnd, by = bound_ms(n_bytes, n_ops)
+           shape, *, peak=FP32_FLOPS, **extra):
+    bnd, by = bound_ms(n_bytes, n_ops, peak)
+    lib_s = "none (no single call)" if lib is None else f"{lib:.4f} ms"
     log(f"  time {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-        f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, "
-        f"{n_ops / 1e9:.3f} GFLOP)")
+        f"{lib_s}, bound {bnd:.4f} ms ({by}; {n_bytes / 1e6:.3f} MB, "
+        f"{n_ops / 1e9:.3f} G ops at {peak / 1e12:g} T/s)")
     return dict(name=name, route="cuda",
                 source=f"src/repro_torch/csrc/{source}.cu",
                 replaces=replaces, max_abs_err=err, ms=ms,
@@ -515,6 +687,297 @@ def run_main_path(torch, cfg, ds, g, params):
     check(res["dense_delta"] <= 1e-6,
           f"streaming eval vs dense reference |delta| {res['dense_delta']}")
     return counts, res
+
+
+# -- serving tier 2 -------------------------------------------------------------
+
+
+def zipf_stream(n_users: int, n: int, *, a: float, seed: int):
+    """n user ids from a zipf(a) popularity law over a fixed permutation of
+    the users (the request stream of the reference's serving bench)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(n_users)
+    pmf = 1.0 / np.arange(1, n_users + 1) ** a
+    pmf /= pmf.sum()
+    return order[rng.choice(n_users, size=n, p=pmf)].astype(np.int32)
+
+
+@contextlib.contextmanager
+def audit_cache_replays(engine_cls):
+    """Record every response the engine replays from its cache: (user,
+    entry stamp, live version, values, indices)."""
+    seen = []
+    orig = engine_cls._replay
+
+    def audited(self, msg, ent):
+        seen.append((msg[1], ent[0], self.version, ent[1], ent[2]))
+        orig(self, msg, ent)
+
+    engine_cls._replay = audited
+    try:
+        yield seen
+    finally:
+        engine_cls._replay = orig
+
+
+def _close_topk(torch, gv, gi, rv, ri):
+    """(values rel, index swaps, ok): values within TOL of the reference's
+    scale, indices equal except between scores within it."""
+    gv, gi, rv, ri = (torch.as_tensor(a) for a in (gv, gi, rv, ri))
+    scale = float(rv[torch.isfinite(rv)].abs().max())
+    diff = (gv - rv).abs()
+    err = float(diff.max()) / scale
+    swapped = gi != ri
+    ok = err <= TOL and bool((diff[swapped] <= TOL * scale).all())
+    return err, int(swapped.sum()), ok
+
+
+def run_tier2_path(torch, cfg, ds, g, params):
+    """The tier-2 serving path at full width through ``serve_kgnn``:
+    two-stage C 4, 2 item shards, a 4,096-entry hot-user cache, 400
+    zipfian requests, 2 FP32 BPR steps, a re-roll and a delta refresh, a
+    second burst. Counts are reset just before and read just after."""
+    import numpy as np
+
+    from repro_torch.kernels import backend
+    from repro_torch.launch.serve import serve_kgnn
+    from repro_torch.obs import get_registry
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.store import padded_pos_lists
+
+    users = zipf_stream(ds.n_users, REQUESTS, a=ZIPF_A, seed=0)
+    with audit_cache_replays(ServingEngine) as replays:
+        torch.cuda.synchronize()
+        backend.reset_counts()
+        res = serve_kgnn(cfg, ds, params, bits=8, k=20, users=users,
+                         device=DEV, graph=g, dense_users=DENSE_USERS,
+                         log=log, **TIER2)
+        counts = dict(backend.LAUNCH_COUNTS)
+    log(f"[tier2] LAUNCH_COUNTS {json.dumps(counts, sort_keys=True)}")
+    for name, ph in res["phases"].items():
+        log(f"[tier2] phase {name}: {ph['seconds']:.3f} s, launches "
+            f"{json.dumps(ph['launches'], sort_keys=True)}")
+    for name in TIER2_KERNELS:
+        check(counts.get(name, 0) > 0,
+              f"kernel {name} never launched on the tier-2 path")
+
+    snap = get_registry().snapshot()
+    lab = res["label"]
+    stages = {st: snap["histograms"][f"serve/stage_ms{{engine={lab},"
+                                     f"stage={st}}}"]
+              for st in ("coarse", "rerank")}
+    frac = snap["gauges"][f"serve/candidate_frac{{engine={lab}}}"]
+    st1, st2 = res["stats"], res["stats_post"]
+    # the single-stage, unsharded, uncached engine on the same requests
+    exclude = padded_pos_lists(ds.train_pos, ds.n_users)
+    with ServingEngine(res["store"], k=20, exclude=exclude,
+                       buckets=(1, 2, 4, 8)) as base:
+        base.warmup()
+        futs = [base.submit(int(u)) for u in users]
+        base_res = [f.result(timeout=300) for f in futs]
+        st0 = base.stats()
+    log(f"[tier2] {REQUESTS} zipfian requests (a {ZIPF_A}, seed 0, "
+        f"{len(set(users.tolist()))} distinct users): tier-2 engine "
+        f"{st1.qps:.1f} QPS, p50 {st1.p50_ms:.3f} ms, p99 {st1.p99_ms:.3f} "
+        f"ms, {st1.n_batches} batches, cache hit rate "
+        f"{st1.cache_hit_rate:.4f}; single-stage engine {st0.qps:.1f} QPS, "
+        f"p50 {st0.p50_ms:.3f} ms, p99 {st0.p99_ms:.3f} ms, "
+        f"{st0.n_batches} batches")
+    for st, h in stages.items():
+        log(f"[tier2] stage {st}: {h['count']} calls (per shard per "
+            f"batch, both bursts; CUDA events on the shard's own stream), p50 {h['p50']:.3f} ms, p99 "
+            f"{h['p99']:.3f} ms, mean {h['sum'] / max(h['count'], 1):.3f} "
+            f"ms")
+    log(f"[tier2] candidate_frac {frac:.6f}; post-refresh burst: "
+        f"{st2.n_requests - st1.n_requests} requests, cumulative {st2}")
+
+    # the tier-2 answers against the single-stage engine's (two-stage
+    # recall: the same top-20 ids, as a share)
+    same_ids = np.mean([len(set(a[1].tolist()) & set(b[1].tolist())) / 20
+                        for a, b in zip(res["results"], base_res)])
+    log(f"[tier2] first burst: share of the single-stage top-20 ids "
+        f"served {same_ids:.4f}")
+
+    # the refresh: the live store is the new rollout, bit for bit
+    live, new = res["live_store"], res["new_store"]
+    same = all(torch.equal(a, b) for s_t, n_t in
+               ((live.users, new.users), (live.items, new.items))
+               for a, b in ((s_t.packed, n_t.packed), (s_t.scale, n_t.scale),
+                            (s_t.zero, n_t.zero)))
+    log(f"[tier2] refresh {json.dumps(res['delta'], sort_keys=True)}; live "
+        f"store vs new rollout: {'bit-identical' if same else 'MISMATCH'}")
+    check(same, "the refreshed store is not the new rollout")
+    check(res["delta"]["version"] == 1 and st2.store_version == 1,
+          "store version after the refresh")
+
+    # every cache hit: stamp == live version, and a fresh score agrees
+    check(len(replays) > 0, "no cache hit on zipfian traffic")
+    by_version = {0: res["store"], 1: live}
+    n_exact = 0
+    for v, store in by_version.items():
+        hits = [r for r in replays if r[2] == v]
+        check(all(r[1] == v for r in hits),
+              f"a cache hit served under version {v} carries another stamp")
+        if not hits:
+            continue
+        with ServingEngine(store, k=20, exclude=exclude,
+                           buckets=(1, 2, 4, 8), two_stage_c=TIER2[
+                               "two_stage"],
+                           item_shards=TIER2["item_shards"]) as fresh:
+            fv, fi = fresh.score_batch(np.array([r[0] for r in hits]))
+        hv = np.stack([r[3] for r in hits])
+        hi = np.stack([r[4] for r in hits])
+        err, swaps, ok = _close_topk(torch, hv, hi, fv, fi)
+        n_exact += int(sum(np.array_equal(a, b) and np.array_equal(c, d_)
+                           for a, b, c, d_ in zip(hv, fv, hi, fi)))
+        log(f"[tier2] version {v}: {len(hits)} cache hits, every stamp "
+            f"v{v}; against a fresh score: values rel {err:.3e}, "
+            f"{swaps} index swaps (near-ties)")
+        check(ok, f"cache hits of version {v} differ from a fresh score")
+    check(any(r[2] == 1 for r in replays),
+          "no post-refresh cache hit carried the new version")
+    log(f"[tier2] {len(replays)} cache hits checked, {n_exact} bit-identical "
+        f"to the fresh score (the re-rank's batched product may sum in "
+        f"another order at another batch size)")
+    return counts, res
+
+
+def check_tier2_served(torch, ds, res):
+    """Hold what the tier-2 path served against plain versions: the coarse
+    kernel on the served store's shard tables at the engine's batch sizes
+    (bit-identical), and the first burst's responses against two-stage
+    retrieval run on the plain versions per shard, merged on the host."""
+    import numpy as np
+
+    from repro_torch.core.quant import dequantize as dequantize_plain
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_score as tk
+    from repro_torch.serving.engine import _shard_items
+    from repro_torch.serving.scorer import (merge_topk, quantize_query,
+                                            two_stage_topk)
+    from repro_torch.serving.store import padded_pos_lists
+
+    store, k, c = res["store"], res["k"], TIER2["two_stage"]
+    shards = _shard_items(store.items, TIER2["item_shards"])
+    offs = np.cumsum([0] + [s.rows for s in shards])[:-1]
+    excl_all = torch.from_numpy(padded_pos_lists(ds.train_pos,
+                                                 ds.n_users)).to(DEV)
+    users = res["users"]
+    for b in (1, 2, 4, 8):            # the engine's buckets
+        ids = torch.from_numpy(users[:b]).to(DEV)
+        q8, qmeta = quantize_query(store.user_vectors(ids))
+        for off, sh in zip(offs, shards):
+            m = max(k, min(c * k, sh.rows))
+            ex = excl_all[ids] - int(off)
+            kv, ki = tk.coarse_topm_cuda(q8, qmeta, sh, ex, m=m)
+            pv, pi = tk.coarse_topm_plain(q8, qmeta, sh, ex, m=m)
+            same = torch.equal(ki, pi) and torch.equal(kv, pv)
+            check(same, f"coarse_topm on shard {off}+{sh.rows} at B={b} "
+                  f"m={m} differs from plain")
+    log(f"[tier2] coarse_topm on the served shard tables "
+        f"({', '.join(str(s.rows) for s in shards)} items) at B 1/2/4/8, "
+        f"m {max(k, c * k)}, the burst's users and exclusions: "
+        f"bit-identical to plain")
+
+    n = SERVED_USERS
+    ids = torch.from_numpy(users[:n]).to(DEV)
+    q, excl = store.user_vectors(ids), excl_all[ids]
+    with plain_versions(ops, coarse_topm=tk.coarse_topm_plain,
+                        dequantize=dequantize_plain):
+        parts = [two_stage_topk(q, sh, min(k, sh.rows), c=c,
+                                exclude=excl - int(off))
+                 for off, sh in zip(offs, shards)]
+    pv, pi = merge_topk([p[0].cpu().numpy() for p in parts],
+                        [p[1].cpu().numpy() + int(off)
+                         for p, off in zip(parts, offs)], k)
+    ev = np.stack([r[0] for r in res["results"][:n]])
+    ei = np.stack([r[1] for r in res["results"][:n]])
+    err, swaps, ok = _close_topk(torch, ev, ei, pv, pi)
+    hit = bool((torch.from_numpy(ei).to(DEV)[:, :, None]
+                == excl[:, None, :]).any())
+    log(f"[tier2] first-burst responses for {n} users vs two-stage on the "
+        f"plain versions (per shard, host merge): values rel {err:.3e}, "
+        f"{swaps} index swaps (near-ties), excluded ids returned: {hit}")
+    check(ok and not hit, "tier-2 responses differ from the plain two-stage "
+          "retrieval")
+
+
+def profile_serving_batch(torch, ds, store):
+    """torch.profiler over engine batches of 8 users (``score_batch``) on
+    the single-stage and the tier-2 engine: wall time per batch, device
+    busy time, idle share, device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.store import padded_pos_lists
+
+    exclude = padded_pos_lists(ds.train_pos, ds.n_users)
+    ids = zipf_stream(ds.n_users, 8 * PROFILED_BATCHES, a=ZIPF_A, seed=1)
+    for label, kw in (("single-stage", {}),
+                      ("tier-2", dict(two_stage_c=TIER2["two_stage"],
+                                      item_shards=TIER2["item_shards"]))):
+        with ServingEngine(store, k=20, exclude=exclude,
+                           buckets=(1, 2, 4, 8), **kw) as eng:
+            eng.warmup()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for b in range(PROFILED_BATCHES):
+                    eng.score_batch(ids[8 * b:8 * b + 8])
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / PROFILED_BATCHES
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total
+                   for e in kernels) / 1e3 / PROFILED_BATCHES
+        log(f"[profile] {label} engine batch of 8 (mean of "
+            f"{PROFILED_BATCHES}): wall {wall:.3f} ms, device busy "
+            f"{busy:.3f} ms, idle share "
+            + (f"{1 - busy / wall:.3f}" if busy > 0 else
+               "not measured (no device events)"))
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+                f"x{e.count:<4d} {e.key[:100]}")
+
+
+def check_two_stage_accuracy(torch, ds, store):
+    """Two-stage recall@20 against single stage on all users (printed, not
+    checked: a property of the weights), and the m = n_items anchor on
+    256 users against the single-stage top-K kernel."""
+    from repro_torch.serving.eval import streaming_eval_dataset
+    from repro_torch.serving.scorer import topk_scores, two_stage_topk
+    from repro_torch.serving.store import padded_pos_lists
+
+    t0 = time.perf_counter()
+    r1, n1 = streaming_eval_dataset(store, ds, k=20)
+    t1 = time.perf_counter()
+    r2, n2 = streaming_eval_dataset(store, ds, k=20,
+                                    two_stage_c=TIER2["two_stage"])
+    t2 = time.perf_counter()
+    log(f"[accuracy] all {ds.n_users} users: recall@20 single-stage {r1:.6f} "
+        f"({t1 - t0:.3f} s), two-stage C {TIER2['two_stage']} {r2:.6f} "
+        f"({t2 - t1:.3f} s), ratio {r2 / max(r1, 1e-12):.4f}; ndcg@20 "
+        f"{n1:.6f} / {n2:.6f}")
+    excl_all = torch.from_numpy(padded_pos_lists(ds.train_pos, ds.n_users))
+    c_all = -(-ds.n_items // 20)
+    worst, swaps = 0.0, 0
+    n_users = min(ANCHOR_USERS, ds.n_users)
+    for u0 in range(0, n_users, 64):
+        ids = torch.arange(u0, min(u0 + 64, n_users), device=DEV)
+        q = store.user_vectors(ids)
+        excl = excl_all.to(DEV)[ids]
+        av, ai = two_stage_topk(q, store.items, 20, c=c_all, exclude=excl)
+        sv, si = topk_scores(q, store.items, 20, exclude=excl)
+        err, n_sw, ok = _close_topk(torch, av, ai, sv, si)
+        worst, swaps = max(worst, err), swaps + n_sw
+        check(ok, f"two-stage anchor (m = n_items) differs from single "
+              f"stage for users from {u0}")
+    log(f"[accuracy] anchor C {c_all} (m = n_items = {ds.n_items}) on "
+        f"{n_users} users vs the single-stage kernel: values rel "
+        f"{worst:.3e}, {swaps} index swaps (near-ties)")
 
 
 # -- the training path -------------------------------------------------------
@@ -887,11 +1350,18 @@ def main() -> int:
                check_topk(torch, tk, gen),
                check_sddmm(torch, sp, g, gen),
                check_dequant_sddmm(torch, sp, g, gen),
-               check_dequant_matmul(torch, dq, gen)]
+               check_dequant_matmul(torch, dq, gen),
+               check_coarse(torch, tk, gen),
+               check_dequant_unpack(torch, qp, gen)]
     check_reduced_rollout(torch)
 
     counts, res = run_main_path(torch, cfg, ds, g, params)
     check_served_path(torch, cfg, ds, g, params, res)
+    del res
+    counts_t2, res = run_tier2_path(torch, cfg, ds, g, params)
+    check_tier2_served(torch, ds, res)
+    check_two_stage_accuracy(torch, ds, res["store"])
+    profile_serving_batch(torch, ds, res["store"])
     del res
     runs = run_training(torch, cfg, ds, g)
     profile_step(torch, cfg, ds, g)
@@ -899,7 +1369,8 @@ def main() -> int:
     # launches: the sum over the main-path runs (serving, then training
     # under each schedule), each counted from 0 just before it
     for e in entries:
-        by_path = {"serve": counts.get(e["name"], 0)}
+        by_path = {"serve": counts.get(e["name"], 0),
+                   "serve_tier2": counts_t2.get(e["name"], 0)}
         by_path.update({f"train_{label}": r["counts"].get(e["name"], 0)
                         for label, r in runs.items()})
         e["launches_by_path"] = by_path
@@ -912,9 +1383,9 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_by_path", "launches_per_train_step")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    optional = ("also_replaces", "other_shape", "library_call")
     print(json.dumps({"kernels": [
-        {k: e[k] for k in keys + (("also_replaces",)
-                                  if "also_replaces" in e else ())}
+        {k: e[k] for k in keys + tuple(o for o in optional if o in e)}
         for e in entries]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

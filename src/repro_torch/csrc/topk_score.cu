@@ -10,233 +10,59 @@
 //
 // Design. The TPU kernel walks item chunks in order and carries a running
 // top-k in its output block. Blocks on Hopper run in parallel, so the work
-// is split in two launches:
-//   pass 1, one CTA per (item chunk of kChunk rows, kQ queries): unpack the
-//     codes with shift+mask (chunk-interleaved layout, any width <= the
-//     packed width), dequantize x = code*scale + zero with the same two
-//     roundings as the plain version, stage x and the queries in shared
-//     memory kDT features at a time, and form each score as one sequential
-//     fp32 dot. Tail rows past n_items score -inf; each query's exclusion
-//     ids that fall in the chunk set their score to -inf. Each warp then
-//     selects the chunk's top-k per query.
-//   pass 2, one CTA per query: merge the per-chunk lists.
+// is split into a per-chunk top-k (pass 1) and merge rounds over the chunk
+// lists (pass 2), both in topk_select.cuh and shared with the coarse top-m
+// kernel, so any k <= n_items works. This file holds the per-item step:
+// each code is dequantized to x = code*scale + zero with the same two
+// roundings as the plain version before it is staged, and the score is the
+// fp32 dot itself. With a dense fp32 table (bits == 0) x is read directly.
 // Both passes order by (value desc, index asc), which is lax.top_k's tie
-// rule over the whole masked score row, so the merge loses nothing: a
-// selection round takes the best candidate strictly after the previous
-// pick in that order. kChunk >= k is the TPU kernel's block_i >= k
-// precondition. With a dense fp32 table (bits == 0) x is read directly.
+// rule over the whole masked score row, so the merge loses nothing.
 #include <cuda_runtime.h>
 
-#include <cmath>
 #include <cstdint>
+
+#include "topk_select.cuh"
 
 namespace {
 
-constexpr int kChunk = 128;  // items per CTA in pass 1
-constexpr int kQ = 32;       // queries per CTA in pass 1
-constexpr int kDT = 32;      // features staged per step
-constexpr int kThreads = 256;
-constexpr int kItemsPerThread = kQ * kChunk / kThreads;  // 16
-constexpr int kGroup = kThreads / kQ;                    // threads per query
-
-struct Cand {
-  float v;
-  int i;
+struct DequantThenDot {
+  static __device__ __forceinline__ float stage(
+      const topk_select::ChunkArgs& a, int item, int col, unsigned code) {
+    if (a.bits == 0) return a.items[static_cast<size_t>(item) * a.dim + col];
+    return __fadd_rn(__fmul_rn(static_cast<float>(code), a.scale[item]),
+                     a.zero[item]);
+  }
+  static __device__ __forceinline__ float score(
+      const topk_select::ChunkArgs&, int, int, float dot) {
+    return dot;
+  }
 };
-
-// (value desc, index asc)
-__device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai < bi);
-}
-
-__device__ __forceinline__ Cand warp_best(Cand c) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, c.v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, c.i, off);
-    if (better(ov, oi, c.v, c.i)) {
-      c.v = ov;
-      c.i = oi;
-    }
-  }
-  return c;
-}
-
-__global__ void topk_chunk_kernel(const float* __restrict__ q, int B, int dim,
-                                  const uint8_t* __restrict__ packed, int dp,
-                                  int bits, const float* __restrict__ items,
-                                  const float* __restrict__ scale,
-                                  const float* __restrict__ zero,
-                                  const int* __restrict__ excl, int P,
-                                  int n_items, int k, int n_chunks,
-                                  float* __restrict__ cand_v,
-                                  int* __restrict__ cand_i) {
-  __shared__ float sx[kChunk][kDT + 1];
-  __shared__ float sq[kQ][kDT + 1];
-  __shared__ float ss[kQ][kChunk + 1];
-
-  const int chunk = blockIdx.x;
-  const int q0 = blockIdx.y * kQ;
-  const int i0 = chunk * kChunk;
-  const int tid = threadIdx.x;
-  const int qb = tid / kGroup;  // this thread's query row in the CTA
-  const int ig = tid % kGroup;  // items ig, ig+kGroup, ...
-  const unsigned mask = (1u << bits) - 1u;
-
-  float acc[kItemsPerThread];
-#pragma unroll
-  for (int m = 0; m < kItemsPerThread; ++m) acc[m] = 0.0f;
-
-  for (int j0 = 0; j0 < dim; j0 += kDT) {
-    for (int e = tid; e < kChunk * kDT; e += kThreads) {
-      const int ii = e / kDT, jj = e % kDT;
-      const int item = i0 + ii, col = j0 + jj;
-      float v = 0.0f;
-      if (item < n_items && col < dim) {
-        if (bits > 0) {
-          const unsigned byte = packed[static_cast<size_t>(item) * dp + col % dp];
-          const unsigned code = (byte >> ((col / dp) * bits)) & mask;
-          v = __fadd_rn(__fmul_rn(static_cast<float>(code), scale[item]),
-                        zero[item]);
-        } else {
-          v = items[static_cast<size_t>(item) * dim + col];
-        }
-      }
-      sx[ii][jj] = v;
-    }
-    for (int e = tid; e < kQ * kDT; e += kThreads) {
-      const int qq = e / kDT, jj = e % kDT;
-      const int b = q0 + qq, col = j0 + jj;
-      sq[qq][jj] = (b < B && col < dim) ? q[static_cast<size_t>(b) * dim + col]
-                                        : 0.0f;
-    }
-    __syncthreads();
-    const int n_j = min(kDT, dim - j0);
-    for (int jj = 0; jj < n_j; ++jj) {
-      const float qv = sq[qb][jj];
-#pragma unroll
-      for (int m = 0; m < kItemsPerThread; ++m)
-        acc[m] = fmaf(qv, sx[ig + kGroup * m][jj], acc[m]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int m = 0; m < kItemsPerThread; ++m) {
-    const int ii = ig + kGroup * m;
-    ss[qb][ii] = (i0 + ii < n_items) ? acc[m] : -INFINITY;
-  }
-  __syncthreads();
-  for (int e = tid; e < kQ * P; e += kThreads) {
-    const int qq = e / P, p = e % P;
-    const int b = q0 + qq;
-    if (b >= B) continue;
-    const int id = excl[static_cast<size_t>(b) * P + p];
-    if (id >= i0 && id < i0 + kChunk) ss[qq][id - i0] = -INFINITY;
-  }
-  __syncthreads();
-
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int qq = warp; qq < kQ; qq += kThreads / 32) {
-    const int b = q0 + qq;
-    if (b >= B) break;
-    float prev_v = INFINITY;
-    int prev_i = -1;
-    float* out_v = cand_v + (static_cast<size_t>(b) * n_chunks + chunk) * k;
-    int* out_i = cand_i + (static_cast<size_t>(b) * n_chunks + chunk) * k;
-    for (int r = 0; r < k; ++r) {
-      Cand best{-INFINITY, INT32_MAX};
-      for (int t = lane; t < kChunk; t += 32) {
-        const float v = ss[qq][t];
-        const int i = i0 + t;
-        if (better(prev_v, prev_i, v, i) && better(v, i, best.v, best.i)) {
-          best.v = v;
-          best.i = i;
-        }
-      }
-      best = warp_best(best);
-      if (lane == 0) {
-        out_v[r] = best.v;
-        out_i[r] = best.i;
-      }
-      prev_v = best.v;
-      prev_i = best.i;
-    }
-  }
-}
-
-__global__ void topk_merge_kernel(const float* __restrict__ cand_v,
-                                  const int* __restrict__ cand_i, int n_cand,
-                                  int k, float* __restrict__ out_v,
-                                  int* __restrict__ out_i) {
-  __shared__ Cand warp_pick[kThreads / 32];
-  __shared__ Cand pick;
-  const int b = blockIdx.x;
-  const float* cv = cand_v + static_cast<size_t>(b) * n_cand;
-  const int* ci = cand_i + static_cast<size_t>(b) * n_cand;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float prev_v = INFINITY;
-  int prev_i = -1;
-  for (int r = 0; r < k; ++r) {
-    Cand best{-INFINITY, INT32_MAX};
-    for (int t = threadIdx.x; t < n_cand; t += blockDim.x) {
-      const float v = cv[t];
-      const int i = ci[t];
-      if (better(prev_v, prev_i, v, i) && better(v, i, best.v, best.i)) {
-        best.v = v;
-        best.i = i;
-      }
-    }
-    best = warp_best(best);
-    if (lane == 0) warp_pick[warp] = best;
-    __syncthreads();
-    if (warp == 0) {
-      Cand c = lane < static_cast<int>(blockDim.x >> 5)
-                   ? warp_pick[lane]
-                   : Cand{-INFINITY, INT32_MAX};
-      c = warp_best(c);
-      if (lane == 0) {
-        pick = c;
-        out_v[static_cast<size_t>(b) * k + r] = c.v;
-        out_i[static_cast<size_t>(b) * k + r] = c.i;
-      }
-    }
-    __syncthreads();
-    prev_v = pick.v;
-    prev_i = pick.i;
-    __syncthreads();
-  }
-}
 
 }  // namespace
 
 // q (B, dim) fp32; packed (n_items, dp) uint8 with bits in {1,2,4,8}, or
 // items (n_items, dim) fp32 with bits == 0; scale/zero (n_items,) fp32 (unused
-// when bits == 0); excl (B, P) int32, -1 pads; cand_v/cand_i scratch of
-// B*ceil(n_items/128)*k -> out_v (B, k) fp32, out_i (B, k) int32. Requires
-// k <= 128 and k <= n_items. Returns cudaGetLastError() after both launches.
+// when bits == 0); excl (B, P) int32, -1 pads; cand_v/cand_i and
+// cand2_v/cand2_i scratch of B*ceil(n_items/128)*min(k, 128) each -> out_v
+// (B, k) fp32, out_i (B, k) int32. Requires 1 <= k <= n_items. Returns
+// cudaGetLastError() after the last launch.
 extern "C" int topk_launch(const void* q, int B, int dim, const void* packed,
                            int dp, int bits, const void* items,
                            const void* scale, const void* zero,
                            const void* excl, int P, int n_items, int k,
-                           void* cand_v, void* cand_i, void* out_v,
-                           void* out_i, void* stream) {
-  if (B > 0 && n_items > 0 && k > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int n_chunks = (n_items + kChunk - 1) / kChunk;
-    const dim3 grid1(n_chunks, (B + kQ - 1) / kQ);
-    topk_chunk_kernel<<<grid1, kThreads, 0, s>>>(
-        static_cast<const float*>(q), B, dim,
-        static_cast<const uint8_t*>(packed), dp, bits,
-        static_cast<const float*>(items), static_cast<const float*>(scale),
-        static_cast<const float*>(zero), static_cast<const int*>(excl), P,
-        n_items, k, n_chunks, static_cast<float*>(cand_v),
-        static_cast<int*>(cand_i));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    topk_merge_kernel<<<B, kThreads, 0, s>>>(
-        static_cast<const float*>(cand_v), static_cast<const int*>(cand_i),
-        n_chunks * k, k, static_cast<float*>(out_v),
-        static_cast<int*>(out_i));
-  }
-  return static_cast<int>(cudaGetLastError());
+                           void* cand_v, void* cand_i, void* cand2_v,
+                           void* cand2_i, void* out_v, void* out_i,
+                           void* stream) {
+  const topk_select::ChunkArgs a{
+      static_cast<const float*>(q), nullptr, B, dim,
+      static_cast<const uint8_t*>(packed), dp, bits,
+      static_cast<const float*>(items), static_cast<const float*>(scale),
+      static_cast<const float*>(zero), static_cast<const int*>(excl), P,
+      n_items};
+  return static_cast<int>(topk_select::select_topm<DequantThenDot>(
+      a, k, static_cast<float*>(cand_v), static_cast<int*>(cand_i),
+      static_cast<float*>(cand2_v), static_cast<int*>(cand2_i),
+      static_cast<float*>(out_v), static_cast<int*>(out_i),
+      static_cast<cudaStream_t>(stream)));
 }

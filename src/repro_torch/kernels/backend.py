@@ -21,8 +21,9 @@ adds one where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels (``chip_smoke.py`` resets the counts
 before the path and reads them after). A count is one call of the wrapper's C
 entry point: ``dequant_matmul`` (partial tiles, then their fixed-order sum)
-and ``topk_score`` (per-chunk lists, then their merge) each start two CUDA
-kernels per count.
+starts two CUDA kernels per count, ``topk_score`` and ``coarse_topm``
+(per-chunk lists, then ceil(log2(chunks)) merge rounds) 1 + ceil(log2(
+ceil(n_items / 128))).
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ __all__ = ["DeviceInfo", "probe", "resolve_device", "require_sm90", "build",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("quant_pack", "spmm", "topk_score", "sddmm", "dequant_matmul")
+SOURCES = ("quant_pack", "spmm", "topk_score", "sddmm", "dequant_matmul",
+           "coarse_topm", "dequant_unpack")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -6,11 +6,13 @@ kernel, a CPU tensor to the kernel's plain PyTorch version, anything else
 raises. There is no fallback from one to the other; a kernel that cannot
 build or launch raises. ``LAUNCH_COUNTS`` (the counterpart of the JAX
 package's trace-time ``TRACE_COUNTS``) counts real kernel launches by name:
-``quant_pack``, ``spmm``, ``topk_score``, ``sddmm``, ``dequant_sddmm`` and
-``dequant_matmul``, one per wrapper call (``dequant_matmul`` and
-``topk_score`` start two CUDA kernels a call; see ``backend``). ``quantize(x, seed, *, bits, stochastic)`` is
-``core.quant.quantize``: the ``quant_pack`` route wrapped into a
-``QTensor``.
+``quant_pack``, ``spmm``, ``topk_score``, ``sddmm``, ``dequant_sddmm``,
+``dequant_matmul``, ``coarse_topm`` and ``dequant_unpack``, one per wrapper
+call (several CUDA kernels may run per call; see ``backend``).
+``quantize(x, seed, *, bits, stochastic)`` is ``core.quant.quantize``: the
+``quant_pack`` route wrapped into a ``QTensor``; ``dequantize(q)`` is its
+inverse on the ``dequant_unpack`` route (the counterpart of
+``repro/kernels/ops.py:dequantize``).
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ from . import spmm as _spmm
 from . import topk_score as _tk
 from .backend import LAUNCH_COUNTS
 
-__all__ = ["quant_pack", "quantize", "spmm", "spmm_grad_ew",
-           "dequant_matmul", "topk", "LAUNCH_COUNTS"]
+__all__ = ["quant_pack", "quantize", "dequantize", "spmm", "spmm_grad_ew",
+           "dequant_matmul", "topk", "coarse_topm", "LAUNCH_COUNTS"]
 
 
 def _on_card(x: torch.Tensor, op: str) -> bool:
@@ -45,6 +47,25 @@ def quant_pack(x: torch.Tensor, seed: int, *, bits: int,
         return _qp.quant_pack_cuda(x.to(torch.float32).contiguous(), seed,
                                    bits=bits, stochastic=stochastic)
     return _qp.quant_pack_plain(x, seed, bits=bits, stochastic=stochastic)
+
+
+def dequantize(q: QTensor) -> torch.Tensor:
+    """Unpack + dequantize a packed table of any leading shape:
+    ``(..., dp)`` -> ``(..., dim)`` in ``q.dtype``; see
+    kernels/quant_pack.py."""
+    dp = q.packed.shape[-1]
+    lead = q.packed.shape[:-1]
+    packed = q.packed.reshape(-1, dp)
+    scale = q.scale.reshape(-1, 1).to(torch.float32)
+    zero = q.zero.reshape(-1, 1).to(torch.float32)
+    if _on_card(packed, "dequantize"):
+        out = _qp.dequant_unpack_cuda(packed.contiguous(), scale.contiguous(),
+                                      zero.contiguous(), bits=q.bits,
+                                      dim=q.dim)
+    else:
+        out = _qp.dequant_unpack_plain(packed, scale, zero, bits=q.bits,
+                                       dim=q.dim)
+    return out.reshape(*lead, q.dim).to(q.dtype)
 
 
 def spmm(x: torch.Tensor, ew: torch.Tensor | None, layout, *,
@@ -101,3 +122,21 @@ def topk(q: torch.Tensor, items, excl: torch.Tensor, *, k: int):
         return _tk.topk_cuda(q.to(torch.float32).contiguous(), items,
                              excl.to(torch.int32).contiguous(), k=k)
     return _tk.topk_plain(q, items, excl.to(torch.int32), k=k)
+
+
+def coarse_topm(q8: torch.Tensor, qmeta: torch.Tensor, items: QTensor,
+                excl: torch.Tensor, *, m: int):
+    """Top-``m`` of the coarse packed-domain scores with exclusions.
+
+    q8    : (B, d) integer-valued fp32 query codes, qmeta (B, 2) [qs, sum q]
+            (``serving.scorer.quantize_query``)
+    items : ``QTensor`` packed item table
+    excl  : (B, P) int32 item ids forced to -inf per row; -1 pads
+    returns (values (B, m) fp32, indices (B, m) int32); see
+    kernels/topk_score.py.
+    """
+    if _on_card(q8, "coarse_topm"):
+        return _tk.coarse_topm_cuda(q8.contiguous(), qmeta.contiguous(),
+                                    items, excl.to(torch.int32).contiguous(),
+                                    m=m)
+    return _tk.coarse_topm_plain(q8, qmeta, items, excl.to(torch.int32), m=m)

@@ -1,13 +1,22 @@
-"""Fused per-row min/max + quantize + bit-pack: CUDA kernel and plain version.
+"""Fused per-row min/max + quantize + bit-pack, and its inverse unpack +
+dequantize: CUDA kernels and plain versions.
 
-Port of ``repro/kernels/quant_pack.py:_quant_kernel`` (the TPU kernel) and
-its oracle ``repro/kernels/ref.py:ref_quant_pack``. The kernel is
-``csrc/quant_pack.cu``; its source note says what bounds it on the H100.
+Port of ``repro/kernels/quant_pack.py:_quant_kernel`` and
+``_dequant_kernel`` (the TPU kernels, wrappers ``quant_pack`` and
+``dequant_unpack``) and their oracles ``repro/kernels/ref.py:ref_quant_pack``
+and ``ref_dequant_unpack``. The kernels are ``csrc/quant_pack.cu`` and
+``csrc/dequant_unpack.cu``; their source notes say what bounds them on the
+H100.
 
 ``kernels.ops.quant_pack`` sends a CUDA tensor to ``quant_pack_cuda`` and a
 CPU tensor to ``quant_pack_plain``; both return ``(packed, scale, zero)``
 with identical bits: the plain version keeps the kernel's fp32 operation
 order.
+
+``dequant_unpack_cuda`` and ``dequant_unpack_plain`` (``core.quant``'s
+``dequantize``: unpack, then ``code * scale + zero`` with the product and
+the sum rounded apart) agree bit for bit at every width, padded packs
+included.
 
 Rounding of ``scale``: the reference writes ``R / B`` with the constant
 ``B = 2^b - 1``, and XLA compiles that (inside the Pallas kernel, or any
@@ -23,16 +32,18 @@ import ctypes
 
 import torch
 
-from repro_torch.core.quant import pack_bits
+from repro_torch.core.quant import QTensor, dequantize, pack_bits
 
 from . import backend
 from .hashrng import hash_uniform
 
-__all__ = ["quant_pack_plain", "quant_pack_cuda"]
+__all__ = ["quant_pack_plain", "quant_pack_cuda", "dequant_unpack_plain",
+           "dequant_unpack_cuda"]
 
 _EPS = 1e-12
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _I, _I, _I, _I, ctypes.c_uint, _P, _P, _P, _P)
+_DQ_ARGTYPES = (_P, _I, _I, _I, _I, _P, _P, _P, _P)
 
 
 def quant_pack_plain(x: torch.Tensor, seed: int, *, bits: int,
@@ -85,3 +96,39 @@ def quant_pack_cuda(x: torch.Tensor, seed: int, *, bits: int,
     backend.count_launch("quant_pack")
     return packed, scale, zero
 
+
+def dequant_unpack_plain(packed: torch.Tensor, scale: torch.Tensor,
+                         zero: torch.Tensor, *, bits: int,
+                         dim: int) -> torch.Tensor:
+    """Plain version (the ``ref_dequant_unpack`` oracle, which is
+    ``core.quant.dequantize``): (rows, dp) uint8 -> (rows, dim) fp32, the
+    pad sliced off."""
+    return dequantize(QTensor(packed, scale, zero, bits, dim))
+
+
+def dequant_unpack_cuda(packed: torch.Tensor, scale: torch.Tensor,
+                        zero: torch.Tensor, *, bits: int,
+                        dim: int) -> torch.Tensor:
+    """Launch ``csrc/dequant_unpack.cu`` on a (rows, dp) packed CUDA table."""
+    backend.check_cuda(packed, torch.uint8, 2, "packed")
+    backend.check_cuda(scale, torch.float32, 2, "scale")
+    backend.check_cuda(zero, torch.float32, 2, "zero")
+    backend.require_sm90(packed.device)
+    if bits not in (1, 2, 4, 8):
+        raise ValueError(f"unsupported bit-width {bits}")
+    rows, dp = packed.shape
+    if dp * (8 // bits) < dim or scale.shape != (rows, 1) \
+            or zero.shape != (rows, 1):
+        raise ValueError(f"packed {tuple(packed.shape)} at {bits} bits, "
+                         f"scale {tuple(scale.shape)}, zero "
+                         f"{tuple(zero.shape)} do not hold {rows} rows of "
+                         f"{dim}")
+    out = torch.empty((rows, dim), dtype=torch.float32, device=packed.device)
+    fn = backend.kernel_fn("dequant_unpack", "dequant_unpack_launch",
+                           _DQ_ARGTYPES)
+    with torch.cuda.device(packed.device):
+        backend.launch(fn, packed.data_ptr(), rows, dp, bits, dim,
+                       scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
+                       backend.stream_of(packed))
+    backend.count_launch("dequant_unpack")
+    return out

@@ -1,1 +1,2 @@
-"""Quantized serving: packed store, fused top-K scorer, engine, eval."""
+"""Quantized serving: packed store, fused top-K and two-stage scorers,
+result cache, delta refresh, engine, eval."""

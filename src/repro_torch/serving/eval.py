@@ -2,7 +2,8 @@
 ``repro/serving/eval.py``).
 
 Computes the dense reference's Recall/NDCG (``training/metrics.py``) user
-chunk by user chunk through ``scorer.topk_scores``: scores stream item chunk
+chunk by user chunk through ``scorer.topk_scores`` (or, with
+``two_stage_c``, ``scorer.two_stage_topk``): scores stream item chunk
 by item chunk, train positives are excluded through the scorer's per-user
 index lists, ties keep the lowest index, and per-user recall/NDCG use the
 reference formulas, summed, with the valid-user division at the end.
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .scorer import topk_scores
+from .scorer import topk_scores, two_stage_topk
 from .store import QuantizedEmbeddingStore, padded_pos_lists
 
 __all__ = ["streaming_recall_ndcg", "streaming_eval_dataset"]
@@ -21,13 +22,16 @@ __all__ = ["streaming_recall_ndcg", "streaming_eval_dataset"]
 
 def streaming_recall_ndcg(store: QuantizedEmbeddingStore,
                           train_pos: np.ndarray, test_pos: np.ndarray, *,
-                          k: int = 20, user_chunk: int = 128):
+                          k: int = 20, user_chunk: int = 128,
+                          two_stage_c: int | None = None):
     """Recall@k / NDCG@k over the full item set, streamed.
 
     train_pos/test_pos : (n, 2) int [user, item] pairs; users at or past
     ``store.n_users`` are ignored. Training positives are excluded from
     ranking; users with no test positive are left out of the mean.
-    Returns (recall, ndcg).
+    ``two_stage_c`` retrieves through the two-stage path (coarse scan
+    keeping C·k candidates, fp32 re-rank); at ``C >= n_items / k`` it
+    matches the single-stage result. Returns (recall, ndcg).
     """
     n_users = store.n_users
     train_pos = train_pos[train_pos[:, 0] < n_users]
@@ -44,7 +48,11 @@ def streaming_recall_ndcg(store: QuantizedEmbeddingStore,
     for u0 in range(0, n_users, user_chunk):
         u1 = min(u0 + user_chunk, n_users)
         q = store.user_vectors(torch.arange(u0, u1, device=dev))
-        _, idx = topk_scores(q, store.items, k, exclude=excl_t[u0:u1])
+        if two_stage_c is not None:
+            _, idx = two_stage_topk(q, store.items, k, c=two_stage_c,
+                                    exclude=excl_t[u0:u1])
+        else:
+            _, idx = topk_scores(q, store.items, k, exclude=excl_t[u0:u1])
         idx = idx.cpu().numpy()                            # (B, k)
         hits = (idx[:, :, None] == test[u0:u1, None, :]).any(-1)  # (B, k)
         nt = n_test[u0:u1]

@@ -28,6 +28,9 @@ from repro_torch.kernels import topk_score as tk
 from repro_torch.launch.serve import reduced_dataset, serve_kgnn
 from repro_torch.launch.train import train_kgnn
 from repro_torch.models import kgnn
+from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.scorer import quantize_query, two_stage_topk
+from repro_torch.serving.store import QuantizedEmbeddingStore
 
 SERVING = ("quant_pack", "spmm", "topk_score")
 
@@ -199,3 +202,126 @@ def test_reduced_training_runs_the_kernels(cuda, bits):
     assert all(launches.get(k, 0) > 0 for k in want), launches
     losses = [[r["loss"] for r in run["steps"]] for run in runs.values()]
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+
+N_COARSE = 3001                  # not a multiple of the 128-item chunk
+
+
+def _coarse_case(cuda, case, bits, dim):
+    gen = torch.Generator(device=cuda).manual_seed(bits * 100 + dim)
+    b = 45
+    if case == "ties":
+        codes = torch.randint(0, 4, (N_COARSE, dim), generator=gen,
+                              device=cuda).to(torch.uint8)
+        items = QTensor(pack_bits(codes, bits),
+                        torch.ones((N_COARSE, 1), device=cuda),
+                        torch.zeros((N_COARSE, 1), device=cuda), bits, dim)
+        q = torch.randint(-2, 3, (b, dim), generator=gen,
+                          device=cuda).to(torch.float32)
+    else:                                   # random, padded packs included
+        items = quantize(torch.randn((N_COARSE, dim), generator=gen,
+                                     device=cuda), 0, bits=bits)
+        q = torch.randn((b, dim), generator=gen, device=cuda)
+    q8, qmeta = quantize_query(q)
+    excl = torch.randint(-1, N_COARSE, (b, 9), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    return q8, qmeta, items, excl
+
+
+@pytest.mark.parametrize("case,bits,dim", [("ties", 8, 64),
+                                           ("random", 8, 256),
+                                           ("random", 4, 64),
+                                           ("padded", 4, 37),
+                                           ("padded", 2, 37)])
+@pytest.mark.parametrize("m", [1, 80, 128, 129, 1000, N_COARSE])
+def test_coarse_kernel_bit_identical(cuda, case, bits, dim, m):
+    q8, qmeta, items, excl = _coarse_case(cuda, case, bits, dim)
+    kv, ki = tk.coarse_topm_cuda(q8, qmeta, items, excl, m=m)
+    pv, pi = tk.coarse_topm_plain(q8, qmeta, items, excl, m=m)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    if m < N_COARSE - 9:
+        assert not bool((ki[:, :, None] == excl[:, None, :]).any())
+
+
+@pytest.mark.parametrize("k", [129, 500])
+def test_topk_kernel_large_k_bit_identical(cuda, k):
+    q8, _, items, excl = _coarse_case(cuda, "ties", 8, 64)
+    kv, ki = tk.topk_cuda(q8, items, excl, k=k)
+    pv, pi = tk.topk_plain(q8, items, excl, k=k)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("dim", [64, 37])
+def test_dequant_unpack_kernel_bit_identical(cuda, bits, dim):
+    gen = torch.Generator(device=cuda).manual_seed(bits + dim)
+    q = quantize(torch.randn((1001, dim), generator=gen, device=cuda), 7,
+                 bits=bits, stochastic=True)
+    got = qp.dequant_unpack_cuda(q.packed, q.scale, q.zero, bits=bits,
+                                 dim=dim)
+    assert got.shape == (1001, dim)
+    assert torch.equal(got, qp.dequant_unpack_plain(q.packed, q.scale,
+                                                    q.zero, bits=bits,
+                                                    dim=dim))
+    assert torch.equal(got, dequantize(q))
+
+
+def test_reduced_tier2_serving_path_runs_the_kernels(cuda):
+    """The tier-2 launcher path on the card (two-stage, 2 shards, cache,
+    training and a delta refresh) launches the coarse and dequant kernels
+    and serves from the refreshed store."""
+    cfg = reduced(get("kgat")).model_cfg
+    ds = reduced_dataset(cfg)
+    backend.reset_counts()
+    res = serve_kgnn(cfg, ds, kgnn.init_params(cfg, device=cuda), bits=8,
+                     k=10, requests=24, device=cuda, train_steps=2,
+                     two_stage=4, item_shards=2, cache=16, refresh_steps=2,
+                     log=lambda _: None)
+    counts = dict(backend.LAUNCH_COUNTS)
+    want = SERVING + ("coarse_topm", "dequant_unpack", "sddmm")
+    assert all(counts.get(n, 0) > 0 for n in want), counts
+    assert res["delta"]["version"] == 1
+    assert res["stats_post"].store_version == 1
+    for a, b in ((res["live_store"].items, res["new_store"].items),
+                 (res["live_store"].users, res["new_store"].users)):
+        assert torch.equal(a.packed, b.packed)
+    assert res["dense_delta"] <= 1e-6
+
+
+def test_two_stage_leaves_tf32_setting_alone(cuda):
+    """The re-rank is full fp32 whatever the caller's TF32 setting, and it
+    does not change that setting."""
+    q8, _, items, excl = _coarse_case(cuda, "random", 8, 256)
+    q = q8 * 0.01
+    before = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    try:
+        for flag in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            out[flag] = two_stage_topk(q, items, 20, c=4, exclude=excl)
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][1])
+
+
+def test_sharded_engine_on_streams_matches_one_shard(cuda):
+    """Two item shards on their own streams of one card serve the bits one
+    shard serves, and each shard's stage times are recorded per batch."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    users = torch.randint(-2, 3, (24, 64), generator=gen,
+                          device=cuda).to(torch.float32)
+    items = torch.randint(0, 4, (N_COARSE, 64), generator=gen,
+                          device=cuda).to(torch.float32)
+    items[:, 0], items[:, 1] = 0.0, 3.0        # exact INT8 rows
+    st = QuantizedEmbeddingStore.from_arrays(users, items, bits=8)
+    res = {}
+    for shards in (1, 2):
+        with ServingEngine(st, k=20, buckets=(8,), item_shards=shards,
+                           two_stage_c=4) as eng:
+            res[shards] = eng.score_batch(np.arange(24))
+            stage = eng._m_stage["coarse"]
+            assert stage.snapshot()["count"] == 3 * shards
+    np.testing.assert_array_equal(res[1][1], res[2][1])
+    np.testing.assert_array_equal(res[1][0], res[2][0])

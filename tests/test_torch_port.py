@@ -18,7 +18,9 @@ from repro_torch.configs.smoke import reduced
 from repro_torch.core.quant import quantize
 from repro_torch.data.csr import build_spmm_layout
 from repro_torch.kernels import dequant_matmul as tdqmm
+from repro_torch.kernels import quant_pack as tqp
 from repro_torch.kernels import spmm as tspmm
+from repro_torch.kernels import topk_score as ttk
 from repro_torch.launch import serve as tserve
 from repro_torch.models import kgnn
 
@@ -38,6 +40,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    scanned = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "obs/metrics", "obs/trace", "serving/cache", "serving/refresh",
+        "serving/engine", "serving/scorer")} <= scanned
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
@@ -58,6 +64,10 @@ def test_entry_points_without_cuda_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.main(["--arch", "kgat", "--requests", "2"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.main(["--arch", "kgat", "--bits", "8", "--two-stage", "4",
+                     "--item-shards", "2", "--cache", "16",
+                     "--refresh-steps", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.serve_kgnn(cfg, ds, kgnn.init_params(cfg, device="cpu"),
                           bits=8)
 
@@ -74,7 +84,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                             torch.zeros((4, 3)), layout),
                    lambda: tspmm.dequant_sddmm_cuda(q, torch.zeros((4, 3)),
                                                     layout),
-                   lambda: tdqmm.dequant_matmul_cuda(q, torch.zeros((4, 2)))):
+                   lambda: tdqmm.dequant_matmul_cuda(q, torch.zeros((4, 2))),
+                   lambda: ttk.coarse_topm_cuda(
+                       torch.zeros((2, 3)), torch.ones((2, 2)), q,
+                       torch.full((2, 1), -1, dtype=torch.int32), m=2),
+                   lambda: tqp.dequant_unpack_cuda(q.packed, q.scale, q.zero,
+                                                   bits=2, dim=3)):
         with pytest.raises(ValueError, match="CUDA tensor"):
             launch()
 
