@@ -14,7 +14,9 @@ their plain versions.
      quant_pack  codes, scale and zero bit-identical (70,679x256 and
                  24,915x256, bits 8 and 4, nearest and SR, odd widths);
      spmm        <= 1e-5 relative (max |diff| / max |plain|) on the
-                 full-width KGAT graph, and bit-identical across two runs;
+                 full-width KGAT graph at the main path's three shapes (d 64,
+                 d 64 in the transpose direction, d 1: the edge softmax's
+                 ones column), and bit-identical across two runs;
      topk_score  indices and values bit-identical on integer-valued inputs
                  full of ties; on random inputs values <= 1e-5 relative and
                  indices equal except between scores within that tolerance;
@@ -23,7 +25,7 @@ their plain versions.
                  FP32 layers' gradient) and d 1 (the edge softmax's ones
                  column) and bit-identical across two runs;
      dequant_sddmm  the same at bits 8/4/2/1 (d 64) and on a padded pack
-                 (d 37, bits 2);
+                 (d 37, bits 2); timed at INT2 and INT8, d 64;
      dequant_matmul <= 1e-5 relative at R 184,166, 64 x 64, bits 8/4/2/1,
                  and a padded pack (d 37), bit-identical across two runs;
      coarse_topm values and indices bit-identical at I 24,915, d 256, INT8
@@ -233,57 +235,68 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+def _spmm_library(torch, g, ew, transpose):
+    """cuSPARSE's operand: the graph's coalesced CSR (A, or Aᵀ for the
+    transpose direction) with the edge weights as values."""
+    m = g.layout.meta
+    src, dst = g.src.long(), g.dst.long()
+    idx, shape = ((torch.stack([src, dst]), (m.n_src, m.n_dst)) if transpose
+                  else (torch.stack([dst, src]), (m.n_dst, m.n_src)))
+    with warnings.catch_warnings():      # CSR support is marked beta
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(idx, ew, shape).coalesce() \
+            .to_sparse_csr()
+
+
 def check_spmm(torch, sp, g, x, gen):
+    """The main path's three SPMM shapes on the full-width graph: a layer's
+    aggregation (d 64), its input gradient (d 64, transpose direction) and
+    the edge softmax's denominators (a ones column, d 1)."""
     log("[spmm] kernel vs plain on the full-width KGAT graph")
     m = g.layout.meta
     ew = torch.rand(m.n_edges, generator=gen, device=DEV)
-    out1 = sp.spmm_cuda(x, ew, g.layout)
-    out2 = sp.spmm_cuda(x, ew, g.layout)
-    ref = sp.spmm_plain(x, ew, g.layout)
-    rel = _rel(out1, ref)
-    err = float((out1 - ref).abs().max())
-    same = torch.equal(out1, out2)
-    log(f"  weighted: rel {rel:.3e} (max abs {err:.3e}), two runs "
-        f"{'bit-identical' if same else 'DIFFER'}")
-    check(rel <= TOL, f"spmm weighted rel error {rel} > {TOL}")
-    check(same, "spmm is not deterministic across runs")
     rel1 = _rel(sp.spmm_cuda(x, None, g.layout),
                 sp.spmm_plain(x, None, g.layout))
+    log(f"  d={x.shape[1]} unweighted: rel {rel1:.3e}")
+    check(rel1 <= TOL, f"spmm unweighted rel error {rel1} > {TOL}")
     gt = torch.randn((m.n_dst, x.shape[1]), generator=gen,
                      device=DEV) * 0.1
-    rel_t = _rel(sp.spmm_cuda(gt, ew, g.layout, transpose=True),
-                 sp.spmm_plain(gt, ew, g.layout, transpose=True))
-    log(f"  unweighted: rel {rel1:.3e}; transpose direction: rel {rel_t:.3e}")
-    check(rel1 <= TOL and rel_t <= TOL, "spmm unweighted/transpose error")
-
-    ms = time_ms(lambda: sp.spmm_cuda(x, ew, g.layout), 20)
-    plain = time_ms(lambda: sp.spmm_plain(x, ew, g.layout), 5)
-    src, dst = g.src.long(), g.dst.long()
-    with warnings.catch_warnings():      # CSR support is marked beta
-        warnings.simplefilter("ignore", UserWarning)
-        a = torch.sparse_coo_tensor(torch.stack([dst, src]), ew,
-                                    (m.n_dst, m.n_src)).coalesce()
-        a = a.to_sparse_csr()
-    lib_err = _rel(torch.sparse.mm(a, x), ref)
-    check(lib_err <= TOL, f"library sparse.mm disagrees ({lib_err})")
-    lib = time_ms(lambda: torch.sparse.mm(a, x), 20)
-    d = x.shape[1]
-    # the function's bytes: the table read once, a source index and a
-    # weight per edge, CSR row pointers, the output written once
-    n_bytes = (m.n_src * d * 4 + m.n_edges * 8 + (m.n_dst + 1) * 4
-               + m.n_dst * d * 4)
-    bnd, by = bound_ms(n_bytes, 2 * m.n_edges * d)
-    log(f"  time E={m.n_edges} d={d}: kernel {ms:.4f} ms, plain {plain:.4f} "
-        f"ms, torch.sparse.mm (CSR) {lib:.4f} ms, bound {bnd:.4f} ms ({by}; "
-        f"{n_bytes / 1e9:.3f} GB); an uncached per-edge row gather would "
-        f"move {m.n_edges * d * 4 / 1e9:.3f} GB")
-    return dict(name="spmm", route="cuda",
-                source="src/repro_torch/csrc/spmm.cu",
-                replaces="src/repro/kernels/spmm.py:91",
-                also_replaces="src/repro/kernels/spmm.py:180",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                bound_by=by, library_ms=lib,
-                shape=f"E={m.n_edges} n={m.n_dst} d={d} weighted")
+    ones = torch.ones((m.n_src, 1), device=DEV)
+    entries = []
+    for xin, tr in ((x, False), (gt, True), (ones, False)):
+        d = xin.shape[1]
+        label = f"d={d}{' transpose' if tr else ''}"
+        out1 = sp.spmm_cuda(xin, ew, g.layout, transpose=tr)
+        same = torch.equal(out1, sp.spmm_cuda(xin, ew, g.layout,
+                                              transpose=tr))
+        ref = sp.spmm_plain(xin, ew, g.layout, transpose=tr)
+        rel, err = _rel(out1, ref), float((out1 - ref).abs().max())
+        log(f"  {label} weighted: rel {rel:.3e} (max abs {err:.3e}), two "
+            f"runs {'bit-identical' if same else 'DIFFER'}")
+        check(rel <= TOL, f"spmm {label} rel error {rel} > {TOL}")
+        check(same, f"spmm {label} is not deterministic across runs")
+        a = _spmm_library(torch, g, ew, tr)
+        lib_err = _rel(torch.sparse.mm(a, xin), ref)
+        check(lib_err <= TOL, f"library sparse.mm disagrees ({lib_err})")
+        ms = time_ms(lambda: sp.spmm_cuda(xin, ew, g.layout, transpose=tr),
+                     20)
+        plain = time_ms(lambda: sp.spmm_plain(xin, ew, g.layout,
+                                              transpose=tr), 5)
+        lib = time_ms(lambda: torch.sparse.mm(a, xin), 20)
+        n_out = out1.shape[0]
+        # the function's bytes: the table read once, a source index and a
+        # weight per edge, CSR row pointers, the output written once
+        n_bytes = (xin.shape[0] * d * 4 + m.n_edges * 8 + (n_out + 1) * 4
+                   + n_out * d * 4)
+        log(f"  {label}: an uncached per-edge row gather would move "
+            f"{m.n_edges * d * 4 / 1e9:.3f} GB")
+        entries.append(_entry(
+            "spmm", "spmm", "src/repro/kernels/spmm.py:91", err, ms, plain,
+            lib, n_bytes, 2 * m.n_edges * d,
+            f"E={m.n_edges} n={n_out} {label} weighted",
+            also_replaces="src/repro/kernels/spmm.py:180",
+            library_call="torch.sparse.mm (CSR)"))
+    return _with_other_shape(*entries)
 
 
 def _topk_inputs(torch, quantize, gen, b, n_items, d, *, ties):
@@ -443,11 +456,13 @@ def check_coarse(torch, tk, gen):
     return _with_other_shape(entries[1], entries[0])
 
 
-def _with_other_shape(entry, other):
-    """``entry`` (the JSON line's shape) carrying the timings of ``other``."""
-    entry["other_shape"] = {k: other[k] for k in (
-        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms")}
+def _with_other_shape(entry, *others):
+    """``entry`` (the JSON line's shape) carrying the timings of ``others``
+    (one: a dict; several: a list)."""
+    keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    rows = [{k: o[k] for k in keys} for o in others]
+    entry["other_shape"] = rows[0] if len(rows) == 1 else rows
     return entry
 
 
@@ -569,6 +584,7 @@ def check_dequant_sddmm(torch, sp, g, gen):
     log("[dequant_sddmm] kernel vs plain on the full-width KGAT graph")
     m = g.layout.meta
     lib_fn, pos = _sddmm_library(torch, g)
+    timed = {}
     for bits, d in ((8, 64), (4, 64), (1, 64), (2, 37), (2, 64)):
         x = torch.randn((m.n_src, d), generator=gen, device=DEV) * 0.1
         grad = torch.randn((m.n_dst, d), generator=gen, device=DEV) * 1e-3
@@ -583,22 +599,33 @@ def check_dequant_sddmm(torch, sp, g, gen):
         check(rel <= TOL and same,
               f"dequant_sddmm bits={bits} d={d}: rel {rel}, "
               f"deterministic {same}")
-    # timing: the main path's INT2 call at d 64 (the last case)
-    lib_rel = _rel(lib_fn(dequantize(q), grad).values()[pos], ref)
-    check(lib_rel <= TOL, f"library dequantize+sampled_addmm disagrees "
-          f"({lib_rel})")
-    ms = time_ms(lambda: sp.dequant_sddmm_cuda(q, grad, g.layout), 20)
-    plain = time_ms(lambda: sp.dequant_sddmm_plain(q, grad, g.layout), 5)
-    lib = time_ms(lambda: lib_fn(dequantize(q), grad), 20)
-    dp = q.packed.shape[1]
-    # packed table, scale/zero, g once; two indices in, one value out per
-    # edge. Operations: dequantize each residual element once, then the dot
-    n_bytes = m.n_src * (dp + 8) + m.n_dst * d * 4 + m.n_edges * 12
-    return _entry("dequant_sddmm", "sddmm", "src/repro/kernels/spmm.py:398",
-                  err, ms, plain, lib, n_bytes,
-                  2 * m.n_edges * d + 2 * m.n_src * d,
-                  f"E={m.n_edges} n={m.n_dst} d={d} INT2",
-                  also_replaces="src/repro/kernels/spmm.py:466")
+        if d == 64:
+            timed[bits] = q
+    # timing: the main path's INT2 call at d 64 (the last case), and INT8
+    entries = []
+    for q in (q, timed[8]):
+        ref = sp.dequant_sddmm_plain(q, grad, g.layout)
+        lib_rel = _rel(lib_fn(dequantize(q), grad).values()[pos], ref)
+        check(lib_rel <= TOL, f"library dequantize+sampled_addmm disagrees "
+              f"({lib_rel})")
+        err = float((sp.dequant_sddmm_cuda(q, grad, g.layout) - ref)
+                    .abs().max())
+        ms = time_ms(lambda: sp.dequant_sddmm_cuda(q, grad, g.layout), 20)
+        plain = time_ms(lambda: sp.dequant_sddmm_plain(q, grad, g.layout),
+                        5)
+        lib = time_ms(lambda: lib_fn(dequantize(q), grad), 20)
+        dp = q.packed.shape[1]
+        # packed table, scale/zero, g once; two indices in, one value out
+        # per edge. Operations: dequantize each residual element once, then
+        # the dot
+        n_bytes = m.n_src * (dp + 8) + m.n_dst * d * 4 + m.n_edges * 12
+        entries.append(_entry(
+            "dequant_sddmm", "sddmm", "src/repro/kernels/spmm.py:398", err,
+            ms, plain, lib, n_bytes, 2 * m.n_edges * d + 2 * m.n_src * d,
+            f"E={m.n_edges} n={m.n_dst} d={d} INT{q.bits}",
+            also_replaces="src/repro/kernels/spmm.py:466",
+            library_call="dequantize + torch.sparse.sampled_addmm (CSR)"))
+    return _with_other_shape(*entries)
 
 
 def check_dequant_matmul(torch, dq, gen):

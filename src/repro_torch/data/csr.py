@@ -14,9 +14,12 @@ Pad slots carry ``perm = n_edges``, so ``append(ew, 0)[perm]`` puts the edge
 weights in slot order and zeroes the pads. The transpose direction (edges
 sorted by source) comes from the same builder run on the reversed edges.
 
-The port adds ``tile_ptr`` for each direction: the first block of every
-tile, plus the block count at the end. The CUDA kernel gives one CTA a whole
-tile and finds its blocks through it.
+The port adds, for each direction, the slot run of every output row:
+``row_start[r] .. row_end[r]`` are the slots of row ``r``'s edges (empty
+rows have ``row_start == row_end``). A tile's real slots are sorted by
+destination and its pad slots come after them, so each run is contiguous
+and holds no pad slot. The CUDA SPMM kernel gives each row a warp and finds
+its slots through these two arrays.
 """
 
 from __future__ import annotations
@@ -53,7 +56,8 @@ class Direction:
     ldst_blk: torch.Tensor    # (n_blocks, block_e) output row local to tile
     perm_blk: torch.Tensor    # (n_blocks, block_e) edge index; n_edges = pad
     tile_of_blk: torch.Tensor  # (n_blocks,)
-    tile_ptr: torch.Tensor    # (n_tiles + 1,) first block of each tile
+    row_start: torch.Tensor   # (n_out,) first slot of each output row
+    row_end: torch.Tensor     # (n_out,) one past its last slot
     n_tiles: int
     n_out: int
 
@@ -73,23 +77,26 @@ class SpmmLayout:
     ldst_blk: torch.Tensor    # dst id local to its tile
     perm_blk: torch.Tensor    # original edge index per slot; n_edges for pads
     tile_of_blk: torch.Tensor  # (n_blocks,) destination tile per block
-    tile_ptr: torch.Tensor    # (n_tiles + 1,)
+    row_start: torch.Tensor   # (n_dst,) slot run of each destination row
+    row_end: torch.Tensor     # (n_dst,)
     # transpose direction: edges stable-sorted by src (drives the gradient)
     t_src_blk: torch.Tensor   # global dst id per slot: rows of g
     t_ldst_blk: torch.Tensor  # src id local to its tile
     t_perm_blk: torch.Tensor
     t_tile_of_blk: torch.Tensor
-    t_tile_ptr: torch.Tensor
+    t_row_start: torch.Tensor  # (n_src,) slot run of each source row
+    t_row_end: torch.Tensor
     meta: CSRMeta
 
     def direction(self, transpose: bool = False) -> Direction:
         m = self.meta
         if transpose:
             return Direction(self.t_src_blk, self.t_ldst_blk, self.t_perm_blk,
-                             self.t_tile_of_blk, self.t_tile_ptr,
-                             m.t_n_tiles, m.n_src)
+                             self.t_tile_of_blk, self.t_row_start,
+                             self.t_row_end, m.t_n_tiles, m.n_src)
         return Direction(self.src_blk, self.ldst_blk, self.perm_blk,
-                         self.tile_of_blk, self.tile_ptr, m.n_tiles, m.n_dst)
+                         self.tile_of_blk, self.row_start, self.row_end,
+                         m.n_tiles, m.n_dst)
 
 
 def _build_direction(gather_ids: np.ndarray, out_ids: np.ndarray,
@@ -121,16 +128,17 @@ def _build_direction(gather_ids: np.ndarray, out_ids: np.ndarray,
     perm_blk[slot] = order
     tile_of_blk = np.repeat(np.arange(n_tiles, dtype=np.int32),
                             blocks_per_tile)
+    # row r's edges are sorted positions first[r] .. first[r] + deg[r]; its
+    # tile places them from tile_slot0 on, in that order
+    deg = np.bincount(out_s, minlength=n_out)[:n_out]
+    first = np.concatenate([[0], np.cumsum(deg)[:-1]])
+    row_tile = np.arange(n_out) // block_rows
+    row_start = tile_slot0[row_tile] + first - edge_start[row_tile]
     shape = (n_blocks, block_e)
     return (gat_blk.reshape(shape), outg_blk.reshape(shape),
             lrow_blk.reshape(shape), perm_blk.reshape(shape),
-            tile_of_blk, n_blocks, n_tiles)
-
-
-def _tile_ptr(tile_of_blk: np.ndarray, n_tiles: int) -> np.ndarray:
-    # tiles own consecutive runs of blocks in increasing tile order
-    return np.searchsorted(tile_of_blk, np.arange(n_tiles + 1),
-                           side="left").astype(np.int32)
+            tile_of_blk, row_start.astype(np.int32),
+            (row_start + deg).astype(np.int32), n_blocks, n_tiles)
 
 
 def build_spmm_layout(src, dst, *, n_dst: int, n_src: int | None = None,
@@ -148,12 +156,12 @@ def build_spmm_layout(src, dst, *, n_dst: int, n_src: int | None = None,
         raise ValueError(f"bad edge list shapes {src.shape}/{dst.shape}")
     n_src = int(n_src if n_src is not None else n_dst)
     E = int(src.shape[0])
-    (src_blk, dstg_blk, ldst_blk, perm_blk, tile_of_blk,
+    (src_blk, dstg_blk, ldst_blk, perm_blk, tile_of_blk, row_start, row_end,
      n_blocks, n_tiles) = _build_direction(src, dst, n_dst,
                                            block_e, block_rows)
-    (t_src_blk, _t_outg, t_ldst_blk, t_perm_blk, t_tile_of_blk,
-     t_n_blocks, t_n_tiles) = _build_direction(dst, src, n_src,
-                                               block_e, block_rows)
+    (t_src_blk, _t_outg, t_ldst_blk, t_perm_blk, t_tile_of_blk, t_row_start,
+     t_row_end, t_n_blocks, t_n_tiles) = _build_direction(
+        dst, src, n_src, block_e, block_rows)
     if max(n_blocks, t_n_blocks) * block_e >= 2**31:
         raise ValueError("layout slot count exceeds int32 indexing")
     meta = CSRMeta(n_src=n_src, n_dst=int(n_dst), n_edges=E,
@@ -167,10 +175,10 @@ def build_spmm_layout(src, dst, *, n_dst: int, n_src: int | None = None,
     return SpmmLayout(
         src_blk=t(src_blk), dstg_blk=t(dstg_blk), ldst_blk=t(ldst_blk),
         perm_blk=t(perm_blk), tile_of_blk=t(tile_of_blk),
-        tile_ptr=t(_tile_ptr(tile_of_blk, n_tiles)),
+        row_start=t(row_start), row_end=t(row_end),
         t_src_blk=t(t_src_blk), t_ldst_blk=t(t_ldst_blk),
         t_perm_blk=t(t_perm_blk), t_tile_of_blk=t(t_tile_of_blk),
-        t_tile_ptr=t(_tile_ptr(t_tile_of_blk, t_n_tiles)),
+        t_row_start=t(t_row_start), t_row_end=t(t_row_end),
         meta=meta)
 
 

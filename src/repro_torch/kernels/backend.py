@@ -29,6 +29,7 @@ ceil(n_items / 128))).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -40,7 +41,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["DeviceInfo", "probe", "resolve_device", "require_sm90", "build",
+__all__ = ["DeviceInfo", "probe", "resolve_device", "require_sm90",
+           "full_fp32", "build",
            "lib_path", "kernel_fn", "launch", "stream_of", "check_cuda",
            "LAUNCH_COUNTS",
            "count_launch", "reset_counts", "SOURCES", "CSRC", "BUILD_DIR",
@@ -107,6 +109,20 @@ def require_sm90(device: torch.device) -> None:
         raise RuntimeError(
             f"the kernels are built for sm_90a (Hopper); "
             f"{torch.cuda.get_device_name(device)} is sm_{cap[0]}{cap[1]}")
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Run the block's float32 matmuls in full fp32 (no TF32), as XLA does,
+    and give the caller back its own setting afterwards: the flag
+    ``torch.backends.cuda.matmul.allow_tf32`` is process-wide."""
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_tf32
+    flags.allow_tf32 = False
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = before
 
 
 def _nvcc() -> str:

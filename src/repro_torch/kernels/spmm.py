@@ -7,16 +7,19 @@ and ``_spmm_dma_kernel``, which compute the same function). The op is
 ``Aᵀ(g * ew)`` for ``transpose=True`` (the layout's src-sorted arrays run
 through the same kernel). ``ew=None`` aggregates unweighted.
 
-The kernel is ``csrc/spmm.cu``: one CTA per destination tile, each output
-element one sequential sum in slot order, no atomics, so two runs give the
-same bits. Its source note says what bounds it on the H100.
+The kernel is ``csrc/spmm.cu``: a group of lanes per output row (16 at d 64,
+a warp at d 1), which finds its slots through the layout's
+``row_start``/``row_end``; each output element is one sequential sum in slot
+order, no atomics, so two runs give the same bits. Its source note says what
+bounds it on the H100.
 
 SDDMM: port of ``sddmm_ew`` (TPU kernel ``_sddmm_kernel``) and
 ``dequant_sddmm_ew`` (``_dq_sddmm_kernel`` and ``_dq_sddmm_dma_kernel``):
 ``dew[e] = <x_hat[src_e], g[dst_e]>`` in original edge order, from an fp32
 residual or a packed ``QTensor`` (unpacked in the kernel). Both run through
-``csrc/sddmm.cu``: a group of lanes per slot of the forward direction, the
-result written straight to ``dew[perm[slot]]``, no atomics.
+``csrc/sddmm.cu`` over the slots of the forward direction (a group of lanes
+per slot for fp32, one thread per slot for a packed residual), the result
+written straight to ``dew[perm[slot]]``, no atomics.
 
 ``kernels.ops`` sends CUDA tensors to the ``*_cuda`` launchers and CPU
 tensors to the ``*_plain`` versions. Each pair sums in different orders, so
@@ -37,7 +40,7 @@ __all__ = ["spmm_plain", "spmm_cuda", "sddmm_plain", "sddmm_cuda",
            "dequant_sddmm_plain", "dequant_sddmm_cuda"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P)
+_ARGTYPES = (_P, _I, _P, _P, _P, _P, _P, _I, _P, _P)
 _SDDMM_ARGTYPES = (_P, _I, _P, _I, _P, _P, _P, _I, _P, _P)
 _DQ_SDDMM_ARGTYPES = (_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P)
 
@@ -76,9 +79,9 @@ def spmm_cuda(x: torch.Tensor, ew: torch.Tensor | None, layout, *,
         if ew.shape[0] != m.n_edges:
             raise ValueError(f"ew has {ew.shape[0]} entries, the layout "
                              f"has {m.n_edges} edges")
-    for name in ("gat_blk", "ldst_blk", "perm_blk", "tile_ptr"):
-        backend.check_cuda(getattr(dr, name),
-                           torch.int32, 1 if name == "tile_ptr" else 2, name)
+    for name in ("gat_blk", "perm_blk", "row_start", "row_end"):
+        backend.check_cuda(getattr(dr, name), torch.int32,
+                           2 if name.endswith("_blk") else 1, name)
     if dr.gat_blk.device != x.device:
         raise ValueError(f"layout is on {dr.gat_blk.device}, x on {x.device}")
     d = x.shape[1]
@@ -86,11 +89,10 @@ def spmm_cuda(x: torch.Tensor, ew: torch.Tensor | None, layout, *,
     fn = backend.kernel_fn("spmm", "spmm_launch", _ARGTYPES)
     with torch.cuda.device(x.device):
         backend.launch(fn, x.data_ptr(), d,
-                       None if ew is None else ew.data_ptr(), m.n_edges,
-                       dr.gat_blk.data_ptr(), dr.ldst_blk.data_ptr(),
-                       dr.perm_blk.data_ptr(), dr.tile_ptr.data_ptr(),
-                       dr.n_tiles, m.block_e, m.block_rows, dr.n_out,
-                       out.data_ptr(), backend.stream_of(x))
+                       None if ew is None else ew.data_ptr(),
+                       dr.gat_blk.data_ptr(), dr.perm_blk.data_ptr(),
+                       dr.row_start.data_ptr(), dr.row_end.data_ptr(),
+                       dr.n_out, out.data_ptr(), backend.stream_of(x))
     backend.count_launch("spmm")
     return out
 

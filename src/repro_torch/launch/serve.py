@@ -33,7 +33,8 @@ import torch
 from repro_torch.configs import ARCHS, get
 from repro_torch.configs.smoke import reduced
 from repro_torch.data.synthetic import bpr_batches, gen_kg_dataset
-from repro_torch.kernels.backend import LAUNCH_COUNTS, resolve_device
+from repro_torch.kernels.backend import LAUNCH_COUNTS, full_fp32, \
+    resolve_device
 from repro_torch.models import kgnn
 from repro_torch.models.layers import param_leaves
 from repro_torch.serving.engine import ServingEngine
@@ -80,8 +81,9 @@ def bpr_trainer(cfg, ds, g, params):
         for _ in range(n):
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in next(batches).items()}
-            loss = kgnn.bpr_loss(p, g, batch, cfg)
-            grads = torch.autograd.grad(loss, param_leaves(p))
+            with full_fp32():
+                loss = kgnn.bpr_loss(p, g, batch, cfg)
+                grads = torch.autograd.grad(loss, param_leaves(p))
             _, state["opt"] = opt.update(grads, state["opt"], p)
         return float(loss.detach())
 

@@ -22,7 +22,8 @@ denominators are that same kernel run over a ones column (their ∇ew the
 SDDMM kernel on the same column). The attention's own gathers
 backpropagate through ``index_add``, which uses atomics on CUDA, so two
 training steps on the card may differ in the last bits. Every matmul runs in
-full fp32: TF32 is switched off on the card.
+full fp32: ``forward_reps`` and the training step switch TF32 off for their
+own span (``kernels.backend.full_fp32``) and restore the caller's setting.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from repro_torch.core.act import act_matmul, act_nonlin, act_spmm, \
 from repro_torch.core.context import act_context, model_context
 from repro_torch.core.policy import FP32
 from repro_torch.data.csr import attach_layout
-from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.backend import full_fp32, resolve_device
 
 from .layers import glorot, normal_init, param_leaves
 
@@ -218,11 +219,9 @@ def forward_reps(params: dict, g: CKG, cfg: KGNNConfig) -> torch.Tensor:
     stochastic policy the context must carry a seed source: there is no
     silent constant seed (``ActContext.check_key``)."""
     _check_kgat(cfg)
-    if g.src.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False   # full fp32, as XLA
     ctx = model_context()
     ctx.check_key(f"propagate({cfg.model})")
-    with ctx, ctx.scope(cfg.model):
+    with full_fp32(), ctx, ctx.scope(cfg.model):
         e = params["entity"]
         outs = [e]
         att = _kgat_attention(params, e, g)

@@ -22,6 +22,7 @@ from typing import Any, Callable, Iterator
 import torch
 
 from repro_torch.core.context import act_context
+from repro_torch.kernels.backend import full_fp32
 from repro_torch.models.layers import param_leaves
 
 __all__ = ["ModelStep", "make_train_step", "trainable", "enter_or_null"]
@@ -64,14 +65,16 @@ def make_train_step(step: ModelStep, opt, *, schedule=None,
     seed_fn=seed_fn)``, so every ACT site resolves its per-site policy and
     its scope-derived rounding seed (``seed_fn`` injects seeds instead).
     ``metrics`` holds the loss and ``act``, the activation-bytes report of
-    the residuals this step saved.
+    the residuals this step saved. The forward and the backward run in full
+    fp32 (``full_fp32``), whatever the caller's TF32 setting.
     """
 
     def train_step(state, batch, i):
         params, opt_state = state
         ctx = act_context(schedule, root_seed, step=i, seed_fn=seed_fn)
-        loss = step.loss(params, batch, ctx=ctx)
-        grads = torch.autograd.grad(loss, param_leaves(params))
+        with full_fp32():
+            loss = step.loss(params, batch, ctx=ctx)
+            grads = torch.autograd.grad(loss, param_leaves(params))
         params, opt_state = opt.update(grads, opt_state, params)
         return (params, opt_state), {"loss": loss.detach(),
                                      "act": ctx.report()}

@@ -28,9 +28,11 @@ from repro_torch.kernels import topk_score as tk
 from repro_torch.launch.serve import reduced_dataset, serve_kgnn
 from repro_torch.launch.train import train_kgnn
 from repro_torch.models import kgnn
+from repro_torch.models.registry import build_step
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.scorer import quantize_query, two_stage_topk
 from repro_torch.serving.store import QuantizedEmbeddingStore
+from repro_torch.training.step import make_train_step, trainable
 
 SERVING = ("quant_pack", "spmm", "topk_score")
 
@@ -66,12 +68,25 @@ def _layout(cuda, n_src, n_dst, n_edges, seed):
                              block_rows=16, device=cuda)
 
 
+def _skewed_layout(cuda, seed):
+    """Both directions zipf-skewed: rows of more than 256 slots, rows of
+    33-256, short rows and empty rows, and tiles of very different sizes."""
+    rng = np.random.default_rng(seed)
+    src = np.minimum(rng.zipf(1.3, 6000) - 1, 300)
+    dst = np.minimum(rng.zipf(1.5, 6000) - 1, 466)
+    return build_spmm_layout(src, dst, n_dst=700, n_src=500, block_e=32,
+                             block_rows=16, device=cuda)
+
+
 @pytest.mark.parametrize("transpose", [False, True])
 @pytest.mark.parametrize("weighted", [True, False])
-@pytest.mark.parametrize("d", [64, 200])
+@pytest.mark.parametrize("d", [1, 3, 64, 200])
 def test_spmm_kernel_close_and_deterministic(cuda, transpose, weighted, d):
-    layout = _layout(cuda, 500, 700, 6000, d)
-    m = layout.meta
+    layout = _skewed_layout(cuda, d)
+    m, dr = layout.meta, layout.direction(transpose)
+    deg = (dr.row_end - dr.row_start).cpu()
+    assert int(deg.max()) > 256 and bool(((deg > 32) & (deg <= 256)).any())
+    assert bool((deg == 0).any())
     gen = torch.Generator(device=cuda).manual_seed(d)
     x = torch.randn((m.n_dst if transpose else m.n_src, d), generator=gen,
                     device=cuda)
@@ -81,6 +96,23 @@ def test_spmm_kernel_close_and_deterministic(cuda, transpose, weighted, d):
     b = sp.spmm_cuda(x, ew, layout, transpose=transpose)
     ref = sp.spmm_plain(x, ew, layout, transpose=transpose)
     assert torch.equal(a, b)
+    assert float((a - ref).abs().max() / ref.abs().max()) <= 1e-5
+    assert bool((a[deg == 0] == 0).all())
+
+
+@pytest.mark.parametrize("d", [64, 4])
+def test_spmm_kernel_unaligned_table(cuda, d):
+    """A table that does not start on 16 bytes takes the scalar columns."""
+    layout = _skewed_layout(cuda, 7)
+    m = layout.meta
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    buf = torch.randn(m.n_src * d + 1, generator=gen, device=cuda)
+    x = buf[1:].view(m.n_src, d)
+    assert x.data_ptr() % 16 != 0
+    ew = torch.rand(m.n_edges, generator=gen, device=cuda)
+    a = sp.spmm_cuda(x, ew, layout)
+    assert torch.equal(a, sp.spmm_cuda(x, ew, layout))
+    ref = sp.spmm_plain(x, ew, layout)
     assert float((a - ref).abs().max() / ref.abs().max()) <= 1e-5
 
 
@@ -155,7 +187,7 @@ def test_sddmm_kernel_close_and_deterministic(cuda, d):
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
-@pytest.mark.parametrize("dim", [64, 37])
+@pytest.mark.parametrize("dim", [64, 37, 200])
 def test_dequant_sddmm_kernel_close_and_deterministic(cuda, bits, dim):
     layout = _layout(cuda, 500, 700, 6000, bits + dim)
     m = layout.meta
@@ -166,6 +198,36 @@ def test_dequant_sddmm_kernel_close_and_deterministic(cuda, bits, dim):
     a = sp.dequant_sddmm_cuda(q, g, layout)
     assert torch.equal(a, sp.dequant_sddmm_cuda(q, g, layout))
     assert _rel(a, sp.dequant_sddmm_plain(q, g, layout)) <= 1e-5
+
+
+def _shifted(t, nbytes):
+    """A contiguous copy of ``t`` whose storage starts ``nbytes`` past a
+    16-byte boundary."""
+    n = nbytes // t.element_size()
+    buf = torch.empty(t.numel() + n, dtype=t.dtype, device=t.device)
+    out = buf[n:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("packed_off,g_off", [(1, 0), (8, 0), (0, 4)])
+def test_dequant_sddmm_kernel_unaligned_tables(cuda, bits, packed_off,
+                                               g_off):
+    """Tables that break the 16-byte alignment of the vector loads take the
+    byte-wise walk, which sums in the same order: the same bits."""
+    layout = _layout(cuda, 500, 700, 6000, bits)
+    m = layout.meta
+    gen = torch.Generator(device=cuda).manual_seed(bits)
+    q = quantize(torch.randn((m.n_src, 64), generator=gen, device=cuda),
+                 5, bits=bits, stochastic=True)
+    g = torch.randn((m.n_dst, 64), generator=gen, device=cuda)
+    q2 = QTensor(_shifted(q.packed, packed_off), q.scale, q.zero, bits, 64)
+    g2 = _shifted(g, g_off)
+    assert (q2.packed.data_ptr() % 16 != 0) == (packed_off > 0)
+    assert (g2.data_ptr() % 16 != 0) == (g_off > 0)
+    assert torch.equal(sp.dequant_sddmm_cuda(q2, g2, layout),
+                       sp.dequant_sddmm_cuda(q, g, layout))
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
@@ -304,6 +366,47 @@ def test_two_stage_leaves_tf32_setting_alone(cuda):
         torch.backends.cuda.matmul.allow_tf32 = before
     assert torch.equal(out[True][0], out[False][0])
     assert torch.equal(out[True][1], out[False][1])
+
+
+class _GradRecorder:
+    """An optimizer that keeps the step's gradients and moves nothing."""
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return params, state
+
+
+def test_rollout_and_training_step_leave_tf32_setting_alone(cuda):
+    """A rollout (``forward_reps``) and a training step (forward and
+    backward) run in full fp32 whatever the caller's TF32 setting, and leave
+    that setting as they found it."""
+    cfg = reduced(get("kgat")).model_cfg
+    ds = reduced_dataset(cfg)
+    step = build_step(cfg.model, ds=ds, cfg=cfg, batch_size=32, device=cuda)
+    g = step.data["graph"]
+    batch = next(step.batches())
+    params = kgnn.init_params(cfg, device=cuda)
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_tf32
+    reps, loss, grads = {}, {}, {}
+    try:
+        for flag in (False, True):
+            flags.allow_tf32 = flag
+            reps[flag] = kgnn.propagate(params, g, cfg)
+            assert flags.allow_tf32 is flag
+            opt = _GradRecorder()
+            train_step = make_train_step(step, opt,
+                                         schedule=schedule_from_cli(None, 2),
+                                         root_seed=1)
+            _, metrics = train_step((trainable(params), None), batch, 0)
+            assert flags.allow_tf32 is flag
+            loss[flag], grads[flag] = metrics["loss"], opt.grads
+    finally:
+        flags.allow_tf32 = before
+    assert torch.equal(reps[True], reps[False])
+    assert torch.equal(loss[True], loss[False])
+    for a, b in zip(grads[True], grads[False]):     # index_add_'s atomics
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
 def test_sharded_engine_on_streams_matches_one_shard(cuda):

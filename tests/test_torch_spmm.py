@@ -1,8 +1,11 @@
 """Port parity: blocked-CSR layout and SPMM against the JAX package.
 
-Layout arrays must equal ``repro.data.csr.build_spmm_layout``'s; the plain
-SPMM must be within 1e-6 of the JAX ``spmm`` (interpret-mode Pallas kernel)
-on the same inputs: both sum fp32 products, in different orders.
+Layout arrays must equal ``repro.data.csr.build_spmm_layout``'s, and the
+port's own per-row slot runs (``row_start``/``row_end``, which the CUDA
+kernel reads) must cover exactly each row's real slots; the plain SPMM must
+be within 1e-6 of the JAX ``spmm`` (interpret-mode Pallas kernel) on the
+same inputs: both sum fp32 products, in different orders. Also: the scoped
+full-fp32 helper hands the caller's TF32 flag back.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from repro.data import csr as jcsr
 from repro.kernels import spmm as jspmm
 from repro_torch.data import csr as tcsr
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels.backend import full_fp32
 
 _FIELDS = ("src_blk", "dstg_blk", "ldst_blk", "perm_blk", "tile_of_blk",
            "t_src_blk", "t_ldst_blk", "t_perm_blk", "t_tile_of_blk")
@@ -40,16 +44,64 @@ def test_layout_arrays_equal_jax(block_e, block_rows):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(ref, f)), err_msg=f)
     for tr in (False, True):
-        dr = got.direction(tr)
-        # tile_ptr: tile t owns blocks [tile_ptr[t], tile_ptr[t+1])
-        tp, tof = dr.tile_ptr.numpy(), dr.tile_of_blk.numpy()
-        assert tp[0] == 0 and tp[-1] == len(tof) and len(tp) == dr.n_tiles + 1
-        for t in range(dr.n_tiles):
-            assert (tof[tp[t]:tp[t + 1]] == t).all() and tp[t + 1] > tp[t]
+        _check_row_runs(got, tr)
 
 
 def dataclass_dict(m):
     return {k: getattr(m, k) for k in m.__dataclass_fields__}
+
+
+def _check_row_runs(layout, transpose):
+    """Every real slot of output row r lies in row_start[r] .. row_end[r],
+    and no pad slot lies in any run."""
+    m, dr = layout.meta, layout.direction(transpose)
+    perm = dr.perm_blk.reshape(-1).numpy()
+    rows = (np.repeat(dr.tile_of_blk.numpy(), m.block_e) * m.block_rows
+            + dr.ldst_blk.reshape(-1).numpy())
+    start, end = dr.row_start.numpy(), dr.row_end.numpy()
+    assert start.shape == end.shape == (dr.n_out,)
+    assert (start <= end).all()
+    owner = np.full(perm.shape, -1)
+    for r in np.flatnonzero(end > start):
+        assert (owner[start[r]:end[r]] == -1).all()      # runs are disjoint
+        owner[start[r]:end[r]] = r
+    real = perm < m.n_edges
+    np.testing.assert_array_equal(owner[real], rows[real])
+    assert (owner[~real] == -1).all()
+    return end - start
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_row_runs_cover_each_rows_slots(transpose):
+    rng = np.random.default_rng(4)
+    # zipf-skewed destinations: rows of 300+ slots beside empty ones
+    dst = np.minimum(rng.zipf(1.3, 3000) - 1, 59)
+    src = rng.integers(0, 80, 3000)
+    layout = tcsr.build_spmm_layout(src, dst, n_dst=90, n_src=80,
+                                    block_e=16, block_rows=8, device="cpu")
+    deg = _check_row_runs(layout, transpose)
+    want = np.bincount(src if transpose else dst,
+                       minlength=80 if transpose else 90)
+    np.testing.assert_array_equal(deg, want)
+    if not transpose:
+        assert deg.max() > 256 and (deg == 0).sum() >= 30
+
+
+def test_full_fp32_restores_the_callers_tf32_flag():
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_tf32
+    try:
+        for flag in (True, False):
+            flags.allow_tf32 = flag
+            with full_fp32():
+                assert flags.allow_tf32 is False
+            assert flags.allow_tf32 is flag
+        flags.allow_tf32 = True
+        with pytest.raises(KeyError), full_fp32():
+            raise KeyError("the flag comes back on an error too")
+        assert flags.allow_tf32 is True
+    finally:
+        flags.allow_tf32 = before
 
 
 @pytest.mark.parametrize("weighted", [True, False])
