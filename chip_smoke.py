@@ -20,7 +20,8 @@ their plain versions.
      topk_score  indices and values bit-identical on integer-valued inputs
                  full of ties; on random inputs values <= 1e-5 relative and
                  indices equal except between scores within that tolerance;
-                 both again at k 200 (past the former 128 limit);
+                 at B 1, 8 and 128 (k 20), and both again at k 200 (the
+                 merge-rounds route);
      sddmm       <= 1e-5 relative on the full-width graph at d 64 (the
                  FP32 layers' gradient) and d 1 (the edge softmax's ones
                  column) and bit-identical across two runs;
@@ -29,25 +30,35 @@ their plain versions.
      dequant_matmul <= 1e-5 relative at R 184,166, 64 x 64, bits 8/4/2/1,
                  and a padded pack (d 37), bit-identical across two runs;
      coarse_topm values and indices bit-identical at I 24,915, d 256, INT8
-                 and INT4, on ties and random inputs, at B 8 and 128 with
-                 m 80 and at B 8 with m = n_items;
+                 and INT4, on ties and random inputs, at B 1, 8 and 128
+                 with m 80 and at B 8 with m = n_items, and on a tier-2
+                 shard's table (12,458 items, B 8, m 80);
      dequant_unpack bit-identical on the item table (INT8, INT4), the
                  re-rank's 640 candidate rows, bits 2/1 and padded packs;
    and times kernel, plain version and (where one PyTorch call computes the
-   same function) that call, as medians of CUDA-event timings, beside the
-   bound: max(bytes / 3.35 TB/s, ops / peak), the H100 SXM's published
+   same function) that call, as medians of CUDA-event timings (which read
+   the host's pace where a call's launches outlast its device work), beside
+   the bound: max(bytes / 3.35 TB/s, ops / peak), the H100 SXM's published
    peaks, with the bytes the function must move (each input read once,
    each output written once). The peak is the fp32 rate outside the tensor
    cores (67 TFLOP/s), except for coarse_topm: its dot multiplies int8
    query codes by unsigned codes and is exact at the int8 tensor-core rate
-   (1,979 TOP/s).
+   (1,979 TOP/s). For topk_score and coarse_topm it also prints the device
+   time of the kernel and of the library call (20 calls queued while a
+   spinning kernel holds the stream, then run back to back between two CUDA
+   events: no host gaps) and the CUDA kernels one wrapper call launches
+   (read from torch.profiler, held to the kernel's own plan, at most 2 at
+   k <= 128; a call whose kernels the profiler does not see fails). For
+   top-K at B 1, 2 and 4 it also prints the device time at each query tile
+   (8, 16, 32), the results bit-identical.
 4. Cross-checks the reduced KGAT rollout on the card against the CPU.
 5. Drives the main path at full width through ``serve_kgnn``: the paper's
    KGAT config (70,679 users, 113,487 entities, 80 relations, d 64, 3
    layers, concat readout) on the synthetic Amazon-Book-sized CKG, random
    seeded weights, FP32 rollout, INT8 store, engine warmup and a burst of
    requests, streaming eval over all users, dense reference on the first
-   8,192 (streaming and dense within 1e-6). Launch counts are reset just
+   8,192 (streaming and dense within 1e-6), the eval's time printed.
+   Launch counts are reset just
    before and read just after; every kernel must have launched.
 6. Holds what the main path served against plain versions at full width:
    a second rollout with the kernels against one with the plain SPMM
@@ -68,7 +79,8 @@ their plain versions.
    at batch 1/2/4/8 and m 80 (bit-identical), and the first burst's
    responses for 256 users to two-stage retrieval run on the plain
    versions per shard and merged on the host (as in 3). Then prints
-   two-stage recall@20 against single stage on all users and holds the
+   two-stage recall@20 against single stage on all users (both phases'
+   times printed) and holds the
    m = n_items anchor on 256 users to the single-stage kernel (indices
    equal except between scores within 1e-5 relative).
 8. Drives the training path at full width through ``train_kgnn``: the same
@@ -133,10 +145,14 @@ TRAIN_STEPS = 4              # per schedule
 SCHEDULES = ("fp32", "int8", "int4", "int2")
 GRAD_FP64_RATIO = 4.0
 GRAD_NOISE_SHARE = 1e-2
-TOPK_BATCH = (8, 128)          # an engine batch, an eval user chunk
-LARGE_K = 200                  # past the top-K kernel's former 128 limit
+ENGINE_BATCH = 8               # the engine's largest bucket
+EVAL_BATCH = 128               # the streaming eval's user chunk
+TOPK_BATCH = (1, ENGINE_BATCH, EVAL_BATCH)
+LARGE_K = 200                  # past the threshold route's 128: merge rounds
 COARSE_BATCH = TOPK_BATCH
 COARSE_M = 4 * 20              # two-stage C 4 at k 20
+SHARD_ITEMS = 12458            # the larger of the tier-2 path's two shards
+QUERY_TILES = (8, 16, 32)      # csrc/topk_select.cuh kQTiles
 TIER2 = dict(two_stage=4, item_shards=2, cache=4096, refresh_steps=2)
 ZIPF_A = 1.1
 ANCHOR_USERS = 256
@@ -320,13 +336,103 @@ def _topk_inputs(torch, quantize, gen, b, n_items, d, *, ties):
     return q, items, excl
 
 
+def kernels_per_call(torch, fn, reads: int = 3):
+    """CUDA kernels one call of ``fn`` launches, read from torch.profiler:
+    the most of ``reads`` profiled calls (the profiler can lose a device
+    event, never add one); fails where it sees none of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(reads):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and ("scan_kernel" in e.name
+                               or "merge_" in e.name)))
+    check(max(counts) > 0, "torch.profiler recorded no scan or merge kernel "
+          "of the call: its launches cannot be counted")
+    return max(counts)
+
+
+def device_ms(torch, fn, calls: int = 20) -> float:
+    """Device time per call of ``fn`` without the host's launch gaps: the
+    stream is held by a spinning kernel while the host queues ``calls``
+    calls, so they run back to back between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    spin = int(1e8)                       # about 50 ms of the card's clock
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        queued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if queued < 0.02:                 # queued well inside the spin
+            return a.elapsed_time(b) / calls
+        spin *= 4
+    raise CheckFailed(f"could not queue {calls} calls inside the spin")
+
+
+def _device_times(torch, kernel, library, label):
+    """Log and return the device time per call of a kernel and its
+    library call."""
+    k, lib = device_ms(torch, kernel), device_ms(torch, library)
+    log(f"  device time {label}: kernel {k:.4f} ms, library {lib:.4f} ms "
+        f"(20 calls queued behind a held stream, CUDA events)")
+    return dict(device_ms=k, library_device_ms=lib)
+
+
+def _count_kernels(torch, tk, fn, b, items, m, coarse):
+    """Print and check the CUDA kernels a wrapper call launches, as the
+    profiler counts them."""
+    p = tk.plan_for(b, items, m, device=DEV, coarse=coarse)
+    note = (f"{p.route} route, query tile {p.qt}, {p.grid} CTAs, "
+            f"{p.slots} lists of {p.list_len} a row")
+    n = kernels_per_call(torch, fn)
+    log(f"  B={b} I={items.rows} m={m}: {note}; CUDA kernels per call {n} "
+        f"(plan {p.n_kernels})")
+    check(n == p.n_kernels,
+          f"{n} CUDA kernels a call against the plan's {p.n_kernels}")
+    check(m > 128 or n <= 2, f"{n} CUDA kernels a call at m {m} <= 128")
+    return n
+
+
+def _tile_sweep(torch, tk, quantize, gen, n_items, d, k):
+    """Device time of top-K at the engine's small buckets at every query
+    tile the kernels have (padded rows cost FMAs): the results
+    bit-identical, the plan's tile the smallest."""
+    for b in (1, 2, 4):
+        q, items, excl = _topk_inputs(torch, quantize, gen, b, n_items, d,
+                                      ties=False)
+        ref = tk.topk_cuda(q, items, excl, k=k)
+        times = []
+        for qt in QUERY_TILES:
+            got = tk._topk_cuda(q, items, excl, k, qt)
+            check(all(torch.equal(x, y) for x, y in zip(got, ref)),
+                  f"topk B={b} at query tile {qt} differs")
+            t = device_ms(torch, lambda: tk._topk_cuda(q, items, excl, k, qt))
+            times.append(f"{t:.4f} ms at tile {qt}")
+        log(f"  tile sweep B={b} (plan: tile "
+            f"{tk.plan_for(b, items, k, device=DEV).qt}): device "
+            + ", ".join(times) + " (bit-identical)")
+
+
 def check_topk(torch, tk, gen):
     from repro_torch.core.quant import dequantize, quantize
 
     n_items, d, k = DATASET["n_items"], 256, 20
     log(f"[topk_score] kernel vs plain, I={n_items} d={d} k={k}, "
         f"12 exclusions")
-    entry = None
+    entries = []
     for b in TOPK_BATCH:
         q, items, excl = _topk_inputs(torch, quantize, gen, b, n_items, d,
                                       ties=True)
@@ -356,25 +462,27 @@ def check_topk(torch, tk, gen):
         check(err <= TOL * scale and ok_idx and ok_pick and not bool(hit),
               f"topk random case B={b} out of tolerance")
 
+        n_k = _count_kernels(torch, tk, lambda: tk.topk_cuda(q, items, excl,
+                                                             k=k),
+                             b, items, k, False)
         ms = time_ms(lambda: tk.topk_cuda(q, items, excl, k=k), 50)
         plain = time_ms(lambda: tk.topk_plain(q, items, excl, k=k), 5)
         lib = time_ms(lambda: torch.topk(q @ dequantize(items).T, k), 50)
+        dev = _device_times(
+            torch, lambda: tk.topk_cuda(q, items, excl, k=k),
+            lambda: torch.topk(q @ dequantize(items).T, k), f"B={b}")
         dp = items.packed.shape[1]
         n_bytes = (n_items * dp + 8 * n_items + b * d * 4 + excl.numel() * 4
                    + b * k * 8)
-        bnd, by = bound_ms(n_bytes, 2 * b * n_items * d + 2 * n_items * d)
-        log(f"  time B={b}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"torch.topk(q @ dequantize(items).T) {lib:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by})")
-        entry = dict(name="topk_score", route="cuda",
-                     source="src/repro_torch/csrc/topk_score.cu",
-                     replaces="src/repro/kernels/topk_score.py:115",
-                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                     bound_by=by, library_ms=lib,
-                     shape=f"B={b} I={n_items} d={d} k={k} int8")
-    # k past the old 128 limit: the merge rounds of the shared selection
+        entries.append(_entry(
+            "topk_score", "topk_score", "src/repro/kernels/topk_score.py:115",
+            err, ms, plain, lib, n_bytes, 2 * b * n_items * d + 2 * n_items * d,
+            f"B={b} I={n_items} d={d} k={k} int8", kernels_per_call=n_k,
+            library_call="torch.topk(q @ dequantize(items).T)", **dev))
+    _tile_sweep(torch, tk, quantize, gen, n_items, d, k)
+    # k past 128: the rounds route (pass 1 sorts each item tile)
     for ties in (True, False):
-        q, items, excl = _topk_inputs(torch, quantize, gen, TOPK_BATCH[0],
+        q, items, excl = _topk_inputs(torch, quantize, gen, ENGINE_BATCH,
                                       n_items, d, ties=ties)
         kv, ki = tk.topk_cuda(q, items, excl, k=LARGE_K)
         pv, pi = tk.topk_plain(q, items, excl, k=LARGE_K)
@@ -382,12 +490,16 @@ def check_topk(torch, tk, gen):
         err = float((kv - pv).abs().max())
         near = bool(((kv - pv).abs()[ki != pi] <= TOL * scale).all())
         same = torch.equal(ki, pi) and torch.equal(kv, pv)
-        log(f"  k={LARGE_K} B={TOPK_BATCH[0]} "
+        log(f"  k={LARGE_K} B={ENGINE_BATCH} "
             f"{'integer-valued ties' if ties else 'random'}: "
             f"{'bit-identical' if same else f'values rel {err / scale:.3e}'}")
         check(same if ties else (err <= TOL * scale and near),
               f"topk k={LARGE_K} ties={ties} differs")
-    return entry     # the B=128 shape: the streaming eval's calls
+    _count_kernels(torch, tk, lambda: tk.topk_cuda(q, items, excl,
+                                                   k=LARGE_K),
+                   ENGINE_BATCH, items, LARGE_K, False)
+    # the JSON line's shape: B=128, the streaming eval's calls
+    return _with_other_shape(entries[-1], *entries[:-1])
 
 
 def _unpack_affine(torch, q8, qmeta, items):
@@ -402,9 +514,11 @@ def _unpack_affine(torch, q8, qmeta, items):
 
 def check_coarse(torch, tk, gen):
     """The coarse scan at the store's item-table shape: INT8 (dp 256) and
-    INT4 (dp 128), the engine's batch and m, the eval's user chunk, and the
-    m = n_items anchor; bit-identical to the plain version."""
-    from repro_torch.core.quant import quantize
+    INT4 (dp 128), B 1, the engine's batch and the eval's user chunk at m
+    80, and the m = n_items anchor; bit-identical to the plain version.
+    Timed on the full table at B 1, 8 and 128, and on a tier-2 shard's
+    table at B 8."""
+    from repro_torch.core.quant import QTensor, quantize
     from repro_torch.serving.scorer import quantize_query
 
     n_items, d = DATASET["n_items"], 256
@@ -412,8 +526,8 @@ def check_coarse(torch, tk, gen):
         f"I={n_items} d={d}, 12 exclusions")
     timed = {}
     for bits in (8, 4):
-        for b, m in ((COARSE_BATCH[0], COARSE_M), (COARSE_BATCH[1], COARSE_M),
-                     (COARSE_BATCH[0], n_items)):
+        for b, m in [(b, COARSE_M) for b in COARSE_BATCH] + [
+                (ENGINE_BATCH, n_items)]:
             for ties in (True, False):
                 q, items, excl = _topk_inputs(torch, quantize, gen, b,
                                               n_items, d, ties=ties)
@@ -431,9 +545,28 @@ def check_coarse(torch, tk, gen):
                 check(same, f"coarse_topm bits={bits} B={b} m={m} differs")
             if bits == 8 and m == COARSE_M:
                 timed[b] = (q8, qmeta, items, excl)
+    q8, qmeta, items, excl = timed[ENGINE_BATCH]
+    shard = QTensor(items.packed[:SHARD_ITEMS], items.scale[:SHARD_ITEMS],
+                    items.zero[:SHARD_ITEMS], items.bits, items.dim)
+    ex = torch.where(excl < SHARD_ITEMS, excl, -1)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tk.coarse_topm_cuda(q8, qmeta, shard, ex, m=COARSE_M),
+        tk.coarse_topm_plain(q8, qmeta, shard, ex, m=COARSE_M)))
+    log(f"  shard table I={SHARD_ITEMS} B={ENGINE_BATCH} m={COARSE_M}: "
+        f"{'bit-identical' if same else 'MISMATCH'}")
+    check(same, "coarse_topm on a shard-sized table differs")
+    _count_kernels(torch, tk, lambda: tk.coarse_topm_cuda(q8, qmeta, items,
+                                                          excl, m=n_items),
+                   ENGINE_BATCH, items, n_items, True)
     entries = []
-    for b, (q8, qmeta, items, excl) in timed.items():
-        m = COARSE_M
+    shapes = [(b, timed[b][2], timed[b][3], timed[b][0], timed[b][1])
+              for b in COARSE_BATCH]
+    shapes.insert(2, (ENGINE_BATCH, shard, ex, q8, qmeta))
+    for b, items, excl, q8, qmeta in shapes:
+        m, n = COARSE_M, items.rows
+        n_k = _count_kernels(
+            torch, tk, lambda: tk.coarse_topm_cuda(q8, qmeta, items, excl,
+                                                   m=m), b, items, m, True)
         ms = time_ms(lambda: tk.coarse_topm_cuda(q8, qmeta, items, excl,
                                                  m=m), 50)
         plain = time_ms(lambda: tk.coarse_topm_plain(q8, qmeta, items, excl,
@@ -443,25 +576,31 @@ def check_coarse(torch, tk, gen):
                     .abs().max())
         lib = time_ms(lambda: torch.topk(_unpack_affine(torch, q8, qmeta,
                                                         items), m), 50)
+        dev = _device_times(
+            torch, lambda: tk.coarse_topm_cuda(q8, qmeta, items, excl, m=m),
+            lambda: torch.topk(_unpack_affine(torch, q8, qmeta, items), m),
+            f"B={b} I={n}")
         dp = items.packed.shape[1]
-        n_bytes = (n_items * dp + 8 * n_items + b * d * 4 + b * 8
-                   + excl.numel() * 4 + b * m * 8)
+        n_bytes = (n * dp + 8 * n + b * d * 4 + b * 8 + excl.numel() * 4
+                   + b * m * 8)
         entries.append(_entry(
             "coarse_topm", "coarse_topm",
             "src/repro/kernels/topk_score.py:129", err, ms, plain, lib,
-            n_bytes, 2 * b * n_items * d,
-            f"B={b} I={n_items} d={d} m={m} int8", peak=INT8_OPS,
+            n_bytes, 2 * b * n * d, f"B={b} I={n} d={d} m={m} int8",
+            peak=INT8_OPS, kernels_per_call=n_k,
             library_call="torch.topk(affine(q8 @ unpack(packed).T), m), "
-                         "no exclusions"))
-    return _with_other_shape(entries[1], entries[0])
+                         "no exclusions", **dev))
+    # the JSON line's shape: B=128, the [accuracy] phase's two-stage calls
+    return _with_other_shape(entries[-1], *entries[:-1])
 
 
 def _with_other_shape(entry, *others):
     """``entry`` (the JSON line's shape) carrying the timings of ``others``
     (one: a dict; several: a list)."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    rows = [{k: o[k] for k in keys} for o in others]
+            "library_ms", "kernels_per_call", "device_ms",
+            "library_device_ms")
+    rows = [{k: o[k] for k in keys if k in o} for o in others]
     entry["other_shape"] = rows[0] if len(rows) == 1 else rows
     return entry
 
@@ -473,7 +612,7 @@ def check_dequant_unpack(torch, qp, gen):
     from repro_torch.core.quant import quantize
 
     n_items, d = DATASET["n_items"], 256
-    rerank_rows = COARSE_BATCH[0] * COARSE_M
+    rerank_rows = ENGINE_BATCH * COARSE_M
     log(f"[dequant_unpack] kernel vs plain (bit-identical)")
     out = {}
     for rows, dim, bits in ((n_items, d, 8), (n_items, d, 4),
@@ -694,6 +833,8 @@ def run_main_path(torch, cfg, ds, g, params):
     for name, ph in res["phases"].items():
         log(f"[main] phase {name}: {ph['seconds']:.3f} s, launches "
             f"{json.dumps(ph['launches'], sort_keys=True)}")
+    log(f"[main] streaming eval (all users, top-K at B {EVAL_BATCH}): "
+        f"{res['phases']['eval']['seconds']:.3f} s")
     log(f"[main] torch.cuda.max_memory_allocated {peak} B "
         f"({peak / 2**30:.2f} GiB)")
     log(f"[main] engine {res['stats']}")
@@ -1160,7 +1301,11 @@ def _err64(got, ref):
 def check_train_grads(torch, cfg, ds, g):
     """One full-width step with the kernels against the same step with
     every kernel's plain version (same seeds, parameters and batch); at
-    FP32 both against the same step in float64."""
+    FP32 both against the same step in float64. All steps run under
+    ``torch.use_deterministic_algorithms``: the plain SPMM's ``index_add_``
+    then sums each row in a fixed order, where its atomics' order moved the
+    plain error from run to run (a LeakyReLU input within 2e-8 of 0 flips
+    with the order, and moves w2[0]'s error 25x)."""
     from repro_torch.core.quant import QTensor
     from repro_torch.kernels import dequant_matmul as dq
     from repro_torch.kernels import ops
@@ -1185,18 +1330,27 @@ def check_train_grads(torch, cfg, ds, g):
                             else 1)]
     check(len(names) == len(param_leaves(params)), "parameter names")
     got = {}
-    for label in ("fp32", "int2"):
-        got[label, "kernels"] = _grads(torch, step, params, batch, label)
-        with plain_versions(ops, spmm=sp.spmm_plain,
-                            quant_pack=qp.quant_pack_plain,
-                            spmm_grad_ew=grad_ew_plain,
-                            dequant_matmul=dq.dequant_matmul_plain):
-            got[label, "plain"] = _grads(torch, step, params, batch, label)
-    spmm64, grad_ew64 = _fp64_versions(torch, g)
-    p64 = trainable({k: [t.double() for t in v] if isinstance(v, list)
-                     else v.double() for k, v in params.items()})
-    with plain_versions(ops, spmm=spmm64, spmm_grad_ew=grad_ew64):
-        l64, g64 = _grads(torch, step, p64, batch, "fp32")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            for label in ("fp32", "int2"):
+                got[label, "kernels"] = _grads(torch, step, params, batch,
+                                               label)
+                with plain_versions(ops, spmm=sp.spmm_plain,
+                                    quant_pack=qp.quant_pack_plain,
+                                    spmm_grad_ew=grad_ew_plain,
+                                    dequant_matmul=dq.dequant_matmul_plain):
+                    got[label, "plain"] = _grads(torch, step, params, batch,
+                                                 label)
+            spmm64, grad_ew64 = _fp64_versions(torch, g)
+            p64 = trainable({k: [t.double() for t in v]
+                             if isinstance(v, list) else v.double()
+                             for k, v in params.items()})
+            with plain_versions(ops, spmm=spmm64, spmm_grad_ew=grad_ew64):
+                l64, g64 = _grads(torch, step, p64, batch, "fp32")
+    finally:
+        torch.use_deterministic_algorithms(False)
     for label in ("fp32", "int2"):
         (lk, gk), (lp, gp) = got[label, "kernels"], got[label, "plain"]
         check(abs(lk - lp) <= TOL * abs(lp),
@@ -1410,7 +1564,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_by_path", "launches_per_train_step")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    optional = ("also_replaces", "other_shape", "library_call")
+    optional = ("also_replaces", "other_shape", "library_call",
+                "kernels_per_call", "device_ms", "library_device_ms")
     print(json.dumps({"kernels": [
         {k: e[k] for k in keys + tuple(o for o in optional if o in e)}
         for e in entries]}))

@@ -21,9 +21,10 @@ adds one where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels (``chip_smoke.py`` resets the counts
 before the path and reads them after). A count is one call of the wrapper's C
 entry point: ``dequant_matmul`` (partial tiles, then their fixed-order sum)
-starts two CUDA kernels per count, ``topk_score`` and ``coarse_topm``
-(per-chunk lists, then ceil(log2(chunks)) merge rounds) 1 + ceil(log2(
-ceil(n_items / 128))).
+starts two CUDA kernels per count; ``topk_score`` and ``coarse_topm`` two at
+k <= 128 (the scan, then the row merge; one where each query tile is one
+run) and 1 + ceil(log2(ceil(n_items / 128))) above (the scan, then merge
+rounds), as their planner (``csrc/topk_select.cuh:make_plan``) says.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -59,6 +61,7 @@ LAUNCH_COUNTS: collections.Counter = collections.Counter()
 _COUNT_LOCK = threading.Lock()
 _BUILD_LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[tuple[str, str], object] = {}
 
 
 def count_launch(name: str) -> None:
@@ -103,8 +106,13 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+@functools.lru_cache(maxsize=None)
+def _capability(index) -> tuple[int, int]:
+    return tuple(torch.cuda.get_device_capability(index))
+
+
 def require_sm90(device: torch.device) -> None:
-    cap = tuple(torch.cuda.get_device_capability(device))
+    cap = _capability(device.index)
     if cap != (9, 0):
         raise RuntimeError(
             f"the kernels are built for sm_90a (Hopper); "
@@ -194,10 +202,13 @@ def _library(name: str) -> ctypes.CDLL:
 def kernel_fn(lib_name: str, fn_name: str, argtypes):
     """The C entry point ``fn_name`` of library ``lib_name`` with its
     argument types declared (``c_void_p`` for every pointer and the stream,
-    so ctypes never cuts a 64-bit address)."""
-    fn = getattr(_library(lib_name), fn_name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    so ctypes never cuts a 64-bit address); bound once, then cached."""
+    fn = _FNS.get((lib_name, fn_name))
+    if fn is None:
+        fn = getattr(_library(lib_name), fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FNS[(lib_name, fn_name)] = fn
     return fn
 
 

@@ -12,24 +12,31 @@ or the rows of a dense fp32 table; per-query exclusion lists ``(B, P)``
 Result contract, shared by both versions: the top ``k`` of the masked score
 row ordered by (value desc, index asc), which is ``jax.lax.top_k``'s tie
 rule. ``torch.topk`` does not promise lowest-index ties, so the plain
-version merges with a stable descending ``torch.sort``. The CUDA kernel
-(``csrc/topk_score.cu``, whose note says what bounds it) selects per item
-chunk and merges the chunk lists in rounds under the same order
-(``csrc/topk_select.cuh``), for any ``k <= n_items``. Both dequantize with
-the same two roundings; their dot products sum in different orders, so
-values agree to fp32 reassociation, and exactly when every product and
-partial sum is an integer.
+version merges with a stable descending ``torch.sort``. The CUDA kernels
+(``csrc/topk_score.cu``, ``csrc/coarse_topm.cu``, whose notes say what
+bounds them) share one schedule and selection (``csrc/topk_select.cuh``):
+a persistent scan keeps each query's running top ``min(k, 128)`` per run
+of item tiles, then one CTA per query row merges the runs' lists (``k <=
+128``), or merge rounds take any ``k <= n_items``. The C launcher picks the
+query tile, the grid and the route from (B, n_items, k); the wrapper reads
+that plan (:func:`plan_for`, the kernel's ``*_plan`` entry) only to
+allocate the scratch. Both versions dequantize with the same two roundings;
+their dot products sum in different orders, so values agree to fp32
+reassociation, and exactly when every product and partial sum is an
+integer.
 
 The coarse scan scores ``dot * (qs * scale) + sum_q * zero`` with ``dot =
 q8 . codes`` integer-valued (exact in fp32 while ``127 * (2^bits - 1) * d <
-2^24``) and the three products and the sum rounded apart, in that order, in
-both versions (``csrc/coarse_topm.cu``): kernel and plain version agree bit
-for bit on any input.
+2^24``; an s32 tensor-core sum in the kernel) and the three products and
+the sum rounded apart, in that order, in both versions: kernel and plain
+version agree bit for bit on any input.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -37,14 +44,16 @@ from repro_torch.core.quant import QTensor, unpack_bits
 
 from . import backend
 
-__all__ = ["topk_plain", "topk_cuda", "coarse_topm_plain", "coarse_topm_cuda"]
+__all__ = ["topk_plain", "topk_cuda", "coarse_topm_plain", "coarse_topm_cuda",
+           "plan_for", "Plan"]
 
-KERNEL_CHUNK = 128   # items per CTA in the CUDA kernels' first pass
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I,
-             _P, _P, _P, _P, _P, _P, _P)
-_COARSE_ARGTYPES = (_P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I,
-                    _P, _P, _P, _P, _P, _P, _P)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+             _L, _P, _P, _P)
+_COARSE_ARGTYPES = (_P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                    _P, _P, _L, _P, _P, _P)
+_PLAN_ARGTYPES = (_I,) * 7 + (_P,)
+_ENTRY = {False: ("topk_score", "topk"), True: ("coarse_topm", "coarse_topm")}
 _NEG_INF = float("-inf")
 
 
@@ -124,18 +133,78 @@ def _check_packed(items: QTensor, dim: int) -> int:
     return n_items
 
 
-def _outputs(b: int, n_items: int, m: int, dev):
-    """(B, m) values and indices, and the two candidate buffers of the
-    kernels' merge rounds (each chunk keeps its top min(m, KERNEL_CHUNK))."""
-    shape = (b, -(-n_items // KERNEL_CHUNK) * min(m, KERNEL_CHUNK))
-    scratch = [torch.empty(shape, dtype=dt, device=dev)
-               for _ in range(2) for dt in (torch.float32, torch.int32)]
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the CUDA kernels run one call, as their planner
+    (``make_plan`` in ``csrc/topk_select.cuh``) says: query tile ``qt``,
+    ``grid`` scan CTAs, ``slots`` lists of ``list_len`` a query row,
+    ``n_buffers`` scratch buffers of ``scratch_bytes`` each, ``n_kernels``
+    CUDA launches a call. ``route`` is "threshold" (k <= 128: the scan, then
+    the row merge where ``slots`` > 1) or "rounds" (k > 128: merge rounds)."""
+    qt: int
+    grid: int
+    slots: int
+    list_len: int
+    scratch_bytes: int
+    n_buffers: int
+    n_kernels: int
+
+    @property
+    def route(self) -> str:
+        return "rounds" if self.n_buffers == 2 else "threshold"
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(coarse: bool, index: int, b: int, n_items: int, m: int, dim: int,
+          dp: int, bits: int, qt: int) -> Plan:
+    lib, entry = _ENTRY[coarse]
+    fn = backend.kernel_fn(lib, f"{entry}_plan", _PLAN_ARGTYPES)
+    out = (ctypes.c_longlong * 7)()
+    with torch.cuda.device(index):
+        backend.launch(fn, b, n_items, m, dim, dp, bits, qt,
+                       ctypes.addressof(out))
+    return Plan(*out)
+
+
+def _table(items):
+    """(n_items, dim, dp, bits) of a packed table; dp and bits 0 for a
+    dense one."""
+    if isinstance(items, QTensor):
+        return items.rows, items.dim, items.packed.shape[1], items.bits
+    return items.shape[0], items.shape[1], 0, 0
+
+
+def plan_for(b: int, items, m: int, *, device, coarse: bool = False,
+             qt: int = 0) -> Plan:
+    """The plan of a call of B queries against ``items`` (a ``QTensor`` or
+    a dense table) keeping the top m on ``device``, at query tile ``qt``
+    (0: the kernel picks it by B)."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    n_items, dim, dp, bits = _table(items)
+    return _plan(coarse, index, b, n_items, m, dim, dp, bits, qt)
+
+
+def _outputs(b: int, items, m: int, dev, qt: int, *, coarse: bool):
+    """(B, m) values and indices, the plan's scratch buffers (the caller
+    holds them until the launch), their two pointers (None where the plan
+    needs fewer) and their size in bytes."""
+    p = plan_for(b, items, m, device=dev, coarse=coarse, qt=qt)
+    bufs = [torch.empty(p.scratch_bytes, dtype=torch.uint8, device=dev)
+            for _ in range(p.n_buffers)]
+    ptrs = [t.data_ptr() for t in bufs] + [None] * (2 - len(bufs))
     return (torch.empty((b, m), dtype=torch.float32, device=dev),
-            torch.empty((b, m), dtype=torch.int32, device=dev), scratch)
+            torch.empty((b, m), dtype=torch.int32, device=dev), bufs, ptrs,
+            p.scratch_bytes)
 
 
 def topk_cuda(q: torch.Tensor, items, excl: torch.Tensor, *, k: int):
-    """Launch ``csrc/topk_score.cu`` (chunk lists, then the merge rounds)."""
+    """Launch ``csrc/topk_score.cu``; its launcher picks the query tile."""
+    return _topk_cuda(q, items, excl, k, 0)
+
+
+def _topk_cuda(q, items, excl, k: int, qt: int):
+    """:func:`topk_cuda` at query tile ``qt`` (0: picked by B)."""
     backend.check_cuda(q, torch.float32, 2, "q")
     backend.check_cuda(excl, torch.int32, 2, "excl")
     backend.require_sm90(q.device)
@@ -155,20 +224,26 @@ def topk_cuda(q: torch.Tensor, items, excl: torch.Tensor, *, k: int):
         ptrs = (None, 0, 0, items.data_ptr(), None, None)
     if not 0 < k <= n_items:
         raise ValueError(f"k={k} must be in [1, n_items={n_items}]")
-    vals, idx, scratch = _outputs(B, n_items, k, q.device)
+    vals, idx, bufs, cand, n_bytes = _outputs(B, items, k, q.device, qt,
+                                              coarse=False)
     fn = backend.kernel_fn("topk_score", "topk_launch", _ARGTYPES)
     with torch.cuda.device(q.device):
         backend.launch(fn, q.data_ptr(), B, dim, *ptrs, excl.data_ptr(),
-                       excl.shape[1], n_items, k,
-                       *(t.data_ptr() for t in scratch), vals.data_ptr(),
-                       idx.data_ptr(), backend.stream_of(q))
+                       excl.shape[1], n_items, k, qt, *cand, n_bytes,
+                       vals.data_ptr(), idx.data_ptr(), backend.stream_of(q))
     backend.count_launch("topk_score")
     return vals, idx
 
 
 def coarse_topm_cuda(q8: torch.Tensor, qmeta: torch.Tensor, items: QTensor,
                      excl: torch.Tensor, *, m: int):
-    """Launch ``csrc/coarse_topm.cu`` (chunk lists, then the merge rounds)."""
+    """Launch ``csrc/coarse_topm.cu``; its launcher picks the query
+    tile."""
+    return _coarse_topm_cuda(q8, qmeta, items, excl, m, 0)
+
+
+def _coarse_topm_cuda(q8, qmeta, items, excl, m: int, qt: int):
+    """:func:`coarse_topm_cuda` at query tile ``qt`` (0: picked by B)."""
     backend.check_cuda(q8, torch.float32, 2, "q8")
     backend.check_cuda(qmeta, torch.float32, 2, "qmeta")
     backend.check_cuda(excl, torch.int32, 2, "excl")
@@ -185,7 +260,8 @@ def coarse_topm_cuda(q8: torch.Tensor, qmeta: torch.Tensor, items: QTensor,
                          f"would pass 2^24 and stop being exact in fp32")
     if not 0 < m <= n_items:
         raise ValueError(f"m={m} must be in [1, n_items={n_items}]")
-    vals, idx, scratch = _outputs(B, n_items, m, q8.device)
+    vals, idx, bufs, cand, n_bytes = _outputs(B, items, m, q8.device, qt,
+                                              coarse=True)
     fn = backend.kernel_fn("coarse_topm", "coarse_topm_launch",
                            _COARSE_ARGTYPES)
     with torch.cuda.device(q8.device):
@@ -193,8 +269,7 @@ def coarse_topm_cuda(q8: torch.Tensor, qmeta: torch.Tensor, items: QTensor,
                        items.packed.data_ptr(), items.packed.shape[1],
                        items.bits, items.scale.data_ptr(),
                        items.zero.data_ptr(), excl.data_ptr(), excl.shape[1],
-                       n_items, m, *(t.data_ptr() for t in scratch),
-                       vals.data_ptr(), idx.data_ptr(),
-                       backend.stream_of(q8))
+                       n_items, m, qt, *cand, n_bytes, vals.data_ptr(),
+                       idx.data_ptr(), backend.stream_of(q8))
     backend.count_launch("coarse_topm")
     return vals, idx

@@ -258,3 +258,26 @@ def test_topk_plain_takes_k_past_128():
                              exclude=torch.from_numpy(ex))
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 33])
+@pytest.mark.parametrize("m", [1, 80, 129, I])
+def test_coarse_plain_ragged_ties_identical_to_jax(b, m):
+    """The plain coarse scan (what the kernel is held to on the card) at
+    ragged B and m across 1..n_items, on integer-valued ties with duplicate
+    exclusions and a whole excluded 128-item tile: identical to the JAX
+    package."""
+    tq, jq = _tables(I, D, 4, b + m, integer=True)
+    q = _queries(b, D, b * m, integer=True)
+    ex = np.full((b, 130), -1, np.int32)
+    ex[:, :7] = _excl(b, I, m)
+    ex[0, :6] = [5, 5, 90, 90, 0, 0]
+    if b > 1:
+        ex[1, :128] = np.arange(128, 256)
+    jv, ji = jsc.coarse_topm(jnp.asarray(q), jq, m, exclude=jnp.asarray(ex),
+                             backend="jnp", block_i=128)
+    q8, qmeta = tsc.quantize_query(torch.from_numpy(q))
+    tv, ti = ttk.coarse_topm_plain(q8, qmeta, tq, torch.from_numpy(ex), m=m,
+                                   block_i=128)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))

@@ -313,6 +313,280 @@ def test_topk_kernel_large_k_bit_identical(cuda, k):
     assert torch.equal(ki, pi) and torch.equal(kv, pv)
 
 
+N_RAGGED = 1001                  # 7 full item tiles and a tail of 105
+
+
+def _ragged_case(cuda, b, bits, dim, seed, n_items=N_RAGGED):
+    """Integer-valued queries and codes (every dot exact, ties everywhere),
+    ragged in B and I; row 0's exclusions repeat ids, row 1's remove the
+    whole second item tile (ids 128-255), the rest are random with -1 pads."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    codes = torch.randint(0, min(4, 2**bits), (n_items, dim), generator=gen,
+                          device=cuda).to(torch.uint8)
+    items = QTensor(pack_bits(codes, bits),
+                    torch.ones((n_items, 1), device=cuda),
+                    torch.zeros((n_items, 1), device=cuda), bits, dim)
+    q = torch.randint(-2, 3, (b, dim), generator=gen,
+                      device=cuda).to(torch.float32)
+    excl = torch.randint(-1, n_items, (b, 130), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    excl[:, 12:] = -1
+    excl[0, :12] = torch.tensor([5, 5, 5, 900, 900, 0, 0, 1000, 1000, 17,
+                                 17, 5], dtype=torch.int32, device=cuda)
+    if b > 1:
+        excl[1, :128] = torch.arange(128, 256, dtype=torch.int32,
+                                     device=cuda)
+    return q, items, excl
+
+
+def _run_twice(fn):
+    """Two runs of a kernel: they must agree bit for bit."""
+    v1, i1 = fn()
+    v2, i2 = fn()
+    assert torch.equal(v1, v2) and torch.equal(i1, i2)
+    return v1, i1
+
+
+@pytest.mark.parametrize("kernel", ["topk", "coarse"])
+@pytest.mark.parametrize("b", [1, 3, 8, 33, 128])
+@pytest.mark.parametrize("m", [1, 20, 80, 128, 129, 200, N_RAGGED])
+def test_selection_kernels_ragged_bit_identical(cuda, kernel, b, m):
+    """Both kernels at ragged query tiles, across the threshold route (m <=
+    128) and the rounds route (m > 128, m = n_items included): values and
+    indices bit-identical to the plain versions, and across two runs."""
+    q, items, excl = _ragged_case(cuda, b, 8, 64, b * 1000 + m)
+    if kernel == "topk":
+        kv, ki = _run_twice(lambda: tk.topk_cuda(q, items, excl, k=m))
+        pv, pi = tk.topk_plain(q, items, excl, k=m)
+    else:
+        q8, qmeta = quantize_query(q)
+        kv, ki = _run_twice(lambda: tk.coarse_topm_cuda(q8, qmeta, items,
+                                                        excl, m=m))
+        pv, pi = tk.coarse_topm_plain(q8, qmeta, items, excl, m=m)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    if m <= 200:                      # fewer than the non-excluded items
+        assert not bool((ki[:, :, None] == excl[:, None, :]).any())
+
+
+@pytest.mark.parametrize("kernel", ["topk", "coarse"])
+@pytest.mark.parametrize("bits,dim", [(8, 64), (4, 64), (2, 64), (1, 64),
+                                      (4, 37), (2, 37), (1, 37)])
+def test_selection_kernels_bits_and_padded_packs(cuda, kernel, bits, dim):
+    """Every bit width, and padded packs (d 37: dp not a multiple of 16, so
+    the byte-by-byte staging), at an engine batch and the eval's k."""
+    q, items, excl = _ragged_case(cuda, 8, bits, dim, bits * 100 + dim)
+    if kernel == "topk":
+        kv, ki = _run_twice(lambda: tk.topk_cuda(q, items, excl, k=20))
+        pv, pi = tk.topk_plain(q, items, excl, k=20)
+    else:
+        q8, qmeta = quantize_query(q)
+        kv, ki = _run_twice(lambda: tk.coarse_topm_cuda(q8, qmeta, items,
+                                                        excl, m=80))
+        pv, pi = tk.coarse_topm_plain(q8, qmeta, items, excl, m=80)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("kernel,bits,dim", [("topk", 8, 1000),
+                                              ("topk", 0, 1000),
+                                              ("coarse", 8, 300),
+                                              ("coarse", 4, 600)])
+def test_selection_kernels_wide_rows_stage_per_step(cuda, kernel, bits, dim):
+    """Rows too wide to stage the query tile once a run (top-K past about
+    850 features at tile 32) or a coarse tile once a step (K > 256): the
+    query slice is staged with every step; bit-identical to the plain
+    versions on integer-valued inputs (dense top-K: a dense fp32 table)."""
+    q, items, excl = _ragged_case(cuda, 33, max(bits, 1), dim, dim + bits)
+    if bits == 0:
+        items = dequantize(items)
+    if kernel == "topk":
+        kv, ki = tk.topk_cuda(q, items, excl, k=20)
+        pv, pi = tk.topk_plain(q, items, excl, k=20)
+    else:
+        q8, qmeta = quantize_query(q)
+        kv, ki = tk.coarse_topm_cuda(q8, qmeta, items, excl, m=80)
+        pv, pi = tk.coarse_topm_plain(q8, qmeta, items, excl, m=80)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("kernel", ["topk", "coarse"])
+@pytest.mark.parametrize("m", [20, 80, 128])
+def test_selection_kernels_all_scores_tied(cuda, kernel, m):
+    """Zero queries: every score is 0, so only the ids order the result (the
+    lowest non-excluded ids). The row merge's bound then keeps whole lists
+    (3,001 items, 24 lists a row: over 1,024 survivors at m 80 and 128),
+    which takes its merge rounds."""
+    q, items, excl = _ragged_case(cuda, 8, 8, 64, m, N_COARSE)
+    q = torch.zeros_like(q)
+    if kernel == "topk":
+        kv, ki = _run_twice(lambda: tk.topk_cuda(q, items, excl, k=m))
+        pv, pi = tk.topk_plain(q, items, excl, k=m)
+    else:
+        q8, qmeta = quantize_query(q)
+        kv, ki = _run_twice(lambda: tk.coarse_topm_cuda(q8, qmeta, items,
+                                                        excl, m=m))
+        pv, pi = tk.coarse_topm_plain(q8, qmeta, items, excl, m=m)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("b", [1, 8, 128])
+def test_topk_kernel_random_values_close(cuda, b):
+    """Random INT8 tables at the serving width: values within 1e-5 of the
+    plain version (the sums run in other orders), indices equal except
+    between near-ties, the returned values the dense scores of the returned
+    ids and, bit for bit, their fp32 FMA chains in feature order; two runs
+    bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    items = quantize(torch.randn((N_RAGGED, 256), generator=gen,
+                                 device=cuda) * 0.3, 0, bits=8)
+    q = torch.randn((b, 256), generator=gen, device=cuda) * 0.3
+    excl = torch.randint(-1, N_RAGGED, (b, 12), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    kv, ki = _run_twice(lambda: tk.topk_cuda(q, items, excl, k=20))
+    pv, pi = tk.topk_plain(q, items, excl, k=20)
+    scale = float(pv.abs().max())
+    assert float((kv - pv).abs().max()) <= 1e-5 * scale
+    assert bool(((kv - pv).abs()[ki != pi] <= 1e-5 * scale).all())
+    dense = q @ dequantize(items).T
+    assert float((torch.gather(dense, 1, ki.long()) - kv).abs().max()) \
+        <= 1e-5 * scale
+    # each value is the fp32 FMA chain over the features in order, from 0:
+    # one rounding a step, emulated in float64 (the product is exact there,
+    # and the sum is too while the terms' exponents differ by under 29)
+    xhat = dequantize(items).double()
+    chain = torch.zeros((b, N_RAGGED), dtype=torch.float32, device=cuda)
+    for j in range(256):
+        chain = (chain.double() + q[:, j:j + 1].double() * xhat[:, j]).float()
+    assert torch.equal(torch.gather(chain, 1, ki.long()), kv)
+
+
+def test_kernel_plans_launch_at_most_two_kernels(cuda):
+    """The plan's launch count, read from the profiler: one scan and one
+    merge at m <= 128, 1 + ceil(log2(tiles)) at m > 128."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, items, excl = _ragged_case(cuda, 8, 8, 64, 7)
+    q8, qmeta = quantize_query(q)
+    for m in (20, 128, 200):
+        for run, coarse in ((lambda: tk.topk_cuda(q, items, excl, k=m),
+                             False),
+                            (lambda: tk.coarse_topm_cuda(q8, qmeta, items,
+                                                         excl, m=m), True)):
+            run()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and ("scan_kernel" in e.name or "merge_" in e.name)]
+            p = tk.plan_for(8, items, m, device=cuda, coarse=coarse)
+            assert len(names) == p.n_kernels, names
+            assert m > 128 or p.n_kernels <= 2
+
+
+TILES = (8, 16, 32)          # csrc/topk_select.cuh kQTiles
+
+
+def _shape_table(cuda, n_items, dim=256):
+    """A packed INT8 table: the plan reads only its shape."""
+    return QTensor(torch.zeros((n_items, dim), dtype=torch.uint8,
+                               device=cuda),
+                   torch.ones((n_items, 1), device=cuda),
+                   torch.zeros((n_items, 1), device=cuda), 8, dim)
+
+
+@pytest.mark.parametrize("coarse", [False, True])
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 8, 9, 17, 33, 128])
+def test_kernel_plan_query_tile(cuda, coarse, b):
+    """The planner takes the smallest query tile >= B and B past the
+    largest in tiles of it: from B 8 (the smallest tile, the coarse MMA's
+    query block) on, at most half of a tile's rows are padding."""
+    p = tk.plan_for(b, _shape_table(cuda, 12458), 80, device=cuda,
+                    coarse=coarse)
+    assert p.qt == next((t for t in TILES if t >= b), TILES[-1])
+    if b >= TILES[0]:
+        assert -(-b // p.qt) * p.qt <= 2 * b
+
+
+@pytest.mark.parametrize("kernel", ["topk", "coarse"])
+@pytest.mark.parametrize("b,m", [(1, 20), (8, 80), (33, 20), (33, 200)])
+def test_selection_kernels_same_bits_at_every_query_tile(cuda, kernel, b,
+                                                         m):
+    """The query tile changes the schedule (units, runs, lists a row), not
+    the result: values and indices bit-identical at every tile, on random
+    inputs (top-K's values are each dot's FMA chain in feature order)."""
+    gen = torch.Generator(device=cuda).manual_seed(b + m)
+    items = quantize(torch.randn((N_RAGGED, 64), generator=gen,
+                                 device=cuda), 0, bits=4)
+    q = torch.randn((b, 64), generator=gen, device=cuda)
+    excl = torch.randint(-1, N_RAGGED, (b, 12), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    if kernel == "topk":
+        runs = [tk._topk_cuda(q, items, excl, m, qt) for qt in TILES]
+    else:
+        q8, qmeta = quantize_query(q)
+        runs = [tk._coarse_topm_cuda(q8, qmeta, items, excl, m, qt)
+                for qt in TILES]
+    for v, i in runs[1:]:
+        assert torch.equal(v, runs[0][0]) and torch.equal(i, runs[0][1])
+
+
+@pytest.mark.parametrize("coarse", [False, True])
+@pytest.mark.parametrize("b,n_items,m", [(8, 24915, 20), (128, 24915, 20),
+                                         (8, 12458, 80), (128, 24915, 80),
+                                         (8, 100, 20), (1, 24915, 128),
+                                         (8, 24915, 200), (8, 3001, 3001)])
+def test_kernel_plan_route_and_scratch(cuda, coarse, b, n_items, m):
+    """The route follows m alone: m <= 128 the threshold route (one scan,
+    and one row merge where a row has more than one list: at most 2 CUDA
+    launches), m > 128 merge rounds over one list of 128 per item tile.
+    The scratch is B * slots * min(m, 128) entries of 8 bytes a buffer; a
+    row's lists fit the row merge's shared memory (227 KB), the grid
+    shrinking where they would not (B 1, m 128)."""
+    p = tk.plan_for(b, _shape_table(cuda, n_items), m, device=cuda,
+                    coarse=coarse)
+    n_tiles = -(-n_items // 128)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert 0 < p.grid <= min(-(-b // p.qt) * n_tiles, 2 * n_sm)
+    if m > 128:
+        assert (p.route, p.slots, p.list_len, p.n_buffers) == (
+            "rounds", n_tiles, 128, 2)
+        assert p.n_kernels == 1 + (n_tiles - 1).bit_length()
+        assert p.scratch_bytes == b * n_tiles * 128 * 8
+        return
+    merge_bytes = (2 * p.slots * m + 1024) * 8 + (p.slots + 1) * 4
+    assert (p.route, p.list_len) == ("threshold", m)
+    assert merge_bytes <= 232448
+    assert p.n_kernels == (2 if p.slots > 1 else 1)
+    assert p.n_buffers == (1 if p.slots > 1 else 0)
+    assert p.scratch_bytes == (b * p.slots * m * 8 if p.slots > 1 else 0)
+    if b == 1:          # one query tile: a list per CTA, slots == grid
+        assert p.slots == p.grid
+        if p.grid < min(n_tiles, n_sm):        # capped by the row merge
+            assert (2 * (p.slots + 1) * m + 1024) * 8 > 232448 - 64
+
+
+def test_kernel_rejects_scratch_smaller_than_its_plan(cuda):
+    """The launcher checks the scratch the caller passes against its own
+    plan and refuses a buffer one entry short."""
+    q, items, excl = _ragged_case(cuda, 8, 8, 64, 3)
+    p = tk.plan_for(8, items, 20, device=cuda)
+    assert p.n_buffers == 1
+    buf = torch.empty(p.scratch_bytes, dtype=torch.uint8, device=cuda)
+    v = torch.empty((8, 20), device=cuda)
+    i = torch.empty((8, 20), dtype=torch.int32, device=cuda)
+    fn = backend.kernel_fn("topk_score", "topk_launch", tk._ARGTYPES)
+    args = [q.data_ptr(), 8, 64, items.packed.data_ptr(),
+            items.packed.shape[1], 8, None, items.scale.data_ptr(),
+            items.zero.data_ptr(), excl.data_ptr(), excl.shape[1],
+            N_RAGGED, 20, 0, buf.data_ptr(), None]
+    tail = [v.data_ptr(), i.data_ptr(), backend.stream_of(q)]
+    assert fn(*args, p.scratch_bytes - 8, *tail) != 0
+    assert fn(*args, p.scratch_bytes, *tail) == 0
+    pv, pi = tk.topk_plain(q, items, excl, k=20)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("dim", [64, 37])
 def test_dequant_unpack_kernel_bit_identical(cuda, bits, dim):

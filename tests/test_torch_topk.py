@@ -134,3 +134,42 @@ def test_topk_rejects_k_past_items():
     tq, _ = _tables(10, 8, 8, 0, integer=True)
     with pytest.raises(ValueError, match="n_items"):
         tsc.topk_scores(torch.zeros((1, 8)), tq, 11)
+
+
+# -- the plain version at the card tests' ragged grid --------------------------
+
+
+def _ragged_excl(b, n_items, seed):
+    """Exclusions with duplicates, pads, a row with none and (B > 1) a row
+    that removes items 128-255 whole: 130 columns."""
+    rng = np.random.default_rng(seed)
+    ex = np.full((b, 130), -1, np.int32)
+    ex[:, :12] = rng.integers(0, n_items, (b, 12))
+    ex[0, :12] = [5, 5, 5, 90, 90, 0, 0, 100, 100, 17, 17, 5]
+    if b > 1:
+        ex[1, :128] = np.arange(128, 256)
+    if b > 2:
+        ex[2, :] = -1
+    return ex
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 33])
+@pytest.mark.parametrize("k", [1, 20, 129, 300])
+def test_topk_plain_ragged_ties_identical_to_jax(b, k):
+    """The plain top-K (what the kernel is held to on the card) at ragged
+    B and k across 1..n_items, on integer-valued ties with duplicate
+    exclusions and a whole excluded item tile: identical to the JAX
+    package."""
+    n_items, d = 300, 8
+    tq, jq = _tables(n_items, d, 8, b + k, integer=True)
+    q = _queries(b, d, b * k, integer=True)
+    ex = _ragged_excl(b, n_items, k)
+    jv, ji = jsc.topk_scores(jnp.asarray(q), jq, k, exclude=jnp.asarray(ex),
+                             backend="jnp", block_i=128)
+    tv, ti = ttk.topk_plain(torch.from_numpy(q), tq, torch.from_numpy(ex),
+                            k=k, block_i=128)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    live = n_items - max(len(set(r[r >= 0])) for r in ex)
+    if k <= live:
+        assert not (ti.numpy()[:, :, None] == ex[:, None, :]).any()
