@@ -24,7 +24,13 @@ their plain versions.
                  merge-rounds route);
      sddmm       <= 1e-5 relative on the full-width graph at d 64 (the
                  FP32 layers' gradient) and d 1 (the edge softmax's ones
-                 column) and bit-identical across two runs;
+                 column) and bit-identical across two runs; timed at both;
+     segment_sum the attention's gather backward (port-only, no TPU
+                 kernel): <= 1e-5 relative and bit-identical across two
+                 runs on the full-width graph's groupings by destination
+                 and by source (d 64), by relation (d 64 and d 4, chunked
+                 levels) and by destination at d 1; the library call is
+                 index_add_;
      dequant_sddmm  the same at bits 8/4/2/1 (d 64) and on a padded pack
                  (d 37, bits 2); timed at INT2 and INT8, d 64;
      dequant_matmul <= 1e-5 relative at R 184,166, 64 x 64, bits 8/4/2/1,
@@ -92,13 +98,20 @@ their plain versions.
    bytes of the recorded residuals and their ratio to FP32, and launches
    per step by kernel.
 9. Profiles one INT2 training step (torch.profiler, CUDA activity): device
-   time by kernel, the step's device busy time and idle share.
+   time by kernel, the step's device busy time and idle share; fails if
+   the step launches an index_add_ scatter kernel (indexFunc*).
+   [determinism]: two full-width steps from one state (parameters and Adam
+   moments after a first step) on one batch, under FP32 and under INT2,
+   without torch.use_deterministic_algorithms: loss, parameters and
+   moments bit-identical.
 10. One full-width step's gradients with the kernels against the same step
    with every kernel's plain version, from the same seeds, parameters and
-   batch. FP32: both against the same step run in float64; per parameter
-   the kernels' error (rms of the difference over the rms of the float64
-   gradient) must be within four times the plain versions' error, or within
-   1e-5 (readings 1.1-1.9 on correct kernels). Summation orders differ between the two and the backward cancels
+   batch (the plain steps under torch.use_deterministic_algorithms: they
+   still add with index_add_). FP32: both against the same step run in
+   float64; per parameter the kernels' error (rms of the difference over
+   the rms of the float64 gradient) must be within four times the plain
+   versions' error, or within 1e-5 (readings 1.1-1.9 on correct kernels).
+   Summation orders differ between the two and the backward cancels
    terms, so each is off float64 by up to about 1e-3 of max |grad|
    (printed beside the rms), and which of the two lands nearer float64 for
    one parameter is chance: the margin stands between that spread and a
@@ -133,13 +146,15 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core rate
 TOL = 1e-5
+LIB_SUM_TOL = 1e-4             # index_add_'s atomic fp32 sums vs float64
 DEV = "cuda"
 # the paper's Amazon-Book-sized CKG (KGAT config: configs/kgnn_paper.py)
 DATASET = dict(n_users=70679, n_items=24915, n_attrs=88572, n_relations=39,
                n_triples=2557746, inter_per_user=12, seed=0)
 QUANT_ROWS = (70679, 24915)    # the store's user and item tables
 SERVING = ("quant_pack", "spmm", "topk_score")
-TIER2_KERNELS = SERVING + ("coarse_topm", "dequant_unpack", "sddmm")
+TIER2_KERNELS = SERVING + ("coarse_topm", "dequant_unpack", "sddmm",
+                           "segment_sum")
 TRAIN_BATCH = 1024
 TRAIN_STEPS = 4              # per schedule
 SCHEDULES = ("fp32", "int8", "int4", "int2")
@@ -690,7 +705,9 @@ def check_sddmm(torch, sp, g, gen):
     and the edge softmax's denominators (d 1, every schedule)."""
     log("[sddmm] kernel vs plain on the full-width KGAT graph")
     m = g.layout.meta
-    for d in (1, 64):
+    lib_fn, pos = _sddmm_library(torch, g)
+    entries = []
+    for d in (64, 1):
         x = torch.randn((m.n_src, d), generator=gen, device=DEV) * 0.1
         grad = torch.randn((m.n_dst, d), generator=gen, device=DEV) * 1e-3
         out1 = sp.sddmm_cuda(x, grad, g.layout)
@@ -701,19 +718,79 @@ def check_sddmm(torch, sp, g, gen):
             f"{'bit-identical' if same else 'DIFFER'}")
         check(rel <= TOL and same,
               f"sddmm d={d}: rel {rel}, deterministic {same}")
-    # timing: the FP32 layers' call at d 64 (the last case)
-    lib_fn, pos = _sddmm_library(torch, g)
-    lib_rel = _rel(lib_fn(x, grad).values()[pos], ref)
-    check(lib_rel <= TOL, f"library sampled_addmm disagrees ({lib_rel})")
-    ms = time_ms(lambda: sp.sddmm_cuda(x, grad, g.layout), 20)
-    plain = time_ms(lambda: sp.sddmm_plain(x, grad, g.layout), 5)
-    lib = time_ms(lambda: lib_fn(x, grad), 20)
-    # the function's bytes: x and g read once, two indices in and one value
-    # out per edge
-    n_bytes = (m.n_src + m.n_dst) * d * 4 + m.n_edges * 12
-    return _entry("sddmm", "sddmm", "src/repro/kernels/spmm.py:334", err, ms,
-                        plain, lib, n_bytes, 2 * m.n_edges * d,
-                        f"E={m.n_edges} n={m.n_dst} d={d} fp32")
+        lib_rel = _rel(lib_fn(x, grad).values()[pos], ref)
+        check(lib_rel <= TOL, f"library sampled_addmm disagrees ({lib_rel})")
+        ms = time_ms(lambda: sp.sddmm_cuda(x, grad, g.layout), 20)
+        plain = time_ms(lambda: sp.sddmm_plain(x, grad, g.layout), 5)
+        lib = time_ms(lambda: lib_fn(x, grad), 20)
+        # the function's bytes: x and g read once, two indices in and one
+        # value out per edge
+        n_bytes = (m.n_src + m.n_dst) * d * 4 + m.n_edges * 12
+        entries.append(_entry(
+            "sddmm", "sddmm", "src/repro/kernels/spmm.py:334", err, ms,
+            plain, lib, n_bytes, 2 * m.n_edges * d,
+            f"E={m.n_edges} n={m.n_dst} d={d} fp32",
+            library_call="torch.sparse.sampled_addmm (CSR)"))
+    return _with_other_shape(*entries)
+
+
+def check_segment_sum(torch, sp, g, gen):
+    """The attention's gather backward at full width, on each grouping the
+    training step sums over: by destination and by source (d 64, the basis
+    projections), by relation (d 64 and d 4: the relation embeddings and
+    the basis coefficients; chunked levels) and by destination at d 1 (the
+    softmax denominators). The library call is ``index_add_`` over the
+    edges' own ids (what ``index_select``'s backward runs)."""
+    log("[segment_sum] kernel vs plain on the full-width KGAT graph")
+    m = g.layout.meta
+    cases = (("dst", g.layout.runs(), g.dst, 64),
+             ("src", g.layout.runs(transpose=True), g.src, 64),
+             ("rel", g.rel_runs, g.rel, 64),
+             ("rel", g.rel_runs, g.rel, 4),
+             ("dst", g.layout.runs(), g.dst, 1))
+    entries = []
+    for kind, levels, ids, d in cases:
+        y = torch.randn((m.n_edges, d), generator=gen, device=DEV) * 1e-3
+        ids = ids.long()
+        n_out = levels[-1].n_out
+        out1 = sp.segment_sum_cuda(y, levels)
+        same = torch.equal(out1, sp.segment_sum_cuda(y, levels))
+        ref = sp.segment_sum_plain(y, levels)
+
+        def library():
+            return torch.zeros((n_out, d), device=DEV).index_add_(0, ids, y)
+
+        rel, err = _rel(out1, ref), float((out1 - ref).abs().max())
+        # against float64: index_add_ adds a relation's 1.4 M terms into one
+        # row in the atomics' order, a long fp32 chain (rel 3.6e-5 measured)
+        ref64 = torch.zeros((n_out, d), dtype=torch.float64,
+                            device=DEV).index_add_(0, ids, y.double())
+        k64, lib64 = _rel(out1.double(), ref64), _rel(library().double(),
+                                                      ref64)
+        log(f"  by {kind} d={d} ({len(levels)} level"
+            f"{'s' if len(levels) > 1 else ''}, {n_out} rows): rel "
+            f"{rel:.3e} (max abs {err:.3e}), two runs "
+            f"{'bit-identical' if same else 'DIFFER'}; vs float64: kernel "
+            f"{k64:.3e}, index_add_ {lib64:.3e}")
+        check(rel <= TOL and same,
+              f"segment_sum by {kind} d={d}: rel {rel}, deterministic {same}")
+        check(k64 <= TOL and lib64 <= LIB_SUM_TOL,
+              f"segment_sum by {kind} d={d}: kernel {k64} or index_add_ "
+              f"{lib64} off float64")
+        ms = time_ms(lambda: sp.segment_sum_cuda(y, levels), 20)
+        plain = time_ms(lambda: sp.segment_sum_plain(y, levels), 5)
+        lib = time_ms(library, 20)
+        # the function's bytes: the per-edge rows read once, an edge id per
+        # slot, two row pointers and one d-wide row out per output row
+        n_bytes = m.n_edges * (d + 1) * 4 + n_out * (d + 2) * 4
+        entries.append(_entry(
+            "segment_sum", "spmm",
+            "none: port-only, the backward of the attention's gathers "
+            "(src/repro/models/kgnn.py:556-559 and :123 leave it to XLA's "
+            "scatter-add)", err, ms, plain, lib, n_bytes, m.n_edges * d,
+            f"E={m.n_edges} by {kind} n={n_out} d={d}",
+            library_call="torch.Tensor.index_add_"))
+    return _with_other_shape(*entries)
 
 
 def check_dequant_sddmm(torch, sp, g, gen):
@@ -1152,7 +1229,7 @@ def check_two_stage_accuracy(torch, ds, store):
 
 
 def _path_kernels(label):
-    return ("spmm", "sddmm") + (() if label == "fp32" else
+    return ("spmm", "sddmm", "segment_sum") + (() if label == "fp32" else
                                 ("quant_pack", "dequant_sddmm",
                                  "dequant_matmul"))
 
@@ -1256,6 +1333,70 @@ def profile_step(torch, cfg, ds, g, label="int2"):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:<4d} {e.key[:110]}")
+    check(busy > 0, f"{label} step: the profiler saw no device time")
+    # index_add_ (index_select's backward) runs as indexFuncLargeIndex /
+    # indexFuncSmallIndex; the step has no index_add_ left
+    scatter = [e.key for e in kernels
+               if "indexFunc" in e.key or "index_add" in e.key]
+    log(f"[profile] {label} step: index_add_ scatter kernels: "
+        f"{scatter if scatter else 'none'}")
+    check(not scatter, f"{label} step still scatters with index_add_: "
+          f"{scatter}")
+
+
+def _clone_state(torch, state):
+    """A deep copy of a (params, Adam state) pair: Adam updates in place."""
+    def c(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().clone().requires_grad_(v.requires_grad)
+        if isinstance(v, (list, tuple)):
+            return type(v)(c(t) for t in v)
+        if isinstance(v, dict):
+            return {k: c(t) for k, t in v.items()}
+        return v
+
+    return c(state)
+
+
+def check_determinism(torch, cfg, ds, g):
+    """Two full-width steps from one state (parameters and Adam moments
+    after a first step) on one batch, under FP32 and INT2, without
+    ``torch.use_deterministic_algorithms``: the loss, every parameter and
+    every moment bit-identical."""
+    from repro_torch.core.policy import parse_schedule
+    from repro_torch.launch.train import ROOT_SEED
+    from repro_torch.models.layers import param_leaves
+    from repro_torch.models.registry import build_step
+    from repro_torch.training.optimizer import adam
+    from repro_torch.training.step import make_train_step
+
+    check(not torch.are_deterministic_algorithms_enabled(),
+          "deterministic algorithms are on")
+    step = build_step("kgat", ds=ds, cfg=cfg, batch_size=TRAIN_BATCH,
+                      device=DEV, graph=g)
+    opt = adam(step.lr)
+    batches = step.batches()
+    for label in ("fp32", "int2"):
+        train = make_train_step(step, opt, schedule=parse_schedule(label),
+                                root_seed=ROOT_SEED)
+        params = step.init(0)
+        state, _ = train((params, opt.init(params)), next(batches), 0)
+        batch = next(batches)
+        (p1, o1), m1 = train(_clone_state(torch, state), batch, 1)
+        (p2, o2), m2 = train(_clone_state(torch, state), batch, 1)
+        leaves = list(zip(param_leaves(p1) + o1["mu"] + o1["nu"],
+                          param_leaves(p2) + o2["mu"] + o2["nu"]))
+        n_same = sum(bool(torch.equal(a, b)) for a, b in leaves)
+        same_loss = bool(torch.equal(m1["loss"], m2["loss"]))
+        worst = max(float((a - b).abs().max()) for a, b in leaves)
+        log(f"[determinism] {label}: two full-width steps from one state: "
+            f"loss {float(m1['loss']):.9f} / {float(m2['loss']):.9f} "
+            f"({'bit-identical' if same_loss else 'DIFFER'}), "
+            f"{n_same} of {len(leaves)} parameter and moment tensors "
+            f"bit-identical (max |diff| {worst:.3e})")
+        check(same_loss and n_same == len(leaves),
+              f"{label}: two steps from one state differ")
+        del state, p1, o1, p2, o2, leaves
 
 
 def _grads(torch, step, params, batch, label):
@@ -1301,11 +1442,13 @@ def _err64(got, ref):
 def check_train_grads(torch, cfg, ds, g):
     """One full-width step with the kernels against the same step with
     every kernel's plain version (same seeds, parameters and batch); at
-    FP32 both against the same step in float64. All steps run under
-    ``torch.use_deterministic_algorithms``: the plain SPMM's ``index_add_``
-    then sums each row in a fixed order, where its atomics' order moved the
-    plain error from run to run (a LeakyReLU input within 2e-8 of 0 flips
-    with the order, and moves w2[0]'s error 25x)."""
+    FP32 both against the same step in float64. The kernels' steps run as
+    the training path runs them. The plain steps run under
+    ``torch.use_deterministic_algorithms``: the plain versions still add
+    with ``index_add_``, whose atomics' order on the card moved the plain
+    error from run to run (a LeakyReLU input within 2e-8 of 0 flips with
+    the order, and moves w2[0]'s error 25x); in that mode each row sums in
+    a fixed order."""
     from repro_torch.core.quant import QTensor
     from repro_torch.kernels import dequant_matmul as dq
     from repro_torch.kernels import ops
@@ -1330,14 +1473,15 @@ def check_train_grads(torch, cfg, ds, g):
                             else 1)]
     check(len(names) == len(param_leaves(params)), "parameter names")
     got = {}
+    for label in ("fp32", "int2"):
+        got[label, "kernels"] = _grads(torch, step, params, batch, label)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)
             for label in ("fp32", "int2"):
-                got[label, "kernels"] = _grads(torch, step, params, batch,
-                                               label)
                 with plain_versions(ops, spmm=sp.spmm_plain,
+                                    segment_sum=sp.segment_sum_plain,
                                     quant_pack=qp.quant_pack_plain,
                                     spmm_grad_ew=grad_ew_plain,
                                     dequant_matmul=dq.dequant_matmul_plain):
@@ -1347,7 +1491,8 @@ def check_train_grads(torch, cfg, ds, g):
             p64 = trainable({k: [t.double() for t in v]
                              if isinstance(v, list) else v.double()
                              for k, v in params.items()})
-            with plain_versions(ops, spmm=spmm64, spmm_grad_ew=grad_ew64):
+            with plain_versions(ops, spmm=spmm64, spmm_grad_ew=grad_ew64,
+                                segment_sum=sp.segment_sum_plain):
                 l64, g64 = _grads(torch, step, p64, batch, "fp32")
     finally:
         torch.use_deterministic_algorithms(False)
@@ -1521,8 +1666,13 @@ def main() -> int:
     t0 = time.perf_counter()
     g = ds.graph(DEV)
     m = g.layout.meta
+    runs = [int((end - start).max()) for start, end in
+            ((g.layout.row_start, g.layout.row_end),
+             (g.layout.t_row_start, g.layout.t_row_end))]
     log(f"[data] layout: {m.n_blocks} blocks x {m.block_e} slots, "
-        f"{m.n_tiles} tiles ({time.perf_counter() - t0:.1f} s)")
+        f"{m.n_tiles} tiles, longest run {runs[0]} slots by destination, "
+        f"{runs[1]} by source; {len(g.rel_runs)} levels by relation "
+        f"({time.perf_counter() - t0:.1f} s)")
     params = kgnn.init_params(cfg, seed=0, device=DEV)
 
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -1530,6 +1680,7 @@ def main() -> int:
                check_spmm(torch, sp, g, params["entity"], gen),
                check_topk(torch, tk, gen),
                check_sddmm(torch, sp, g, gen),
+               check_segment_sum(torch, sp, g, gen),
                check_dequant_sddmm(torch, sp, g, gen),
                check_dequant_matmul(torch, dq, gen),
                check_coarse(torch, tk, gen),
@@ -1546,6 +1697,7 @@ def main() -> int:
     del res
     runs = run_training(torch, cfg, ds, g)
     profile_step(torch, cfg, ds, g)
+    check_determinism(torch, cfg, ds, g)
     check_train_grads(torch, cfg, ds, g)
     # launches: the sum over the main-path runs (serving, then training
     # under each schedule), each counted from 0 just before it

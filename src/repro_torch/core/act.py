@@ -17,6 +17,12 @@ backward runs the SPMM kernel on the transpose arrays for ∇x and the SDDMM
 dequant-matmul kernel. ``act_rmsnorm`` and ``act_remat`` come with the
 non-KG models.
 
+``gather_rows`` is no ACT site: it is ``index_select`` with a backward that
+sums each table row's gradient in a fixed order (``ops.segment_sum`` over a
+precomputed grouping of the edges), where ``index_select``'s own backward,
+``index_add_``, adds with atomics on the card and so changes the last bits
+from run to run.
+
 Site resolution follows the reference: explicit ``seed=`` / ``policy=``
 kwargs first, then the ambient ``ActContext`` at the site named ``scope``;
 with neither, the policy is FP32. Every resolved site records its residual
@@ -36,7 +42,7 @@ from .policy import FP32, ACTPolicy
 from .quant import QTensor, dequantize
 
 __all__ = ["act_matmul", "act_dense", "act_relu", "act_nonlin", "act_spmm",
-           "weighted_spmm", "NONLIN"]
+           "weighted_spmm", "gather_rows", "NONLIN"]
 
 
 def _resolve_site(op_kind: str, scope: str | None, seed,
@@ -269,3 +275,26 @@ def act_spmm(x, ew, layout, *, seed=None, policy: ACTPolicy | None = None,
     name, policy, seed, ctx = _resolve_site("spmm", scope, seed, policy)
     _record(ctx, name, "spmm", x.shape, policy)
     return _Spmm.apply(x, ew, layout, policy, seed)
+
+
+# -- gathers with a deterministic backward ------------------------------------
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, table, idx, runs):
+        fctx.runs = runs
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(fctx, g):
+        return ops.segment_sum(g, fctx.runs), None, None
+
+
+def gather_rows(table, idx, runs):
+    """``table.index_select(0, idx)`` whose backward is
+    ``grad_table[v] = Σ grad_out[e]`` over the edges ``e`` with
+    ``idx[e] == v``, summed in the order ``runs`` gives them
+    (``data.csr.SegmentRuns`` levels, which must group exactly the edges of
+    ``idx``): the same bits every run, on the card too."""
+    return _GatherRows.apply(table, idx, runs)

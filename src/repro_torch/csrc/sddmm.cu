@@ -12,17 +12,35 @@
 // (fp32: 4*d bytes a row; packed: ceil(d*b/8) bytes plus 8 bytes of
 // scale/zero), g once, a source and a destination index per edge, and write
 // one float per edge; 2*E*d flops are far below the fp32 peak. Both kernels
-// gather one residual row and one g row per edge, so they near that bound
-// only as far as the L2 keeps the rows between their reuses.
+// gather one residual row per edge (E*d*4 bytes at fp32, E/n_src times the
+// table), so they near that bound only as far as the L2 keeps the rows
+// between their reuses; the fp32 kernel reads g once per destination row,
+// the packed one once per slot (mostly a broadcast).
 //
-// fp32 (sddmm_kernel). The TPU kernel accumulates a block's partial dot
+// fp32 (sddmm_rows_kernel). The TPU kernel accumulates a block's partial dot
 // products across feature tiles on a sequential grid and scatters them to
-// edge order through perm_blk afterwards. Here a group of L lanes owns one
-// slot of the forward direction (src_blk, dstg_blk, perm_blk): its lanes
-// split the features (lane k takes features k, k+L, ...), each sums its
-// share in feature order, and a shuffle tree sums the group. L is the
-// smallest power of two >= d/4 (at most 32), so a warp serves 32/L slots at
-// once and a one-column table (the edge softmax's ones) wastes no lanes.
+// edge order through perm_blk afterwards. Here the work is spread by
+// destination row, as the SPMM's (spmm.cu): a group of L lanes owns one row
+// r of the forward direction, whose slots are one contiguous run,
+// row_start[r] .. row_end[r] (data/csr.py), all sharing g[r]. The group
+// loads g[r] into registers once (VEC columns a lane: float4 where the rows
+// allow; NC chunks of L * VEC columns), loads its run's source ids and perm
+// in coalesced batches of P slots and hands them out by __shfl_sync, so no
+// lane waits on a chain of dependent index loads, and keeps U x[src] row
+// gathers in flight a lane; at most 40 registers a thread, so an SM holds
+// 6 CTAs (48 warps) of loads in flight. d 64 gives 16 lanes x float4, one
+// chunk, two rows a warp. Each slot's dot is a partial a lane (fp32 fmas
+// over its columns in order: chunk, then x, y, z, w) summed over the group
+// by an xor tree of log2(L) shuffles; every lane then holds the same sum,
+// and one lane writes it. A row wider than 4 chunks (512 columns at
+// float4, 128 scalar) is walked in column passes of 4 chunks (PASSES), each
+// pass adding its partial to the edge's value written by the pass before
+// (the same lane, in pass order). The kernel has no cross-slot sum, so the
+// slot order is free; a run is walked by its group alone (the full-width
+// graph's longest run is 198 slots). A one-column table (d 1, the edge
+// softmax's ones) has no dot to split: sddmm_d1_kernel gives each thread
+// one slot of the flat slot array (32 slots a warp), dew = x[src] * g[dst]
+// rounded once.
 //
 // Packed (dq_sddmm_kernel<BITS, DP>). A packed row is tiny (16 bytes at
 // INT2, d 64), so one thread owns one slot and computes the whole dot: no
@@ -38,9 +56,9 @@
 // scale + zero rounded twice (__fmul_rn, __fadd_rn), as the port's
 // dequantize; nvcc may not contract it into one fma.
 //
-// Both write straight to dew[perm[slot]]: real slots map to edges one to
-// one, pad slots (perm == n_edges) are skipped. No atomics: two runs give
-// the same bits.
+// All write straight to dew[perm[slot]]: real slots map to edges one to
+// one, pad slots (perm == n_edges) are skipped, and runs hold none. No
+// atomics: two runs give the same bits.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -48,53 +66,146 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;
+constexpr int kMinBlocks = 6;  // CTAs an SM holds: at most 40 registers
+constexpr unsigned kFull = 0xffffffffu;
 
-template <int L>
-__global__ void sddmm_kernel(const float* __restrict__ x, int d,
-                             const float* __restrict__ g, int n_slots,
-                             const int* __restrict__ src,
-                             const int* __restrict__ dst,
-                             const int* __restrict__ perm, int n_edges,
-                             float* __restrict__ out) {
-  constexpr int kGroups = 32 / L;  // slots a warp serves at once
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<1> {
+  using T = float;
+  static __device__ __forceinline__ T zero() { return 0.0f; }
+  static __device__ __forceinline__ T load(const float* p) { return __ldg(p); }
+  static __device__ __forceinline__ float dot(float acc, T a, T b) {
+    return __fmaf_rn(a, b, acc);
+  }
+};
+template <>
+struct Vec<4> {
+  using T = float4;
+  static __device__ __forceinline__ T zero() {
+    return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  static __device__ __forceinline__ T load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ float dot(float acc, T a, T b) {
+    acc = __fmaf_rn(a.x, b.x, acc);
+    acc = __fmaf_rn(a.y, b.y, acc);
+    acc = __fmaf_rn(a.z, b.z, acc);
+    return __fmaf_rn(a.w, b.w, acc);
+  }
+};
+
+template <int L, int VEC, int NC, bool PASSES>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    sddmm_rows_kernel(const float* __restrict__ x, int d,
+                      const float* __restrict__ g,
+                      const int* __restrict__ src,
+                      const int* __restrict__ perm,
+                      const int* __restrict__ row_start,
+                      const int* __restrict__ row_end, int n_out,
+                      float* __restrict__ out) {
+  using V = Vec<VEC>;
+  constexpr int U = NC >= 4 ? 1 : 4 / NC;   // gathers a lane keeps in flight
+  constexpr int P = L > U ? L : U;           // slots a group loads per batch
+  constexpr int kPer = P / L;                // of which each lane holds kPer
+  constexpr int kSpan = L * VEC;             // columns of one chunk
   const int lane = threadIdx.x & 31;
   const int sub = lane % L;
-  const int grp = lane / L;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int n_warps = (gridDim.x * blockDim.x) >> 5;
-  // base is the same for every lane of a warp, so the shuffles converge
-  for (long long base = static_cast<long long>(warp) * kGroups;
-       base < n_slots; base += static_cast<long long>(n_warps) * kGroups) {
-    const long long s = base + grp;
-    int e = n_edges;
-    float acc = 0.0f;
-    if (s < n_slots) e = perm[s];
-    if (e < n_edges) {
-      const float* gr = g + static_cast<size_t>(dst[s]) * d;
-      const float* xr = x + static_cast<size_t>(src[s]) * d;
-      for (int j = sub; j < d; j += L) acc = __fmaf_rn(xr[j], gr[j], acc);
-    }
+  const int leader = lane - sub;             // the group's first lane
+  const unsigned mask =
+      L == 32 ? kFull : ((1u << (L % 32)) - 1u) << leader;
+  const int row =
+      (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * (32 / L) +
+      lane / L;
+  if (row >= n_out) return;                  // the whole group leaves
+  const int a = __ldg(row_start + row);
+  const int b = __ldg(row_end + row);
+  // column passes: one unless the row is wider than NC chunks (PASSES)
+  for (int c0 = 0; c0 < (PASSES ? d : 1); c0 += NC * kSpan) {
+    typename V::T gv[NC];                    // g[row], this lane's columns
 #pragma unroll
-    for (int off = L / 2; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (sub == 0 && e < n_edges) out[e] = acc;
+    for (int k = 0; k < NC; ++k) {
+      const int c = c0 + k * kSpan + sub * VEC;
+      gv[k] = c < d ? V::load(g + static_cast<size_t>(row) * d + c)
+                    : V::zero();
+    }
+    for (int base = a; base < b; base += P) {   // the group's batch of P
+      int si[kPer], ei[kPer];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {          // slot base + sub + i * L
+        const int s = base + sub + i * L;
+        si[i] = 0;
+        ei[i] = 0;
+        if (s < b) {
+          si[i] = __ldg(src + s);
+          ei[i] = __ldg(perm + s);
+        }
+      }
+#pragma unroll
+      for (int k0 = 0; k0 < P; k0 += U) {
+        if (base + k0 >= b) break;              // uniform in the group
+        typename V::T v[U][NC];
+        int e[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int o = k0 + u;                 // held by lane o % L
+          const int s = __shfl_sync(mask, si[o / L], leader + o % L);
+          e[u] = __shfl_sync(mask, ei[o / L], leader + o % L);
+#pragma unroll
+          for (int k = 0; k < NC; ++k) {
+            const int c = c0 + k * kSpan + sub * VEC;
+            v[u][k] = V::zero();
+            if (base + o < b && c < d)
+              v[u][k] = V::load(x + static_cast<size_t>(s) * d + c);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float p = 0.0f;
+#pragma unroll
+          for (int k = 0; k < NC; ++k) p = V::dot(p, v[u][k], gv[k]);
+#pragma unroll
+          for (int off = L / 2; off > 0; off >>= 1)
+            p = __fadd_rn(p, __shfl_xor_sync(mask, p, off));
+          if (base + k0 + u < b && sub == u % L) {
+            if constexpr (PASSES)
+              out[e[u]] = c0 == 0 ? p : __fadd_rn(out[e[u]], p);
+            else
+              out[e[u]] = p;
+          }
+        }
+      }
+    }
   }
 }
 
-int launch_fp32(const float* x, int d, const float* g, int n_slots,
-                const int* src, const int* dst, const int* perm, int n_edges,
-                float* out, cudaStream_t stream) {
-  if (n_slots <= 0 || d <= 0) return static_cast<int>(cudaGetLastError());
-  int lanes = 1;
-  while (lanes < 32 && lanes * 4 < d) lanes *= 2;
-  const long long warps = (n_slots + (32 / lanes) - 1) / (32 / lanes);
-  const long long want = (warps + kThreads / 32 - 1) / (kThreads / 32);
-  const int grid = static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
+// d == 1: one slot a thread over the flat slot array; pad slots skipped.
+__global__ void __launch_bounds__(kThreads)
+    sddmm_d1_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                    int n_slots, const int* __restrict__ src,
+                    const int* __restrict__ dst,
+                    const int* __restrict__ perm, int n_edges,
+                    float* __restrict__ out) {
+  const int s = blockIdx.x * kThreads + threadIdx.x;
+  if (s >= n_slots) return;
+  const int e = __ldg(perm + s);
+  if (e >= n_edges) return;                       // pad slot
+  out[e] = __fmul_rn(__ldg(x + __ldg(src + s)), __ldg(g + __ldg(dst + s)));
+}
+
+template <int VEC, int NC, bool PASSES>
+void launch_rows(int lanes, const float* x, int d, const float* g,
+                 const int* src, const int* perm, const int* row_start,
+                 const int* row_end, int n_out, float* out,
+                 cudaStream_t stream) {
+  const long long rows_per_cta = (kThreads / 32) * (32 / lanes);
+  const int grid = static_cast<int>((n_out + rows_per_cta - 1) / rows_per_cta);
 #define SDDMM_CASE(L)                                                        \
   case L:                                                                    \
-    sddmm_kernel<L><<<grid, kThreads, 0, stream>>>(                          \
-        x, d, g, n_slots, src, dst, perm, n_edges, out);                     \
+    sddmm_rows_kernel<L, VEC, NC, PASSES><<<grid, kThreads, 0, stream>>>(    \
+        x, d, g, src, perm, row_start, row_end, n_out, out);                 \
     break;
   switch (lanes) {
     SDDMM_CASE(1)
@@ -105,7 +216,28 @@ int launch_fp32(const float* x, int d, const float* g, int n_slots,
     SDDMM_CASE(32)
   }
 #undef SDDMM_CASE
-  return static_cast<int>(cudaGetLastError());
+}
+
+template <int VEC>
+void launch_fp32(int cols, const float* x, int d, const float* g,
+                 const int* src, const int* perm, const int* row_start,
+                 const int* row_end, int n_out, float* out,
+                 cudaStream_t stream) {
+  int lanes = 1;
+  while (lanes < 32 && lanes < cols) lanes *= 2;
+  const int chunks = (cols + lanes - 1) / lanes;   // lanes < 32: one
+  if (chunks <= 1)
+    launch_rows<VEC, 1, false>(lanes, x, d, g, src, perm, row_start, row_end,
+                               n_out, out, stream);
+  else if (chunks <= 2)
+    launch_rows<VEC, 2, false>(lanes, x, d, g, src, perm, row_start, row_end,
+                               n_out, out, stream);
+  else if (chunks <= 4)
+    launch_rows<VEC, 4, false>(lanes, x, d, g, src, perm, row_start, row_end,
+                               n_out, out, stream);
+  else
+    launch_rows<VEC, 4, true>(lanes, x, d, g, src, perm, row_start, row_end,
+                              n_out, out, stream);
 }
 
 __device__ __forceinline__ float xhat(unsigned code, float sc, float z) {
@@ -211,19 +343,35 @@ void launch_packed(const uint8_t* packed, int dp, const float* scale,
 }  // namespace
 
 // x (n_src, d) fp32; g (n_dst, d) fp32; src/dst/perm (n_slots,) int32 of
-// the layout's forward direction -> out (n_edges,) fp32, every edge written
-// once. Returns cudaGetLastError() after the launch.
+// the layout's forward direction, row_start/row_end (n_dst,) int32 its slot
+// run of each destination -> out (n_edges,) fp32, every edge written once.
+// Returns cudaGetLastError() after the launch.
 extern "C" int sddmm_launch(const void* x, int d, const void* g, int n_slots,
                             const void* src, const void* dst,
-                            const void* perm, int n_edges, void* out,
-                            void* stream) {
-  return launch_fp32(static_cast<const float*>(x), d,
-                     static_cast<const float*>(g), n_slots,
-                     static_cast<const int*>(src),
-                     static_cast<const int*>(dst),
-                     static_cast<const int*>(perm), n_edges,
-                     static_cast<float*>(out),
-                     static_cast<cudaStream_t>(stream));
+                            const void* perm, const void* row_start,
+                            const void* row_end, int n_dst, int n_edges,
+                            void* out, void* stream) {
+  if (n_slots <= 0 || d <= 0 || n_dst <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const auto* xf = static_cast<const float*>(x);
+  const auto* gf = static_cast<const float*>(g);
+  const auto* si = static_cast<const int*>(src);
+  const auto* pi = static_cast<const int*>(perm);
+  const auto* rs = static_cast<const int*>(row_start);
+  const auto* re = static_cast<const int*>(row_end);
+  auto* of = static_cast<float*>(out);
+  auto* st = static_cast<cudaStream_t>(stream);
+  if (d == 1) {
+    sddmm_d1_kernel<<<(n_slots + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+        xf, gf, n_slots, si, static_cast<const int*>(dst), pi, n_edges, of);
+  } else if (d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+             reinterpret_cast<uintptr_t>(g) % 16 == 0) {
+    // float4 columns when every row of x and g starts on 16 bytes
+    launch_fp32<4>(d / 4, xf, d, gf, si, pi, rs, re, n_dst, of, st);
+  } else {
+    launch_fp32<1>(d, xf, d, gf, si, pi, rs, re, n_dst, of, st);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // packed (n_src, dp) uint8 chunk-interleaved codes of `bits` bits (1, 2, 4

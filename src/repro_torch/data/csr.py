@@ -29,8 +29,10 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["CSRMeta", "SpmmLayout", "Direction", "build_spmm_layout",
-           "attach_layout"]
+__all__ = ["CSRMeta", "SpmmLayout", "Direction", "SegmentRuns",
+           "build_spmm_layout", "relation_runs", "attach_layout"]
+
+REL_CHUNK = 256   # slots a relation chunk holds (relation_runs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +62,20 @@ class Direction:
     row_end: torch.Tensor     # (n_out,) one past its last slot
     n_tiles: int
     n_out: int
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentRuns:
+    """One level of a fixed-order segment sum over ``n_rows`` input rows:
+    output row ``r`` is the sum of input rows ``perm[s]`` for slots
+    ``row_start[r] <= s < row_end[r]``, in slot order. A grouping is a tuple
+    of levels, each summing the previous level's output."""
+
+    perm: torch.Tensor        # (n_slots,) int32 input row of each slot
+    row_start: torch.Tensor   # (n_out,) int32
+    row_end: torch.Tensor     # (n_out,) int32
+    n_out: int
+    n_rows: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +113,14 @@ class SpmmLayout:
         return Direction(self.src_blk, self.ldst_blk, self.perm_blk,
                          self.tile_of_blk, self.row_start, self.row_end,
                          m.n_tiles, m.n_dst)
+
+    def runs(self, transpose: bool = False) -> tuple:
+        """The one-level grouping of the edges by destination (by source
+        for ``transpose=True``): the backward of a gather by ``dst``
+        (``src``)."""
+        dr = self.direction(transpose)
+        return (SegmentRuns(dr.perm_blk.reshape(-1), dr.row_start,
+                            dr.row_end, dr.n_out, self.meta.n_edges),)
 
 
 def _build_direction(gather_ids: np.ndarray, out_ids: np.ndarray,
@@ -182,10 +206,49 @@ def build_spmm_layout(src, dst, *, n_dst: int, n_src: int | None = None,
         meta=meta)
 
 
+def relation_runs(rel, n_relations: int, *, chunk: int = REL_CHUNK,
+                  device="cuda") -> tuple:
+    """The grouping of the edges by relation id (see the module docstring):
+    levels of ``SegmentRuns`` whose runs hold at most ``chunk`` slots, the
+    last with one run per relation (empty for an unused relation)."""
+    from repro_torch.kernels.backend import resolve_device
+
+    dev = resolve_device(device)
+    rel = np.asarray(rel, dtype=np.int64)
+    if chunk < 2:
+        raise ValueError(f"chunk must be at least 2, got {chunk}")
+    perm = np.argsort(rel, kind="stable")
+    counts = np.bincount(rel, minlength=n_relations)[:n_relations]
+    n_rows = int(rel.shape[0])
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    levels = []
+    while True:
+        start = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+        if counts.max(initial=0) <= chunk:
+            levels.append(SegmentRuns(t(perm), t(start), t(start + counts),
+                                      n_relations, n_rows))
+            return tuple(levels)
+        # cut every run into chunks of `chunk` slots; the next level sums
+        # each relation's chunks, in order
+        n_ch = -(-counts // chunk)
+        owner = np.repeat(np.arange(n_relations), n_ch)
+        first = np.concatenate([[0], np.cumsum(n_ch)[:-1]])
+        c0 = start[owner] + (np.arange(int(n_ch.sum())) - first[owner]) * chunk
+        c1 = np.minimum(c0 + chunk, (start + counts)[owner])
+        levels.append(SegmentRuns(t(perm), t(c0), t(c1), len(c0), n_rows))
+        perm, counts, n_rows = np.arange(len(c0)), n_ch, len(c0)
+
+
 def attach_layout(g, *, block_e: int = 256, block_rows: int = 256):
     """A copy of a graph dataclass (``models.kgnn.CKG``) with its ``layout``
-    built from its COO edge list, on the graph's device."""
+    built from its COO edge list and its ``rel_runs`` from its relation ids
+    (``relation_runs``), on the graph's device."""
     layout = build_spmm_layout(
         g.src.cpu().numpy(), g.dst.cpu().numpy(), n_dst=g.n_nodes,
         block_e=block_e, block_rows=block_rows, device=g.src.device)
-    return dataclasses.replace(g, layout=layout)
+    rel_runs = relation_runs(g.rel.cpu().numpy(), g.n_relations,
+                             device=g.src.device)
+    return dataclasses.replace(g, layout=layout, rel_runs=rel_runs)

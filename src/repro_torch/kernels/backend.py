@@ -20,7 +20,8 @@ are written for Hopper (``sm_90a``): asking for them on any other card raises.
 adds one where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels (``chip_smoke.py`` resets the counts
 before the path and reads them after). A count is one call of the wrapper's C
-entry point: ``dequant_matmul`` (partial tiles, then their fixed-order sum)
+entry point (``segment_sum`` calls ``spmm.cu``'s once per level of its
+grouping): ``dequant_matmul`` (partial tiles, then their fixed-order sum)
 starts two CUDA kernels per count; ``topk_score`` and ``coarse_topm`` two at
 k <= 128 (the scan, then the row merge; one where each query tile is one
 run) and 1 + ceil(log2(ceil(n_items / 128))) above (the scan, then merge

@@ -6,9 +6,10 @@ kernel, a CPU tensor to the kernel's plain PyTorch version, anything else
 raises. There is no fallback from one to the other; a kernel that cannot
 build or launch raises. ``LAUNCH_COUNTS`` (the counterpart of the JAX
 package's trace-time ``TRACE_COUNTS``) counts real kernel launches by name:
-``quant_pack``, ``spmm``, ``topk_score``, ``sddmm``, ``dequant_sddmm``,
-``dequant_matmul``, ``coarse_topm`` and ``dequant_unpack``, one per wrapper
-call (several CUDA kernels may run per call; see ``backend``).
+``quant_pack``, ``spmm``, ``segment_sum``, ``topk_score``, ``sddmm``,
+``dequant_sddmm``, ``dequant_matmul``, ``coarse_topm`` and
+``dequant_unpack``, one per C entry point call (several CUDA kernels may run
+per call, and ``segment_sum`` makes one call per level; see ``backend``).
 ``quantize(x, seed, *, bits, stochastic)`` is ``core.quant.quantize``: the
 ``quant_pack`` route wrapped into a ``QTensor``; ``dequantize(q)`` is its
 inverse on the ``dequant_unpack`` route (the counterpart of
@@ -27,8 +28,9 @@ from . import spmm as _spmm
 from . import topk_score as _tk
 from .backend import LAUNCH_COUNTS
 
-__all__ = ["quant_pack", "quantize", "dequantize", "spmm", "spmm_grad_ew",
-           "dequant_matmul", "topk", "coarse_topm", "LAUNCH_COUNTS"]
+__all__ = ["quant_pack", "quantize", "dequantize", "spmm", "segment_sum",
+           "spmm_grad_ew", "dequant_matmul", "topk", "coarse_topm",
+           "LAUNCH_COUNTS"]
 
 
 def _on_card(x: torch.Tensor, op: str) -> bool:
@@ -84,6 +86,17 @@ def spmm(x: torch.Tensor, ew: torch.Tensor | None, layout, *,
                               layout, transpose=transpose)
         return out.to(x.dtype)
     return _spmm.spmm_plain(x, ew, layout, transpose=transpose)
+
+
+def segment_sum(y: torch.Tensor, levels: tuple) -> torch.Tensor:
+    """Fixed-order segment sum of the rows of ``y`` over a grouping
+    (``data.csr.SegmentRuns`` levels): ``(n_rows, d)`` or ``(n_rows,)`` in,
+    ``(n_out, d)`` or ``(n_out,)`` out, each output row summed in its run's
+    slot order; see kernels/spmm.py."""
+    if _on_card(y, "segment_sum"):
+        return _spmm.segment_sum_cuda(y.to(torch.float32).contiguous(),
+                                      levels).to(y.dtype)
+    return _spmm.segment_sum_plain(y, levels)
 
 
 def spmm_grad_ew(res, g: torch.Tensor, layout) -> torch.Tensor:

@@ -17,9 +17,17 @@ SDDMM: port of ``sddmm_ew`` (TPU kernel ``_sddmm_kernel``) and
 ``dequant_sddmm_ew`` (``_dq_sddmm_kernel`` and ``_dq_sddmm_dma_kernel``):
 ``dew[e] = <x_hat[src_e], g[dst_e]>`` in original edge order, from an fp32
 residual or a packed ``QTensor`` (unpacked in the kernel). Both run through
-``csrc/sddmm.cu`` over the slots of the forward direction (a group of lanes
-per slot for fp32, one thread per slot for a packed residual), the result
+``csrc/sddmm.cu`` over the forward direction (fp32: a group of lanes per
+destination row, which holds ``g[dst]`` in registers and walks the row's
+slot run, a thread per slot at d 1; packed: a thread per slot), the result
 written straight to ``dew[perm[slot]]``, no atomics.
+
+Segment sum (port-only, no TPU counterpart): the backward of the
+attention's gathers, ``out[r] = sum_{s in r's run} y[perm[s]]`` over a
+grouping of the edges (``data.csr.SegmentRuns``, one launch a level). It is
+the SPMM kernel with ``x := y`` (per-edge rows) and ``gat := perm``: each
+output row one sum in slot order, no atomics, where ``index_add_`` adds with
+atomics on the card.
 
 ``kernels.ops`` sends CUDA tensors to the ``*_cuda`` launchers and CPU
 tensors to the ``*_plain`` versions. Each pair sums in different orders, so
@@ -36,12 +44,13 @@ from repro_torch.core.quant import QTensor, dequantize
 
 from . import backend
 
-__all__ = ["spmm_plain", "spmm_cuda", "sddmm_plain", "sddmm_cuda",
+__all__ = ["spmm_plain", "spmm_cuda", "segment_sum_plain",
+           "segment_sum_cuda", "sddmm_plain", "sddmm_cuda",
            "dequant_sddmm_plain", "dequant_sddmm_cuda"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _I, _P, _P, _P, _P, _P, _I, _P, _P)
-_SDDMM_ARGTYPES = (_P, _I, _P, _I, _P, _P, _P, _I, _P, _P)
+_SDDMM_ARGTYPES = (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P)
 _DQ_SDDMM_ARGTYPES = (_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P)
 
 
@@ -97,6 +106,60 @@ def spmm_cuda(x: torch.Tensor, ew: torch.Tensor | None, layout, *,
     return out
 
 
+# -- the gathers' backward: fixed-order segment sums --------------------------
+
+
+def segment_sum_plain(y: torch.Tensor, levels: tuple) -> torch.Tensor:
+    """Plain version: per level, gather each run's rows in slot order and
+    ``index_add_`` them into their output row. ``y`` is ``(n_rows, ...)``;
+    the result ``(n_out, ...)``."""
+    shape = y.shape[1:]
+    y = y.reshape(y.shape[0], -1)
+    for runs in levels:
+        start, end = runs.row_start.long(), runs.row_end.long()
+        deg = end - start
+        rows = torch.repeat_interleave(
+            torch.arange(runs.n_out, device=y.device), deg)
+        # slot of every run position: its run's start plus its offset
+        first = torch.repeat_interleave(start - (torch.cumsum(deg, 0) - deg),
+                                        deg)
+        slots = torch.arange(rows.shape[0], device=y.device) + first
+        out = torch.zeros((runs.n_out, y.shape[1]), dtype=y.dtype,
+                          device=y.device)
+        y = out.index_add_(0, rows, y[runs.perm.long()[slots]])
+    return y.reshape((y.shape[0],) + shape)
+
+
+def segment_sum_cuda(y: torch.Tensor, levels: tuple) -> torch.Tensor:
+    """Launch ``csrc/spmm.cu`` once per level, gathering ``y``'s rows
+    through the runs' ``perm``; shapes as ``segment_sum_plain``."""
+    backend.require_sm90(y.device)
+    fn = backend.kernel_fn("spmm", "spmm_launch", _ARGTYPES)
+    shape = y.shape[1:]
+    y = y.reshape(y.shape[0], -1)
+    for runs in levels:
+        backend.check_cuda(y, torch.float32, 2, "y")
+        if y.shape[0] != runs.n_rows:
+            raise ValueError(f"y has {y.shape[0]} rows, the grouping sums "
+                             f"{runs.n_rows}")
+        for name in ("perm", "row_start", "row_end"):
+            arr = getattr(runs, name)
+            backend.check_cuda(arr, torch.int32, 1, name)
+            if arr.device != y.device:
+                raise ValueError(f"grouping is on {arr.device}, y on "
+                                 f"{y.device}")
+        out = torch.empty((runs.n_out, y.shape[1]), dtype=torch.float32,
+                          device=y.device)
+        with torch.cuda.device(y.device):
+            backend.launch(fn, y.data_ptr(), y.shape[1], None,
+                           runs.perm.data_ptr(), runs.perm.data_ptr(),
+                           runs.row_start.data_ptr(), runs.row_end.data_ptr(),
+                           runs.n_out, out.data_ptr(), backend.stream_of(y))
+        backend.count_launch("segment_sum")
+        y = out
+    return y.reshape((y.shape[0],) + shape)
+
+
 # -- the edge-weight gradient: SDDMM ------------------------------------------
 
 
@@ -128,9 +191,10 @@ def _check_sddmm(g: torch.Tensor, layout, n_rows: int, d: int):
         raise ValueError(f"residual of {n_rows} rows and g of shape "
                          f"{tuple(g.shape)} against a layout of {m.n_src} "
                          f"sources and {m.n_dst} destinations, width {d}")
-    for name in ("src_blk", "dstg_blk", "perm_blk"):
+    for name in ("src_blk", "dstg_blk", "perm_blk", "row_start", "row_end"):
         arr = getattr(layout, name)
-        backend.check_cuda(arr, torch.int32, 2, name)
+        backend.check_cuda(arr, torch.int32, 1 if name.startswith("row")
+                           else 2, name)
         if arr.device != g.device:
             raise ValueError(f"layout is on {arr.device}, g on {g.device}")
     return torch.empty(m.n_edges, dtype=torch.float32, device=g.device)
@@ -146,7 +210,9 @@ def sddmm_cuda(x: torch.Tensor, g: torch.Tensor, layout) -> torch.Tensor:
         backend.launch(fn, x.data_ptr(), x.shape[1], g.data_ptr(),
                        layout.perm_blk.numel(), layout.src_blk.data_ptr(),
                        layout.dstg_blk.data_ptr(), layout.perm_blk.data_ptr(),
-                       m.n_edges, out.data_ptr(), backend.stream_of(x))
+                       layout.row_start.data_ptr(), layout.row_end.data_ptr(),
+                       m.n_dst, m.n_edges, out.data_ptr(),
+                       backend.stream_of(x))
     backend.count_launch("sddmm")
     return out
 

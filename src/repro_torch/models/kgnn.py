@@ -16,14 +16,19 @@ ambient ``ActContext``: ``bpr_loss`` runs them under the training schedule,
 ``propagate`` under FP32 with autograd off. The attention is not an ACT
 site, as in the reference: autograd keeps its (E, d) tensors uncompressed.
 
-Aggregation sums are deterministic on the card: the SPMM kernel sums each
-destination in slot order without atomics, and the edge-softmax
+A training step gives the same bits every run, on the card too. The SPMM
+kernel sums each destination in slot order, and the edge-softmax
 denominators are that same kernel run over a ones column (their ∇ew the
-SDDMM kernel on the same column). The attention's own gathers
-backpropagate through ``index_add``, which uses atomics on CUDA, so two
-training steps on the card may differ in the last bits. Every matmul runs in
-full fp32: ``forward_reps`` and the training step switch TF32 off for their
-own span (``kernels.backend.full_fp32``) and restore the caller's setting.
+SDDMM kernel on the same column). The attention's gathers (``gather_rows``)
+backpropagate through fixed-order segment sums over the graph's groupings of
+the edges: by destination and by source (the layout's slot runs) and by
+relation (``CKG.rel_runs``), where ``index_select``'s own backward,
+``index_add_``, adds with atomics on the card. The edge softmax's max
+(``scatter_reduce``) does not depend on order, and ``score_pairs``' batch
+gathers backpropagate through a sort-based ``index_put_``, which is
+deterministic on the card. Every matmul runs in full fp32: ``forward_reps``
+and the training step switch TF32 off for their own span
+(``kernels.backend.full_fp32``) and restore the caller's setting.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.act import act_matmul, act_nonlin, act_spmm, \
-    weighted_spmm
+    gather_rows, weighted_spmm
 from repro_torch.core.context import act_context, model_context
 from repro_torch.core.policy import FP32
 from repro_torch.data.csr import attach_layout
@@ -50,7 +55,9 @@ __all__ = ["KGNNConfig", "CKG", "segment_softmax", "kgat_bi_interaction",
 @dataclasses.dataclass(frozen=True)
 class CKG:
     """Collaborative knowledge graph in COO form (inverse edges included),
-    always with its blocked-CSR ``layout`` on the same device."""
+    always with its blocked-CSR ``layout`` and its grouping of the edges by
+    relation (``rel_runs``, ``data.csr.relation_runs``) on the same
+    device."""
 
     src: torch.Tensor  # (E,) int32 node ids
     dst: torch.Tensor  # (E,) int32 node ids
@@ -58,6 +65,7 @@ class CKG:
     n_nodes: int
     n_relations: int
     layout: object = None
+    rel_runs: tuple = None
 
     @classmethod
     def build(cls, src, dst, rel, *, n_nodes: int, n_relations: int,
@@ -108,7 +116,9 @@ def segment_softmax(logits: torch.Tensor, g: CKG) -> torch.Tensor:
     through the max is zero. The denominators are the SPMM of a ones column
     with the exponentials as edge weights, summed in the layout's dst-sorted
     slot order, deterministically; their ∇ew (``g_den[dst_e]``) is the SDDMM
-    of the same column. That SPMM is no ACT site and records nothing.
+    of the same column. That SPMM is no ACT site and records nothing. The
+    gather of the denominators back to the edges sums its gradient over the
+    destination runs (``gather_rows``).
     """
     seg = g.dst.long()
     mx = torch.full((g.n_nodes,), float("-inf"), dtype=logits.dtype,
@@ -118,7 +128,7 @@ def segment_softmax(logits: torch.Tensor, g: CKG) -> torch.Tensor:
     ex = torch.exp(logits - mx.index_select(0, seg))
     ones = torch.ones((g.n_nodes, 1), dtype=ex.dtype, device=ex.device)
     den = weighted_spmm(ones, ex, g.layout)[:, 0]
-    return ex / (den.index_select(0, seg) + 1e-16)
+    return ex / (gather_rows(den, seg, g.layout.runs()) + 1e-16)
 
 
 def init_params(cfg: KGNNConfig, *, seed: int = 0, device="cuda") -> dict:
@@ -177,25 +187,29 @@ def _kgat_attention(p: dict, e: torch.Tensor, g: CKG) -> torch.Tensor:
     with one einsum; the port sums the ``B`` bases one ``(E, d)`` term at a
     time, which is the same function with a quarter of the peak memory.
 
-    Every gather is ``index_select``, whose backward is ``index_add_``. A
-    ``tensor[idx]`` gather backpropagates through a sort-based
-    ``index_put_`` instead, which on the card walks each index's
-    duplicates serially: the relation tables (80 rows) take about 83,000
-    edges a row at full width.
+    Every gather is ``gather_rows``: ``index_select`` forward, and backward
+    a fixed-order segment sum over the edges of each table row (by source,
+    destination or relation), the same bits every run. ``index_select``'s
+    own backward, ``index_add_``, adds with atomics on the card (about 83,000
+    edges into each row of the 80-row relation tables at full width); a
+    ``tensor[idx]`` gather's, a sort-based ``index_put_``, walks each index's
+    duplicates serially.
     """
     src, dst, rel = g.src.long(), g.dst.long(), g.rel.long()
+    by_src, by_dst = g.layout.runs(transpose=True), g.layout.runs()
     proj = torch.stack([e @ p["att_basis"][b]
                         for b in range(p["att_basis"].shape[0])])
-    coef = p["att_coef"].index_select(0, rel)               # (E, B)
+    coef = gather_rows(p["att_coef"], rel, g.rel_runs)      # (E, B)
     eh = et = None
     for b in range(proj.shape[0]):
         c = coef[:, b:b + 1]
-        th = c * proj[b].index_select(0, src)
-        tt = c * proj[b].index_select(0, dst)
+        th = c * gather_rows(proj[b], src, by_src)
+        tt = c * gather_rows(proj[b], dst, by_dst)
         eh = th if eh is None else eh + th
         et = tt if et is None else et + tt
     logits = torch.sum(
-        et * torch.tanh(eh + p["relation"].index_select(0, rel)), dim=-1)
+        et * torch.tanh(eh + gather_rows(p["relation"], rel, g.rel_runs)),
+        dim=-1)
     return segment_softmax(logits, g)
 
 

@@ -18,7 +18,7 @@ import torch
 from repro_torch.configs import get
 from repro_torch.configs.smoke import reduced
 from repro_torch.core.quant import QTensor, dequantize, pack_bits, quantize
-from repro_torch.data.csr import build_spmm_layout
+from repro_torch.data.csr import build_spmm_layout, relation_runs
 from repro_torch.core.policy import schedule_from_cli
 from repro_torch.kernels import backend
 from repro_torch.kernels import dequant_matmul as dq
@@ -28,10 +28,12 @@ from repro_torch.kernels import topk_score as tk
 from repro_torch.launch.serve import reduced_dataset, serve_kgnn
 from repro_torch.launch.train import train_kgnn
 from repro_torch.models import kgnn
+from repro_torch.models.layers import param_leaves
 from repro_torch.models.registry import build_step
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.scorer import quantize_query, two_stage_topk
 from repro_torch.serving.store import QuantizedEmbeddingStore
+from repro_torch.training.optimizer import adam
 from repro_torch.training.step import make_train_step, trainable
 
 SERVING = ("quant_pack", "spmm", "topk_score")
@@ -173,17 +175,103 @@ def _rel(a, ref):
     return float((a - ref).abs().max() / ref.abs().max())
 
 
+def _long_row_layout(cuda, seed):
+    """Zipf-skewed destinations (pad slots, empty tiles) plus one row of
+    12,000 more slots: a run far longer than any batch of the kernels."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, 500, 18000)
+    dst = np.minimum(rng.zipf(1.5, 18000) - 1, 466)
+    dst[6000:] = 5
+    return build_spmm_layout(src, dst, n_dst=700, n_src=500, block_e=32,
+                             block_rows=16, device=cuda)
+
+
+@pytest.mark.parametrize("x_off", [0, 4])
 @pytest.mark.parametrize("d", [1, 37, 64, 200])
-def test_sddmm_kernel_close_and_deterministic(cuda, d):
-    layout = _layout(cuda, 500, 700, 6000, d)         # pad slots, empty tiles
+def test_sddmm_kernel_close_and_deterministic(cuda, d, x_off):
+    """Rows of every length up to 12,000+ slots; ``x_off`` 4 starts x off
+    a 16-byte boundary (the scalar columns)."""
+    layout = _long_row_layout(cuda, d)
     m = layout.meta
     assert bool((layout.perm_blk == m.n_edges).any())
+    assert int((layout.row_end - layout.row_start).max()) > 10000
     gen = torch.Generator(device=cuda).manual_seed(d)
-    x = torch.randn((m.n_src, d), generator=gen, device=cuda)
+    x = _shifted(torch.randn((m.n_src, d), generator=gen, device=cuda),
+                 x_off)
+    assert (x.data_ptr() % 16 != 0) == (x_off > 0)
     g = torch.randn((m.n_dst, d), generator=gen, device=cuda)
     a = sp.sddmm_cuda(x, g, layout)
     assert torch.equal(a, sp.sddmm_cuda(x, g, layout))
     assert _rel(a, sp.sddmm_plain(x, g, layout)) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["dst", "src", "rel"])
+@pytest.mark.parametrize("d", [1, 4, 37, 64])
+def test_segment_sum_kernel_close_and_deterministic(cuda, kind, d):
+    """The gathers' backward on zipf-skewed groupings (empty rows, runs of
+    256+ slots; relations chunked into three levels) against the plain
+    route, and the same bits twice."""
+    layout = _skewed_layout(cuda, d)
+    m = layout.meta
+    if kind == "rel":
+        rng = np.random.default_rng(d)
+        rel = np.minimum(rng.zipf(1.3, m.n_edges) - 1, 9)
+        levels = relation_runs(rel, 12, chunk=16, device=cuda)
+        assert len(levels) == 3
+    else:
+        levels = layout.runs(transpose=kind == "src")
+    deg = (levels[-1].row_end - levels[-1].row_start).cpu()
+    assert bool((deg == 0).any())
+    if kind != "rel":
+        assert int(deg.max()) > 256
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    y = torch.randn((m.n_edges, d), generator=gen, device=cuda)
+    backend.reset_counts()
+    a = sp.segment_sum_cuda(y, levels)
+    assert backend.LAUNCH_COUNTS["segment_sum"] == len(levels)
+    assert torch.equal(a, sp.segment_sum_cuda(y, levels))
+    ref = sp.segment_sum_plain(y, levels)
+    assert _rel(a, ref) <= 1e-5
+    assert bool((a[deg == 0] == 0).all())
+
+
+def _clone_state(state):
+    def c(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().clone().requires_grad_(v.requires_grad)
+        if isinstance(v, (list, tuple)):
+            return type(v)(c(t) for t in v)
+        if isinstance(v, dict):
+            return {k: c(t) for k, t in v.items()}
+        return v
+
+    return c(state)
+
+
+@pytest.mark.parametrize("bits", [0, 2])
+def test_two_training_steps_bit_identical(cuda, bits):
+    """Two steps from the same parameters, optimizer state and batch give
+    the same loss and parameters bit for bit, without
+    ``torch.use_deterministic_algorithms``: no sum of the step depends on
+    the order of atomics."""
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg = reduced(get("kgat")).model_cfg
+    ds = reduced_dataset(cfg)
+    step = build_step(cfg.model, ds=ds, cfg=cfg, batch_size=32, device=cuda)
+    opt = adam(step.lr)
+    params = trainable(step.init(0))
+    state = (params, opt.init(params))
+    batch = next(step.batches())
+    train = make_train_step(step, opt, schedule=schedule_from_cli(None, bits),
+                            root_seed=1)
+    state, _ = train(state, batch, 0)                 # moments not zero
+    runs = [train(_clone_state(state), batch, 1) for _ in range(2)]
+    (p1, o1), m1 = runs[0]
+    (p2, o2), m2 = runs[1]
+    assert torch.equal(m1["loss"], m2["loss"])
+    for a, b in zip(param_leaves(p1) + o1["mu"] + o1["nu"],
+                    param_leaves(p2) + o2["mu"] + o2["nu"]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
@@ -258,8 +346,8 @@ def test_reduced_training_runs_the_kernels(cuda, bits):
         runs[str(dev)] = train_kgnn(
             cfg, ds, kgnn.init_params(cfg, device=dev), sched, 3, batch=32,
             device=dev, log=lambda _: None)
-    want = ("spmm", "sddmm") + (("quant_pack", "dequant_sddmm",
-                                 "dequant_matmul") if bits else ())
+    want = ("spmm", "sddmm", "segment_sum") + (
+        ("quant_pack", "dequant_sddmm", "dequant_matmul") if bits else ())
     launches = runs[str(cuda)]["steps"][0]["launches"]
     assert all(launches.get(k, 0) > 0 for k in want), launches
     losses = [[r["loss"] for r in run["steps"]] for run in runs.values()]
@@ -614,7 +702,8 @@ def test_reduced_tier2_serving_path_runs_the_kernels(cuda):
                      two_stage=4, item_shards=2, cache=16, refresh_steps=2,
                      log=lambda _: None)
     counts = dict(backend.LAUNCH_COUNTS)
-    want = SERVING + ("coarse_topm", "dequant_unpack", "sddmm")
+    want = SERVING + ("coarse_topm", "dequant_unpack", "sddmm",
+                      "segment_sum")
     assert all(counts.get(n, 0) > 0 for n in want), counts
     assert res["delta"]["version"] == 1
     assert res["stats_post"].store_version == 1
@@ -679,8 +768,8 @@ def test_rollout_and_training_step_leave_tf32_setting_alone(cuda):
         flags.allow_tf32 = before
     assert torch.equal(reps[True], reps[False])
     assert torch.equal(loss[True], loss[False])
-    for a, b in zip(grads[True], grads[False]):     # index_add_'s atomics
-        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    for a, b in zip(grads[True], grads[False]):     # the step is deterministic
+        assert torch.equal(a, b)
 
 
 def test_sharded_engine_on_streams_matches_one_shard(cuda):
