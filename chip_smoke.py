@@ -8,7 +8,8 @@ their plain versions.
 2. Builds the kernels of the serving and training paths from
    src/repro_torch/csrc for sm_90a (one nvcc per source, started together,
    while the full-width dataset is generated) and prints ptxas's
-   register/spill report.
+   register/spill report; fails if the dequant-matmul or dequant-unpack
+   kernels spill.
 3. For each kernel, at the shapes its path gives it, compares the kernel
    with its plain PyTorch version on the same inputs on the card:
      quant_pack  codes, scale and zero bit-identical (70,679x256 and
@@ -34,27 +35,37 @@ their plain versions.
      dequant_sddmm  the same at bits 8/4/2/1 (d 64) and on a padded pack
                  (d 37, bits 2); timed at INT2 and INT8, d 64;
      dequant_matmul <= 1e-5 relative at R 184,166, 64 x 64, bits 8/4/2/1,
-                 and a padded pack (d 37), bit-identical across two runs;
+                 a padded pack (d 37), and rows offset far from 0 (INT8,
+                 INT2), bit-identical across two runs; timed at INT2 with
+                 its device time (held stream) and the device time of each
+                 of its two CUDA kernels (torch.profiler);
      coarse_topm values and indices bit-identical at I 24,915, d 256, INT8
                  and INT4, on ties and random inputs, at B 1, 8 and 128
                  with m 80 and at B 8 with m = n_items, and on a tier-2
                  shard's table (12,458 items, B 8, m 80);
-     dequant_unpack bit-identical on the item table (INT8, INT4), the
-                 re-rank's 640 candidate rows, bits 2/1 and padded packs;
+     dequant_unpack bit-identical on the item table (INT8, INT4, and an
+                 unaligned base), bits 2/1 and padded packs, every row and
+                 through the fused row gather (the re-rank's 640 candidate
+                 ids, int32 and int64); timed on the item table and on the
+                 re-rank's 640 rows, fused and on the select-then-unpack
+                 route, with device times (held stream);
    and times kernel, plain version and (where one PyTorch call computes the
    same function) that call, as medians of CUDA-event timings (which read
    the host's pace where a call's launches outlast its device work), beside
    the bound: max(bytes / 3.35 TB/s, ops / peak), the H100 SXM's published
    peaks, with the bytes the function must move (each input read once,
    each output written once). The peak is the fp32 rate outside the tensor
-   cores (67 TFLOP/s), except for coarse_topm: its dot multiplies int8
-   query codes by unsigned codes and is exact at the int8 tensor-core rate
-   (1,979 TOP/s). For topk_score and coarse_topm it also prints the device
-   time of the kernel and of the library call (20 calls queued while a
-   spinning kernel holds the stream, then run back to back between two CUDA
-   events: no host gaps) and the CUDA kernels one wrapper call launches
-   (read from torch.profiler, held to the kernel's own plan, at most 2 at
-   k <= 128; a call whose kernels the profiler does not see fails). For
+   cores (67 TFLOP/s), except for coarse_topm (its dot multiplies int8
+   query codes by unsigned codes and is exact at the int8 tensor-core rate,
+   1,979 TOP/s) and dequant_matmul (three exact bf16 products at the bf16
+   tensor-core rate, 989 TFLOP/s). For topk_score, coarse_topm and
+   dequant_matmul it also prints the device time of the kernel and of the
+   library call (20 calls queued while a spinning kernel holds the stream,
+   then run back to back between two CUDA events: no host gaps); for
+   topk_score and coarse_topm also the CUDA kernels one wrapper call
+   launches (read from torch.profiler, held to the kernel's own plan, at
+   most 2 at k <= 128; a call whose kernels the profiler does not see
+   fails). For
    top-K at B 1, 2 and 4 it also prints the device time at each query tile
    (8, 16, 32), the results bit-identical.
 4. Cross-checks the reduced KGAT rollout on the card against the CPU.
@@ -88,7 +99,10 @@ their plain versions.
    two-stage recall@20 against single stage on all users (both phases'
    times printed) and holds the
    m = n_items anchor on 256 users to the single-stage kernel (indices
-   equal except between scores within 1e-5 relative).
+   equal except between scores within 1e-5 relative). [rerank]: the
+   two-stage responses for 256 of the burst's users on both shard tables
+   with the re-rank's fused row gather against the select-then-unpack
+   route, bit-identical, beside the recall ratio and the refresh check.
 8. Drives the training path at full width through ``train_kgnn``: the same
    config and graph, BPR batch 1024, Adam, seed-0 parameters, a few steps
    each under FP32, INT8, INT4 and INT2 (stochastic rounding). Launch
@@ -134,6 +148,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -145,6 +160,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core rate
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
 TOL = 1e-5
 LIB_SUM_TOL = 1e-4             # index_add_'s atomic fp32 sums vs float64
 DEV = "cuda"
@@ -614,54 +630,100 @@ def _with_other_shape(entry, *others):
     (one: a dict; several: a list)."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "kernels_per_call", "device_ms",
-            "library_device_ms")
+            "library_device_ms", "select_ms", "select_device_ms")
     rows = [{k: o[k] for k in keys if k in o} for o in others]
     entry["other_shape"] = rows[0] if len(rows) == 1 else rows
     return entry
 
 
 def check_dequant_unpack(torch, qp, gen):
-    """Unpack + dequantize at the item table's shape (INT8 and INT4) and at
-    the re-rank's (B*m candidate rows), bits 2 and 1, and a padded pack;
-    bit-identical to the plain version."""
-    from repro_torch.core.quant import quantize
+    """Unpack + dequantize at the item table's shape (INT8 and INT4), bits 2
+    and 1, padded packs and an unaligned base, every row and through the
+    fused row gather (the re-rank's B*m candidates: unsorted, duplicate
+    ids; int32 and int64); bit-identical to the plain version. Timed on the
+    item table, and at the re-rank's 640 rows both fused and on the PR 13
+    route (``QTensor.select``'s three gathers, then the kernel), with the
+    device time of each (held stream)."""
+    from repro_torch.core.quant import QTensor, quantize
 
     n_items, d = DATASET["n_items"], 256
     rerank_rows = ENGINE_BATCH * COARSE_M
     log(f"[dequant_unpack] kernel vs plain (bit-identical)")
-    out = {}
-    for rows, dim, bits in ((n_items, d, 8), (n_items, d, 4),
-                            (rerank_rows, d, 8), (4096, d, 2), (4096, d, 1),
-                            (4096, 37, 4), (4096, 37, 2)):
+    cand = torch.randint(0, n_items, (rerank_rows,), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    cand[:8] = cand[8]
+    tables = {}
+    for rows, dim, bits, off in ((n_items, d, 8, 0), (n_items, d, 4, 0),
+                                 (n_items, d, 8, 1), (4096, d, 2, 0),
+                                 (4096, d, 1, 0), (4096, 37, 4, 0),
+                                 (4096, 37, 2, 0)):
         q = quantize(torch.randn((rows, dim), generator=gen, device=DEV)
                      * 0.3, 0xD0 + bits, bits=bits, stochastic=True)
-        got = qp.dequant_unpack_cuda(q.packed, q.scale, q.zero, bits=bits,
-                                     dim=dim)
-        ref = qp.dequant_unpack_plain(q.packed, q.scale, q.zero, bits=bits,
-                                      dim=dim)
-        same = torch.equal(got, ref)
-        log(f"  {rows}x{dim} bits={bits} (dp {q.packed.shape[1]}): "
-            f"{'bit-identical' if same else 'MISMATCH'}")
-        check(same, f"dequant_unpack {rows}x{dim} bits={bits} differs")
-        if dim == d and bits == 8:
-            out[rows] = q
+        if off:
+            q = QTensor(_shifted(torch, q.packed, off), q.scale, q.zero,
+                        bits, dim)
+        idx = cand % rows
+        same = []
+        for i in (None, idx, idx.long()):
+            got = qp.dequant_unpack_cuda(q.packed, q.scale, q.zero,
+                                         bits=bits, dim=dim, idx=i)
+            ref = qp.dequant_unpack_plain(q.packed, q.scale, q.zero,
+                                          bits=bits, dim=dim, idx=i)
+            same.append(torch.equal(got, ref))
+        log(f"  {rows}x{dim} bits={bits} (dp {q.packed.shape[1]}"
+            f"{f', base {off} byte off alignment' if off else ''}): every "
+            f"row {'bit-identical' if same[0] else 'MISMATCH'}; "
+            f"{rerank_rows} gathered rows (int32, int64) "
+            f"{'bit-identical' if all(same[1:]) else 'MISMATCH'}")
+        check(all(same), f"dequant_unpack {rows}x{dim} bits={bits} differs")
+        if (rows, dim, bits, off) == (n_items, d, 8, 0):
+            tables["item"] = q
+    q = tables["item"]
+    args = (q.packed, q.scale, q.zero)
+    dp = q.packed.shape[1]
+
+    def unpack():
+        return qp.dequant_unpack_cuda(*args, bits=8, dim=d)
+
+    def fused():
+        return qp.dequant_unpack_cuda(*args, bits=8, dim=d, idx=cand)
+
+    def select_route():
+        s = q.select(cand.long())
+        return qp.dequant_unpack_cuda(s.packed, s.scale, s.zero, bits=8,
+                                      dim=d)
+
+    check(torch.equal(fused(), select_route()), "fused gather vs select")
     entries = []
-    for rows in (rerank_rows, n_items):
-        q = out[rows]
-        args = (q.packed, q.scale, q.zero)
-        err = float((qp.dequant_unpack_cuda(*args, bits=8, dim=d)
-                     - qp.dequant_unpack_plain(*args, bits=8, dim=d))
-                    .abs().max())
-        ms = time_ms(lambda: qp.dequant_unpack_cuda(*args, bits=8, dim=d),
-                     100)
-        plain = time_ms(lambda: qp.dequant_unpack_plain(*args, bits=8,
-                                                        dim=d), 20)
-        n_bytes = rows * q.packed.shape[1] + 8 * rows + rows * d * 4
-        entries.append(_entry(
-            "dequant_unpack", "dequant_unpack",
-            "src/repro/kernels/quant_pack.py:171", err, ms, plain, None,
-            n_bytes, 2 * rows * d, f"R={rows} d={d} int8"))
-    return _with_other_shape(entries[1], entries[0])   # the item table
+    for rows, fn, plain_fn, idx_bytes in (
+            (n_items, unpack,
+             lambda: qp.dequant_unpack_plain(*args, bits=8, dim=d), 0),
+            (rerank_rows, fused,
+             lambda: qp.dequant_unpack_plain(*args, bits=8, dim=d,
+                                             idx=cand), 4)):
+        err = float((fn() - plain_fn()).abs().max())
+        ms = time_ms(fn, 100)
+        plain = time_ms(plain_fn, 20)
+        dev = device_ms(torch, fn)
+        n_bytes = rows * (dp + 8 + idx_bytes) + rows * d * 4
+        extra = dict(device_ms=dev)
+        label = f"R={rows} d={d} int8"
+        if rows == rerank_rows:
+            sel_ms = time_ms(select_route, 100)
+            sel_dev = device_ms(torch, select_route)
+            extra.update(select_ms=sel_ms, select_device_ms=sel_dev)
+            label = (f"{rows} gathered rows of I={n_items}, d={d} int8 "
+                     f"(fused gather)")
+            log(f"  re-rank's {rows} rows: fused gather {ms:.4f} ms (events)"
+                f", device {dev:.4f} ms; PR 13 route (select, then the "
+                f"kernel) {sel_ms:.4f} ms, device {sel_dev:.4f} ms")
+        e = _entry("dequant_unpack", "dequant_unpack",
+                   "src/repro/kernels/quant_pack.py:171", err, ms, plain,
+                   None, n_bytes, 2 * rows * d, label, **extra)
+        log(f"  {label}: device {dev:.4f} ms against the bound "
+            f"{e['bound_ms']:.4f} ms ({e['bound_ms'] / dev:.1%} of it)")
+        entries.append(e)
+    return _with_other_shape(entries[0], entries[1])   # the item table
 
 
 def _sddmm_library(torch, g):
@@ -846,33 +908,93 @@ def check_dequant_sddmm(torch, sp, g, gen):
 
 def check_dequant_matmul(torch, dq, gen):
     """dW = dequant(q)ᵀ @ g at the training path's shape: every node's row,
-    64 features in and out."""
+    64 features in and out. Rows centred on 0 with g of mixed sign (an
+    uncentred code/zero split would cancel) at bits 8/4/2/1 and a padded
+    pack (d 37), and rows offset far from 0 (x = 4 + 0.05 randn: the zero
+    term dominates) at INT2 and INT8: within 1e-5 relative of the plain
+    version and bit-identical across two runs. Timed at INT2 (events and
+    device time); the bound's operations are the three bf16 products at
+    the bf16 tensor-core rate."""
     from repro_torch.core.quant import dequantize, quantize
 
     rows, n = DATASET["n_users"] + DATASET["n_items"] + DATASET["n_attrs"], 64
     log(f"[dequant_matmul] kernel vs plain, R={rows}, N={n}")
-    for bits, d in ((8, 64), (4, 64), (1, 64), (2, 37), (2, 64)):
-        x = torch.randn((rows, d), generator=gen, device=DEV) * 0.1
+    for bits, d, table in ((8, 64, "centred"), (4, 64, "centred"),
+                           (1, 64, "centred"), (2, 37, "centred"),
+                           (8, 64, "offset"), (2, 64, "offset"),
+                           (2, 64, "centred")):
+        x = torch.randn((rows, d), generator=gen, device=DEV)
+        x = 4.0 + 0.05 * x if table == "offset" else 0.1 * x
         grad = torch.randn((rows, n), generator=gen, device=DEV) * 1e-3
         q = quantize(x, 0xBEE + bits, bits=bits, stochastic=True)
         out1 = dq.dequant_matmul_cuda(q, grad)
         same = torch.equal(out1, dq.dequant_matmul_cuda(q, grad))
         ref = dq.dequant_matmul_plain(q, grad)
         rel, err = _rel(out1, ref), float((out1 - ref).abs().max())
-        log(f"  bits={bits} d={d}: rel {rel:.3e} (max abs {err:.3e}), two "
-            f"runs {'bit-identical' if same else 'DIFFER'}")
+        log(f"  bits={bits} d={d} rows {table}: rel {rel:.3e} (max abs "
+            f"{err:.3e}), two runs {'bit-identical' if same else 'DIFFER'}")
         check(rel <= TOL and same,
-              f"dequant_matmul bits={bits} d={d}: rel {rel}, "
+              f"dequant_matmul bits={bits} d={d} {table}: rel {rel}, "
               f"deterministic {same}")
-    ms = time_ms(lambda: dq.dequant_matmul_cuda(q, grad), 50)
+
+    def kernel():
+        return dq.dequant_matmul_cuda(q, grad)
+
+    def library():
+        return dequantize(q).T @ grad
+
+    ms = time_ms(kernel, 50)
     plain = time_ms(lambda: dq.dequant_matmul_plain(q, grad), 20)
-    lib = time_ms(lambda: dequantize(q).T @ grad, 50)
+    lib = time_ms(library, 50)
+    dev = _device_times(torch, kernel, library, f"R={rows} {d}x{n} INT2")
     dp = q.packed.shape[1]
     n_bytes = rows * (dp + 8) + rows * n * 4 + d * n * 4
-    return _entry("dequant_matmul", "dequant_matmul",
-                  "src/repro/kernels/dequant_matmul.py:35", err, ms, plain,
-                  lib, n_bytes, 2 * rows * d * n + 2 * rows * d,
-                  f"R={rows} {d}x{n} INT2")
+    e = _entry("dequant_matmul", "dequant_matmul",
+               "src/repro/kernels/dequant_matmul.py:35", err, ms, plain, lib,
+               n_bytes, 3 * 2 * rows * d * n, f"R={rows} {d}x{n} INT2",
+               peak=BF16_FLOPS, library_call="dequantize(q).T @ g (cuBLAS, "
+               "no TF32)", **dev)
+    log(f"  device {dev['device_ms']:.4f} ms against the bound "
+        f"{e['bound_ms']:.4f} ms ({e['bound_by']}; "
+        f"{e['bound_ms'] / dev['device_ms']:.1%} of it)")
+    split = device_ms_by_kernel(torch, kernel, "dqmm_")
+    log("  device time by CUDA kernel (torch.profiler, mean of 10 calls): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+    e["device_ms_by_kernel"] = split
+    return e
+
+
+def device_ms_by_kernel(torch, fn, prefix: str, calls: int = 10):
+    """Mean device time per call of each CUDA kernel of ``fn`` whose name
+    (namespace stripped) starts with ``prefix``, read from torch.profiler;
+    fails where the profiler sees none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"(\w+)\(", e.key)     # the kernel's own name
+        name = m.group(1) if m else e.key
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and name.startswith(prefix)):
+            out[name] = e.self_device_time_total / 1e3 / calls
+    check(bool(out), f"torch.profiler saw no {prefix}* kernel")
+    return out
+
+
+def _shifted(torch, t, nbytes):
+    """A contiguous copy of ``t`` whose storage starts ``nbytes`` past a
+    16-byte boundary."""
+    n = nbytes // t.element_size()
+    buf = torch.empty(t.numel() + n, dtype=t.dtype, device=t.device)
+    out = buf[n:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def check_reduced_rollout(torch):
@@ -1130,7 +1252,9 @@ def check_tier2_served(torch, ds, res):
     ids = torch.from_numpy(users[:n]).to(DEV)
     q, excl = store.user_vectors(ids), excl_all[ids]
     with plain_versions(ops, coarse_topm=tk.coarse_topm_plain,
-                        dequantize=dequantize_plain):
+                        dequantize=dequantize_plain,
+                        dequantize_rows=lambda q, i: dequantize_plain(
+                            q.select(i.long()))):
         parts = [two_stage_topk(q, sh, min(k, sh.rows), c=c,
                                 exclude=excl - int(off))
                  for off, sh in zip(offs, shards)]
@@ -1223,6 +1347,51 @@ def check_two_stage_accuracy(torch, ds, store):
     log(f"[accuracy] anchor C {c_all} (m = n_items = {ds.n_items}) on "
         f"{n_users} users vs the single-stage kernel: values rel "
         f"{worst:.3e}, {swaps} index swaps (near-ties)")
+    return r2 / max(r1, 1e-12)
+
+
+def check_rerank(torch, ds, res, recall_ratio):
+    """The tier-2 re-rank through the fused row gather
+    (``ops.dequantize_rows``) against the PR 13 route (``QTensor.select``,
+    then the unpack kernel): two-stage responses for 256 of the burst's
+    users, engine batches of 8, on each served shard table, values and
+    indices bit-identical. Prints them beside the two-stage recall ratio
+    and the delta refresh, both checked by the phases before."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import _shard_items
+    from repro_torch.serving.scorer import two_stage_topk
+    from repro_torch.serving.store import padded_pos_lists
+
+    def select_route(q, idx):
+        return ops.dequantize(q.select(idx.long()))
+
+    store, k, c = res["store"], res["k"], TIER2["two_stage"]
+    shards = _shard_items(store.items, TIER2["item_shards"])
+    offs = np.cumsum([0] + [s.rows for s in shards])[:-1]
+    excl_all = torch.from_numpy(padded_pos_lists(ds.train_pos,
+                                                 ds.n_users)).to(DEV)
+    users = torch.from_numpy(res["users"][:SERVED_USERS]).to(DEV)
+    n_same = n_calls = 0
+    for u0 in range(0, len(users), ENGINE_BATCH):
+        ids = users[u0:u0 + ENGINE_BATCH]
+        q, excl = store.user_vectors(ids), excl_all[ids]
+        for off, sh in zip(offs, shards):
+            args = (q, sh, min(k, sh.rows))
+            kw = dict(c=c, exclude=excl - int(off))
+            fv, fi = two_stage_topk(*args, **kw)
+            with plain_versions(ops, dequantize_rows=select_route):
+                sv, si = two_stage_topk(*args, **kw)
+            n_same += int(torch.equal(fv, sv) and torch.equal(fi, si))
+            n_calls += 1
+    log(f"[rerank] two-stage responses, fused row gather vs the PR 13 "
+        f"route (select, then unpack), {len(users)} users in batches of "
+        f"{ENGINE_BATCH} on {len(shards)} shard tables: {n_same} of "
+        f"{n_calls} calls bit-identical; two-stage recall@20 ratio "
+        f"{recall_ratio:.4f} ([accuracy]); delta refresh bit-exact "
+        f"([tier2])")
+    check(n_same == n_calls, "the fused re-rank changed a response")
 
 
 # -- the training path -------------------------------------------------------
@@ -1658,10 +1827,17 @@ def main() -> int:
         log(f"  {name}: src/repro_torch/csrc/{name}.cu -> "
             f"{backend.lib_path(name).relative_to(root)} "
             f"({'compiled now' if text else 'already built'})")
+        logs[name] = text = text or backend.build_log(name)
         for line in text.splitlines():
-            if "ptxas info" in line and ("Used" in line or "Compiling" in line
-                                         or "spill" in line):
+            if ("ptxas info" in line and ("Used" in line
+                                          or "Compiling" in line)
+                    or "spill" in line):
                 log(f"  {name}: {line.strip()}")
+    for name in ("dequant_matmul", "dequant_unpack"):
+        spills = [ln for ln in logs[name].splitlines() if "spill" in ln]
+        check(bool(spills), f"{name}.cu: no ptxas spill report")
+        check(all("0 bytes spill stores, 0 bytes spill loads" in ln
+                  for ln in spills), f"{name}.cu: ptxas reports spills")
 
     t0 = time.perf_counter()
     g = ds.graph(DEV)
@@ -1692,7 +1868,8 @@ def main() -> int:
     del res
     counts_t2, res = run_tier2_path(torch, cfg, ds, g, params)
     check_tier2_served(torch, ds, res)
-    check_two_stage_accuracy(torch, ds, res["store"])
+    ratio = check_two_stage_accuracy(torch, ds, res["store"])
+    check_rerank(torch, ds, res, ratio)
     profile_serving_batch(torch, ds, res["store"])
     del res
     runs = run_training(torch, cfg, ds, g)
@@ -1717,7 +1894,8 @@ def main() -> int:
             "launches_by_path", "launches_per_train_step")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     optional = ("also_replaces", "other_shape", "library_call",
-                "kernels_per_call", "device_ms", "library_device_ms")
+                "kernels_per_call", "device_ms", "library_device_ms",
+                "device_ms_by_kernel")
     print(json.dumps({"kernels": [
         {k: e[k] for k in keys + tuple(o for o in optional if o in e)}
         for e in entries]}))

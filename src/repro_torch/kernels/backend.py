@@ -7,8 +7,9 @@ with a plain C interface,
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
 
-and loaded with ``ctypes``. No source includes PyTorch's headers, so a build
-takes seconds. ``build/`` sits at the repository root and is git-ignored; the
+and loaded with ``ctypes``; nvcc's output (ptxas's register and spill report)
+is kept beside it as ``<name>-<hash>.log``. No source includes PyTorch's
+headers, so a build takes seconds. ``build/`` sits at the repository root and is git-ignored; the
 file name carries a hash of the sources and flags, so an edited kernel is
 rebuilt and a stale library is never loaded.
 
@@ -45,7 +46,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["DeviceInfo", "probe", "resolve_device", "require_sm90",
-           "full_fp32", "build",
+           "full_fp32", "build", "build_log",
            "lib_path", "kernel_fn", "launch", "stream_of", "check_cuda",
            "LAUNCH_COUNTS",
            "count_launch", "reset_counts", "SOURCES", "CSRC", "BUILD_DIR",
@@ -156,17 +157,25 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
+def build_log(name: str) -> str:
+    """The compiler output (ptxas's register and spill report) kept beside
+    the library built from ``csrc/<name>.cu``; "" if there is none."""
+    log = lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def build(names=SOURCES) -> dict[str, str]:
     """Compile every missing library of ``names``, one ``nvcc`` each, all
     started together; returns each build's compiler output ("" when the
-    library was already built). Raises with the compiler's output on failure."""
+    library was already built; ``build_log`` reads it back). Raises with the
+    compiler's output on failure."""
     with _BUILD_LOCK:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
         logs = {}
         for name in names:
             out = lib_path(name)
-            if out.exists():
+            if out.exists() and out.with_suffix(".log").exists():
                 logs[name] = ""
                 continue
             tmp = out.with_suffix(f".tmp{os.getpid()}.so")
@@ -183,6 +192,7 @@ def build(names=SOURCES) -> dict[str, str]:
                 failed.append(f"{name}.cu (exit {proc.returncode}):\n{text}")
                 tmp.unlink(missing_ok=True)
             else:
+                out.with_suffix(".log").write_text(text)
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))

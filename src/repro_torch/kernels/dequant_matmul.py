@@ -5,13 +5,17 @@ Port of ``repro/kernels/dequant_matmul.py:dequant_matmul`` (TPU kernel
 ``_dqmm_kernel``) and its oracle ``repro/kernels/ref.py:ref_dequant_matmul``:
 ``dW = dequant(q)ᵀ @ g`` in fp32, the weight gradient ∇Θ = Ĥᵀ∇J of paper
 Eq. (2), without writing ``x_hat`` to device memory. The kernel is
-``csrc/dequant_matmul.cu`` (R split across CTAs, partial tiles summed in a
-fixed order by a second pass); its source note says what bounds it.
+``csrc/dequant_matmul.cu``: R split across at most 264 CTAs, the products
+on the bf16 tensor cores made exact (centred codes times a three-way bf16
+split of ``scale * g``, fp32 sums), partial tiles summed in a fixed order
+by a second pass; its source note says what bounds it.
 
 ``kernels.ops.dequant_matmul`` sends CUDA tensors to ``dequant_matmul_cuda``
-and CPU tensors to ``dequant_matmul_plain``. Both dequantize with the same
-two roundings and sum in different orders, so they agree to fp32
-reassociation.
+and CPU tensors to ``dequant_matmul_plain``. The plain version rounds
+``x_hat`` and runs one fp32 product; the kernel sums the exact products of
+the codes and the zero term apart. They agree to fp32 reassociation: within
+1e-5 of max |plain| (the card tests and ``chip_smoke.py`` hold them to it,
+on rows offset far from 0 and on rows centred on 0 too).
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ def dequant_matmul_cuda(q: QTensor, g: torch.Tensor) -> torch.Tensor:
                          f"{tuple(g.shape)}")
     n = g.shape[1]
     chunks = backend.kernel_fn("dequant_matmul", "dequant_matmul_chunks",
-                               (_I,))(rows)
+                               (_I, _I, _I))(rows, q.dim, n)
     partial = torch.empty((chunks, q.dim, n), dtype=torch.float32,
                           device=g.device)
     out = torch.empty((q.dim, n), dtype=torch.float32, device=g.device)

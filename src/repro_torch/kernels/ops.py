@@ -13,7 +13,8 @@ per call, and ``segment_sum`` makes one call per level; see ``backend``).
 ``quantize(x, seed, *, bits, stochastic)`` is ``core.quant.quantize``: the
 ``quant_pack`` route wrapped into a ``QTensor``; ``dequantize(q)`` is its
 inverse on the ``dequant_unpack`` route (the counterpart of
-``repro/kernels/ops.py:dequantize``).
+``repro/kernels/ops.py:dequantize``), and ``dequantize_rows(q, idx)`` the
+same for the rows ``idx`` only, gathered inside the kernel.
 """
 
 from __future__ import annotations
@@ -28,9 +29,9 @@ from . import spmm as _spmm
 from . import topk_score as _tk
 from .backend import LAUNCH_COUNTS
 
-__all__ = ["quant_pack", "quantize", "dequantize", "spmm", "segment_sum",
-           "spmm_grad_ew", "dequant_matmul", "topk", "coarse_topm",
-           "LAUNCH_COUNTS"]
+__all__ = ["quant_pack", "quantize", "dequantize", "dequantize_rows", "spmm",
+           "segment_sum", "spmm_grad_ew", "dequant_matmul", "topk",
+           "coarse_topm", "LAUNCH_COUNTS"]
 
 
 def _on_card(x: torch.Tensor, op: str) -> bool:
@@ -68,6 +69,24 @@ def dequantize(q: QTensor) -> torch.Tensor:
         out = _qp.dequant_unpack_plain(packed, scale, zero, bits=q.bits,
                                        dim=q.dim)
     return out.reshape(*lead, q.dim).to(q.dtype)
+
+
+def dequantize_rows(q: QTensor, idx: torch.Tensor) -> torch.Tensor:
+    """The rows ``idx`` ((m,) int32 or int64) of a (rows, dp) packed table,
+    unpacked and dequantized: ``(m, dim)`` in ``q.dtype``, equal bit for bit
+    to ``dequantize(q.select(idx))``. On the card the gather runs inside
+    the ``dequant_unpack`` kernel; see kernels/quant_pack.py."""
+    scale = q.scale.to(torch.float32)
+    zero = q.zero.to(torch.float32)
+    if _on_card(q.packed, "dequantize_rows"):
+        out = _qp.dequant_unpack_cuda(q.packed.contiguous(),
+                                      scale.contiguous(), zero.contiguous(),
+                                      bits=q.bits, dim=q.dim,
+                                      idx=idx.contiguous())
+    else:
+        out = _qp.dequant_unpack_plain(q.packed, scale, zero, bits=q.bits,
+                                       dim=q.dim, idx=idx)
+    return out.to(q.dtype)
 
 
 def spmm(x: torch.Tensor, ew: torch.Tensor | None, layout, *,

@@ -16,7 +16,12 @@ order.
 ``dequant_unpack_cuda`` and ``dequant_unpack_plain`` (``core.quant``'s
 ``dequantize``: unpack, then ``code * scale + zero`` with the product and
 the sum rounded apart) agree bit for bit at every width, padded packs
-included.
+included. Both take an optional row index ``idx`` (int32 or int64, shape
+``(m,)``): ``out[i] = dequant(packed[idx[i]])``, the gather fused into the
+kernel (the plain version selects the rows first). Both index as torch
+does: a negative index counts from the end, and one outside ``[-rows,
+rows)`` raises (on the card through a device-side assert, reported by the
+next synchronising call, as torch's own indexing there).
 
 Rounding of ``scale``: the reference writes ``R / B`` with the constant
 ``B = 2^b - 1``, and XLA compiles that (inside the Pallas kernel, or any
@@ -43,7 +48,7 @@ __all__ = ["quant_pack_plain", "quant_pack_cuda", "dequant_unpack_plain",
 _EPS = 1e-12
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _I, _I, _I, _I, ctypes.c_uint, _P, _P, _P, _P)
-_DQ_ARGTYPES = (_P, _I, _I, _I, _I, _P, _P, _P, _P)
+_DQ_ARGTYPES = (_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P)
 
 
 def quant_pack_plain(x: torch.Tensor, seed: int, *, bits: int,
@@ -98,18 +103,21 @@ def quant_pack_cuda(x: torch.Tensor, seed: int, *, bits: int,
 
 
 def dequant_unpack_plain(packed: torch.Tensor, scale: torch.Tensor,
-                         zero: torch.Tensor, *, bits: int,
-                         dim: int) -> torch.Tensor:
+                         zero: torch.Tensor, *, bits: int, dim: int,
+                         idx: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version (the ``ref_dequant_unpack`` oracle, which is
     ``core.quant.dequantize``): (rows, dp) uint8 -> (rows, dim) fp32, the
-    pad sliced off."""
-    return dequantize(QTensor(packed, scale, zero, bits, dim))
+    pad sliced off; with ``idx``, the rows ``idx`` selected first."""
+    q = QTensor(packed, scale, zero, bits, dim)
+    return dequantize(q if idx is None else q.select(idx.long()))
 
 
 def dequant_unpack_cuda(packed: torch.Tensor, scale: torch.Tensor,
-                        zero: torch.Tensor, *, bits: int,
-                        dim: int) -> torch.Tensor:
-    """Launch ``csrc/dequant_unpack.cu`` on a (rows, dp) packed CUDA table."""
+                        zero: torch.Tensor, *, bits: int, dim: int,
+                        idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch ``csrc/dequant_unpack.cu`` on a (rows, dp) packed CUDA table:
+    every row, or the rows ``idx`` ((m,) int32 or int64) gathered in the
+    kernel."""
     backend.check_cuda(packed, torch.uint8, 2, "packed")
     backend.check_cuda(scale, torch.float32, 2, "scale")
     backend.check_cuda(zero, torch.float32, 2, "zero")
@@ -123,12 +131,23 @@ def dequant_unpack_cuda(packed: torch.Tensor, scale: torch.Tensor,
                          f"scale {tuple(scale.shape)}, zero "
                          f"{tuple(zero.shape)} do not hold {rows} rows of "
                          f"{dim}")
-    out = torch.empty((rows, dim), dtype=torch.float32, device=packed.device)
+    m = rows
+    if idx is not None:
+        if idx.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"idx must be int32 or int64, got {idx.dtype}")
+        backend.check_cuda(idx, idx.dtype, 1, "idx")
+        if idx.device != packed.device:
+            raise ValueError(f"idx on {idx.device}, table on {packed.device}")
+        m = idx.shape[0]
+    out = torch.empty((m, dim), dtype=torch.float32, device=packed.device)
     fn = backend.kernel_fn("dequant_unpack", "dequant_unpack_launch",
                            _DQ_ARGTYPES)
     with torch.cuda.device(packed.device):
         backend.launch(fn, packed.data_ptr(), rows, dp, bits, dim,
-                       scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
-                       backend.stream_of(packed))
-    backend.count_launch("dequant_unpack")
+                       scale.data_ptr(), zero.data_ptr(),
+                       None if idx is None else idx.data_ptr(),
+                       int(idx is not None and idx.dtype == torch.int64), m,
+                       out.data_ptr(), backend.stream_of(packed))
+    if out.numel():                  # the C entry launches nothing if empty
+        backend.count_launch("dequant_unpack")
     return out

@@ -12,8 +12,9 @@ Two-stage retrieval (``two_stage_topk``, DESIGN.md §14): a coarse scan over
 all items in the packed integer-code domain (``quantize_query``'s symmetric
 INT8 query against the unsigned codes, per-row affine correction; the
 ``coarse_topm`` kernel on the card) keeps the top ``m = min(c*k, n_items)``
-candidate ids, and only those rows are dequantized (the ``dequant_unpack``
-kernel) for an fp32 re-rank. At ``c*k >= n_items`` every item is a
+candidate ids, and only those rows are dequantized (``ops.dequantize_rows``:
+the ``dequant_unpack`` kernel with the row gather fused) for an fp32
+re-rank. At ``c*k >= n_items`` every item is a
 candidate and the ranking is the single-stage one.
 """
 
@@ -102,7 +103,7 @@ def _rerank(q: torch.Tensor, items: QTensor, cand: torch.Tensor,
     contract.
     """
     b, m = cand.shape
-    rows = ops.dequantize(items.select(cand.reshape(-1).long()))
+    rows = ops.dequantize_rows(items, cand.reshape(-1))
     xhat = rows.to(torch.float32).reshape(b, m, items.dim)
     # products and a sum, not a matmul: full fp32 whatever the caller's
     # TF32 setting

@@ -22,6 +22,7 @@ from repro_torch.data.csr import build_spmm_layout, relation_runs
 from repro_torch.core.policy import schedule_from_cli
 from repro_torch.kernels import backend
 from repro_torch.kernels import dequant_matmul as dq
+from repro_torch.kernels import ops
 from repro_torch.kernels import quant_pack as qp
 from repro_torch.kernels import spmm as sp
 from repro_torch.kernels import topk_score as tk
@@ -318,19 +319,46 @@ def test_dequant_sddmm_kernel_unaligned_tables(cuda, bits, packed_off,
                        sp.dequant_sddmm_cuda(q, g, layout))
 
 
+def _dqmm_table(cuda, table, rows, dim, n, seed):
+    """x and g for the dequant-matmul: random; rows offset far from 0 (x =
+    4 + 0.05 randn: the zero term dominates); rows centred on 0 with g of
+    mixed sign (the code and zero terms of an uncentred split cancel)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((rows, dim), generator=gen, device=cuda)
+    if table == "offset":
+        x = 4.0 + 0.05 * x
+    elif table == "cancel":
+        x = 0.1 * x
+    return x, torch.randn((rows, n), generator=gen, device=cuda)
+
+
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
-@pytest.mark.parametrize("rows,dim,n", [(4099, 64, 64), (1000, 37, 24),
+@pytest.mark.parametrize("rows,dim,n", [(0, 64, 64), (1, 64, 64),
+                                        (63, 37, 24), (65, 64, 64),
+                                        (4099, 64, 64), (1000, 37, 24),
                                         (70000, 130, 70)])
+@pytest.mark.parametrize("table", ["randn", "offset", "cancel"])
 def test_dequant_matmul_kernel_close_and_deterministic(cuda, bits, rows,
-                                                       dim, n):
-    gen = torch.Generator(device=cuda).manual_seed(rows + bits)
-    q = quantize(torch.randn((rows, dim), generator=gen, device=cuda), 3,
-                 bits=bits, stochastic=True)
-    g = torch.randn((rows, n), generator=gen, device=cuda)
+                                                       dim, n, table):
+    """Within 1e-5 of the plain version, the same bits twice, and the same
+    bits again from a packed table 1 byte and a g 4 bytes off 16-byte
+    alignment (byte loads of the codes and 4-byte copies of g stage the
+    same values as the 16-byte copies)."""
+    x, g = _dqmm_table(cuda, table, rows, dim, n, rows + bits)
+    q = quantize(x, 3, bits=bits, stochastic=True)
     a = dq.dequant_matmul_cuda(q, g)
     assert a.shape == (dim, n)
     assert torch.equal(a, dq.dequant_matmul_cuda(q, g))
-    assert _rel(a, dq.dequant_matmul_plain(q, g)) <= 1e-5
+    ref = dq.dequant_matmul_plain(q, g)
+    if rows == 0:
+        assert torch.equal(a, torch.zeros_like(a))
+    else:
+        assert _rel(a, ref) <= 1e-5
+    q2 = QTensor(_shifted(q.packed, 1), q.scale, q.zero, bits, dim)
+    g2 = _shifted(g, 4)
+    assert rows == 0 or (q2.packed.data_ptr() % 16 != 0
+                         and g2.data_ptr() % 16 != 0)
+    assert torch.equal(dq.dequant_matmul_cuda(q2, g2), a)
 
 
 @pytest.mark.parametrize("bits", [0, 2])
@@ -676,8 +704,11 @@ def test_kernel_rejects_scratch_smaller_than_its_plan(cuda):
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
-@pytest.mark.parametrize("dim", [64, 37])
+@pytest.mark.parametrize("dim", [64, 37, 256])
 def test_dequant_unpack_kernel_bit_identical(cuda, bits, dim):
+    """Every row, and the fused gather: unsorted and duplicate int32 and
+    int64 indices, an empty index, and a packed table 1 byte off alignment
+    (dp 10 at d 37 INT2: not a multiple of 4), all bit for bit."""
     gen = torch.Generator(device=cuda).manual_seed(bits + dim)
     q = quantize(torch.randn((1001, dim), generator=gen, device=cuda), 7,
                  bits=bits, stochastic=True)
@@ -688,6 +719,60 @@ def test_dequant_unpack_kernel_bit_identical(cuda, bits, dim):
                                                     q.zero, bits=bits,
                                                     dim=dim))
     assert torch.equal(got, dequantize(q))
+    idx = torch.randint(0, 1001, (640,), generator=gen, device=cuda)
+    idx[:7] = idx[7]
+    shifted = _shifted(q.packed, 1)
+    for dtype in (torch.int32, torch.int64):
+        i = idx.to(dtype)
+        rows = qp.dequant_unpack_cuda(q.packed, q.scale, q.zero, bits=bits,
+                                      dim=dim, idx=i)
+        assert torch.equal(rows, qp.dequant_unpack_plain(
+            q.packed, q.scale, q.zero, bits=bits, dim=dim, idx=i))
+        assert torch.equal(rows, got[idx])
+        assert torch.equal(rows, ops.dequantize_rows(q, i))
+        assert torch.equal(qp.dequant_unpack_cuda(
+            shifted, q.scale, q.zero, bits=bits, dim=dim, idx=i), rows)
+    empty = qp.dequant_unpack_cuda(q.packed, q.scale, q.zero, bits=bits,
+                                   dim=dim, idx=idx[:0])
+    assert empty.shape == (0, dim)
+
+
+_BAD_INDEX = """
+import sys, torch
+from repro_torch.core.quant import quantize
+from repro_torch.kernels import ops
+q = quantize(torch.randn((50, 64), device="cuda"), bits=4)
+ops.dequantize_rows(q, torch.tensor([0, int(sys.argv[1])], device="cuda"))
+torch.cuda.synchronize()
+"""
+
+
+def test_dequant_unpack_indexes_as_torch(cuda):
+    """Negative indices count from the end, as in the plain version's
+    ``packed[idx]``; an index outside [-rows, rows) stops the kernel with a
+    device-side assert, as torch's own indexing does on the card (in a child
+    process: the assert ends its CUDA context)."""
+    import os
+    import subprocess
+    import sys
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = quantize(torch.randn((50, 64), generator=gen, device=cuda), 3,
+                 bits=4)
+    for dtype in (torch.int32, torch.int64):
+        idx = torch.tensor([-1, -50, 0, 49], dtype=dtype, device=cuda)
+        assert torch.equal(ops.dequantize_rows(q, idx),
+                           dequantize(q)[[49, 0, 0, 49]])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(sys.path))
+    for bad in (50, -51):
+        r = subprocess.run([sys.executable, "-c", _BAD_INDEX, str(bad)],
+                           capture_output=True, text=True, env=env,
+                           timeout=300)
+        assert r.returncode != 0
+        # torch's report at the synchronize, or the launcher's (710 is
+        # cudaErrorAssert) where the kernel has already stopped
+        assert ("device-side assert" in r.stderr
+                or "CUDA error 710" in r.stderr), r.stderr[-2000:]
 
 
 def test_reduced_tier2_serving_path_runs_the_kernels(cuda):
