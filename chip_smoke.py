@@ -114,10 +114,21 @@ their plain versions.
 9. Profiles one INT2 training step (torch.profiler, CUDA activity): device
    time by kernel, the step's device busy time and idle share; fails if
    the step launches an index_add_ scatter kernel (indexFunc*).
+   [train-kg]: three reduced INT2 steps of KGCN, KGIN and R-GCN on the card
+   against the CPU's plain versions (losses within 1e-4), then each at full
+   width on the same graph (KGCN and KGIN: the paper's configs, d 64, 3
+   layers, readout sum; R-GCN: KGAT's config with 4 bases, readout sum),
+   3 steps under FP32 and INT2, batch 1024, Adam, counts reset just before
+   and read just after each run: losses finite, every kernel of the path
+   launched, the ACT bytes exactly those of ``model_sites`` (one (nodes, d)
+   residual per site and layer); prints median step time, peak allocated
+   memory, ACT bytes against FP32 and launches per step; then profiles one
+   INT2 step of each (as above).
    [determinism]: two full-width steps from one state (parameters and Adam
-   moments after a first step) on one batch, under FP32 and under INT2,
-   without torch.use_deterministic_algorithms: loss, parameters and
-   moments bit-identical.
+   moments after a first step) on one batch, for KGAT under FP32 and INT2
+   and for KGCN, KGIN and R-GCN under INT2, without
+   torch.use_deterministic_algorithms: loss, parameters and moments
+   bit-identical.
 10. One full-width step's gradients with the kernels against the same step
    with every kernel's plain version, from the same seeds, parameters and
    batch (the plain steps under torch.use_deterministic_algorithms: they
@@ -136,8 +147,21 @@ their plain versions.
    quantization input across a rounding threshold; one flip moves a
    gradient by one rounding step of one residual element, the noise sums
    such steps over every element).
-11. Prints the kernels JSON line (launches per path: serve, serve_tier2,
-    train_<schedule>), the card's line, then last the ok line.
+11. [replay]: full-width KGAT under FP32 and INT2: a trainer takes 3
+   steps and checkpoints at step 2; step 3 from that checkpoint, restored
+   from disk into a fresh trainer, on step 3's batch, must give the same
+   loss, parameters and Adam moments bit for bit; a failure injected before
+   step 3 must roll back to step 2 and end at step 3. Prints the time of a
+   synchronous save and a restore of the full-width state.
+   [launch]: the launcher (``repro_torch.launch.train.main``) at its default
+   size on the card: kgcn 4 steps with --ckpt, --metrics-out and --trace,
+   then 8 steps on the same directory, which must resume at step 4 (step
+   lines 5-8); steps.jsonl, summary.json (the port's validator) and the
+   trace's train spans must exist; --arch kgin on that directory must be
+   refused.
+12. Prints the kernels JSON line (launches per path: serve, serve_tier2,
+    train_<schedule>, train_<model>_<schedule>), the card's line, then last
+    the ok line.
 
 Exits non-zero, printing no result, without CUDA, outside a checkout of the
 repository, or when any check fails.
@@ -174,6 +198,9 @@ TIER2_KERNELS = SERVING + ("coarse_topm", "dequant_unpack", "sddmm",
 TRAIN_BATCH = 1024
 TRAIN_STEPS = 4              # per schedule
 SCHEDULES = ("fp32", "int8", "int4", "int2")
+KG_MODELS = ("kgcn", "kgin", "rgcn")   # the KG layers beside KGAT
+KG_SCHEDULES = ("fp32", "int2")
+KG_STEPS = 3                 # per model and schedule
 GRAD_FP64_RATIO = 4.0
 GRAD_NOISE_SHARE = 1e-2
 ENGINE_BATCH = 8               # the engine's largest bucket
@@ -1397,10 +1424,14 @@ def check_rerank(torch, ds, res, recall_ratio):
 # -- the training path -------------------------------------------------------
 
 
-def _path_kernels(label):
-    return ("spmm", "sddmm", "segment_sum") + (() if label == "fp32" else
-                                ("quant_pack", "dequant_sddmm",
-                                 "dequant_matmul"))
+def train_quietly(train_kgnn, name, *args, **kw):
+    """``train_kgnn`` with its trainer's lines kept, not printed; fails if
+    a step failed (a rollback would hide it)."""
+    lines = []
+    res = train_kgnn(*args, log=lines.append, **kw)
+    failed = [x for x in lines if "failed" in x]
+    check(not failed, f"{name}: a training step failed: {failed}")
+    return res
 
 
 def run_training(torch, cfg, ds, g):
@@ -1410,15 +1441,16 @@ def run_training(torch, cfg, ds, g):
     from repro_torch.kernels import backend
     from repro_torch.launch.train import train_kgnn
     from repro_torch.models import kgnn
+    from repro_torch.models.registry import path_kernels
 
     runs = {}
     for label in SCHEDULES:
         params = kgnn.init_params(cfg, seed=0, device=DEV)
         torch.cuda.synchronize()
         backend.reset_counts()
-        res = train_kgnn(cfg, ds, params, parse_schedule(label), TRAIN_STEPS,
-                         batch=TRAIN_BATCH, device=DEV, graph=g,
-                         log=lambda _: None)
+        res = train_quietly(train_kgnn, label, cfg, ds, params,
+                            parse_schedule(label), TRAIN_STEPS,
+                            batch=TRAIN_BATCH, device=DEV, graph=g)
         counts = dict(backend.LAUNCH_COUNTS)
         steps = res["steps"]
         del res, params
@@ -1444,7 +1476,7 @@ def run_training(torch, cfg, ds, g):
             f"{json.dumps(counts, sort_keys=True)}")
         check(all(math.isfinite(v) for v in losses),
               f"{label}: non-finite loss")
-        for name in _path_kernels(label):
+        for name in path_kernels("kgat", label != "fp32"):
             check(counts.get(name, 0) > 0,
                   f"kernel {name} never launched on the {label} training "
                   f"path")
@@ -1464,23 +1496,25 @@ def run_training(torch, cfg, ds, g):
     return runs
 
 
-def profile_step(torch, cfg, ds, g, label="int2"):
-    """torch.profiler over one steady training step: device time by
-    kernel, busy time and idle share of the step's wall time."""
+def profile_step(torch, cfg, ds, g, label="int2", top=15):
+    """torch.profiler over one steady training step of ``cfg.model``: device
+    time by kernel (the ``top`` longest), busy time and idle share of the
+    step's wall time; fails on an index_add_ scatter kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.policy import parse_schedule
     from repro_torch.launch.train import ROOT_SEED
-    from repro_torch.models.registry import build_step
+    from repro_torch.models.registry import arch_of, build_step
     from repro_torch.training.optimizer import adam
     from repro_torch.training.step import make_train_step
 
-    step = build_step("kgat", ds=ds, cfg=cfg, batch_size=TRAIN_BATCH,
-                      device=DEV, graph=g)
+    step = build_step(arch_of(cfg.model), ds=ds, cfg=cfg,
+                      batch_size=TRAIN_BATCH, device=DEV, graph=g)
     opt = adam(step.lr)
     params = step.init(0)
     train = make_train_step(step, opt, schedule=parse_schedule(label),
                             root_seed=ROOT_SEED)
+    name = label if cfg.model == "kgat" else f"{cfg.model} {label}"
     batches = step.batches()
     state = (params, opt.init(params))
     state, m = train(state, next(batches), 0)         # warm
@@ -1495,21 +1529,21 @@ def profile_step(torch, cfg, ds, g, label="int2"):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"[profile] {label} step: wall {wall * 1e3:.2f} ms, device busy "
+    log(f"[profile] {name} step: wall {wall * 1e3:.2f} ms, device busy "
         f"{busy:.2f} ms, idle share "
         + (f"{1 - busy / (wall * 1e3):.3f}" if busy > 0 else
            "not measured (no device events)"))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:<4d} {e.key[:110]}")
-    check(busy > 0, f"{label} step: the profiler saw no device time")
+    check(busy > 0, f"{name} step: the profiler saw no device time")
     # index_add_ (index_select's backward) runs as indexFuncLargeIndex /
     # indexFuncSmallIndex; the step has no index_add_ left
     scatter = [e.key for e in kernels
                if "indexFunc" in e.key or "index_add" in e.key]
-    log(f"[profile] {label} step: index_add_ scatter kernels: "
+    log(f"[profile] {name} step: index_add_ scatter kernels: "
         f"{scatter if scatter else 'none'}")
-    check(not scatter, f"{label} step still scatters with index_add_: "
+    check(not scatter, f"{name} step still scatters with index_add_: "
           f"{scatter}")
 
 
@@ -1527,25 +1561,25 @@ def _clone_state(torch, state):
     return c(state)
 
 
-def check_determinism(torch, cfg, ds, g):
+def check_determinism(torch, cases, ds, g):
     """Two full-width steps from one state (parameters and Adam moments
-    after a first step) on one batch, under FP32 and INT2, without
-    ``torch.use_deterministic_algorithms``: the loss, every parameter and
-    every moment bit-identical."""
+    after a first step) on one batch, for each ``(cfg, schedule label)`` of
+    ``cases``, without ``torch.use_deterministic_algorithms``: the loss,
+    every parameter and every moment bit-identical."""
     from repro_torch.core.policy import parse_schedule
     from repro_torch.launch.train import ROOT_SEED
     from repro_torch.models.layers import param_leaves
-    from repro_torch.models.registry import build_step
+    from repro_torch.models.registry import arch_of, build_step
     from repro_torch.training.optimizer import adam
     from repro_torch.training.step import make_train_step
 
     check(not torch.are_deterministic_algorithms_enabled(),
           "deterministic algorithms are on")
-    step = build_step("kgat", ds=ds, cfg=cfg, batch_size=TRAIN_BATCH,
-                      device=DEV, graph=g)
-    opt = adam(step.lr)
-    batches = step.batches()
-    for label in ("fp32", "int2"):
+    for cfg, label in cases:
+        step = build_step(arch_of(cfg.model), ds=ds, cfg=cfg,
+                          batch_size=TRAIN_BATCH, device=DEV, graph=g)
+        opt = adam(step.lr)
+        batches = step.batches()
         train = make_train_step(step, opt, schedule=parse_schedule(label),
                                 root_seed=ROOT_SEED)
         params = step.init(0)
@@ -1558,14 +1592,258 @@ def check_determinism(torch, cfg, ds, g):
         n_same = sum(bool(torch.equal(a, b)) for a, b in leaves)
         same_loss = bool(torch.equal(m1["loss"], m2["loss"]))
         worst = max(float((a - b).abs().max()) for a, b in leaves)
-        log(f"[determinism] {label}: two full-width steps from one state: "
+        name = label if cfg.model == "kgat" else f"{cfg.model} {label}"
+        log(f"[determinism] {name}: two full-width steps from one state: "
             f"loss {float(m1['loss']):.9f} / {float(m2['loss']):.9f} "
             f"({'bit-identical' if same_loss else 'DIFFER'}), "
             f"{n_same} of {len(leaves)} parameter and moment tensors "
             f"bit-identical (max |diff| {worst:.3e})")
         check(same_loss and n_same == len(leaves),
-              f"{label}: two steps from one state differ")
+              f"{name}: two steps from one state differ")
         del state, p1, o1, p2, o2, leaves
+
+
+def run_training_kg(torch, ds, g):
+    """KGCN, KGIN (the paper's configs) and R-GCN (KGAT's config, 4 bases,
+    readout sum) at full width on the same graph, each under FP32 and
+    INT2 from seed-0 parameters; the launch counts of each run are its
+    own. Exact ACT bytes: every site of ``model_sites`` saves one (nodes,
+    d) residual a layer."""
+    from repro_torch.core.policy import parse_schedule
+    from repro_torch.kernels import backend
+    from repro_torch.launch.train import train_kgnn
+    from repro_torch.models import kgnn
+    from repro_torch.models.registry import model_config, path_kernels
+
+    runs = {}
+    for model in KG_MODELS:
+        cfg = model_config(model)
+        n_sites = len(kgnn.model_sites(cfg)) * cfg.n_layers
+        want = {"fp32": n_sites * cfg.n_nodes * cfg.dim * 4,
+                "int2": n_sites * cfg.n_nodes * (cfg.dim * 2 // 8 + 8)}
+        for label in KG_SCHEDULES:
+            params = kgnn.init_params(cfg, seed=0, device=DEV)
+            torch.cuda.synchronize()
+            backend.reset_counts()
+            res = train_quietly(train_kgnn, f"{model} {label}", cfg, ds,
+                                params, parse_schedule(label), KG_STEPS,
+                                batch=TRAIN_BATCH, device=DEV, graph=g)
+            counts = dict(backend.LAUNCH_COUNTS)
+            steps = res["steps"]
+            del res, params
+            losses = [r["loss"] for r in steps]
+            act = steps[0]["act"]
+            per_step = steps[-1]["launches"]
+            r = runs[f"{model}_{label}"] = dict(
+                counts=counts, losses=losses, per_step=per_step,
+                step_ms=statistics.median(x["seconds"] for x in steps) * 1e3,
+                first_ms=steps[0]["seconds"] * 1e3,
+                peak=max(x["max_memory_allocated"] for x in steps),
+                act_bytes=act["total_bytes"], act_fp32=act["total_fp32_bytes"])
+            name = f"{model} {label}"
+            log(f"[train-kg] {name}: losses "
+                f"{[f'{v:.6f}' for v in losses]}")
+            log(f"[train-kg] {name}: step {r['step_ms']:.2f} ms median of "
+                f"{len(steps)} (first {r['first_ms']:.2f} ms), "
+                f"max_memory_allocated {r['peak']} B "
+                f"({r['peak'] / 2**30:.2f} GiB), ACT residual bytes "
+                f"{r['act_bytes']} ({r['act_bytes'] / 1e6:.1f} MB; FP32 "
+                f"{r['act_fp32'] / 1e6:.1f} MB, "
+                f"{r['act_fp32'] / r['act_bytes']:.2f}x)")
+            log(f"[train-kg] {name}: launches per step "
+                f"{json.dumps(per_step, sort_keys=True)}")
+            check(all(math.isfinite(v) for v in losses),
+                  f"{name}: non-finite loss")
+            for k in path_kernels(model, label != "fp32"):
+                check(counts.get(k, 0) > 0,
+                      f"kernel {k} never launched on the {name} path")
+            check(all(x["launches"] == per_step for x in steps),
+                  f"{name}: launches differ between steps")
+            check(r["act_fp32"] == want["fp32"] and r["act_bytes"]
+                  == want[label], f"{name}: ACT bytes {r['act_bytes']} / "
+                  f"{r['act_fp32']}, want {want[label]} / {want['fp32']} "
+                  f"({n_sites} sites x {cfg.n_nodes} rows)")
+    return runs
+
+
+def check_reduced_kg(torch):
+    """Three reduced INT2 steps of each KG model on the card against the
+    CPU's plain versions: losses within 1e-4 relative (as
+    tests/test_torch_cuda.py)."""
+    from repro_torch.configs import get
+    from repro_torch.configs.smoke import reduced
+    from repro_torch.core.policy import parse_schedule
+    from repro_torch.launch.serve import reduced_dataset
+    from repro_torch.launch.train import train_kgnn
+    from repro_torch.models import kgnn
+    from repro_torch.models.registry import model_config
+
+    for model in KG_MODELS:
+        cfg = model_config(model, lambda a: reduced(get(a)))
+        ds = reduced_dataset(cfg)
+        losses = {}
+        for dev in ("cpu", DEV):
+            res = train_quietly(train_kgnn, f"reduced {model} on {dev}", cfg,
+                                ds, kgnn.init_params(cfg, device=dev),
+                                parse_schedule("int2"), 3, batch=64,
+                                device=dev)
+            losses[dev] = [r["loss"] for r in res["steps"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses[DEV],
+                                                       losses["cpu"]))
+        log(f"[train-kg] reduced {model} INT2, card vs CPU plain versions: "
+            f"losses {[f'{v:.6f}' for v in losses[DEV]]}, max rel {rel:.3e}")
+        check(rel <= 1e-4, f"reduced {model} differs from the CPU by {rel}")
+
+
+def check_replay(torch, cfg, ds, g):
+    """Checkpoint, restore and replay at full width (KGAT, FP32 and INT2):
+    a trainer takes 3 steps, checkpointing at step 2; step 3 from the step-2
+    checkpoint, restored from disk into a fresh trainer, on step 3's batch,
+    gives the same loss, parameters and Adam moments bit for bit. A failure
+    injected before step 3 rolls back to step 2 and the run still ends at
+    step 3."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.policy import parse_schedule
+    from repro_torch.launch.train import ROOT_SEED
+    from repro_torch.models.layers import param_leaves
+    from repro_torch.models.registry import build_step
+    from repro_torch.training.checkpoint import restore_checkpoint, \
+        save_checkpoint
+    from repro_torch.training.optimizer import adam
+    from repro_torch.training.step import make_train_step, step_metadata, \
+        trainable
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    step = build_step("kgat", ds=ds, cfg=cfg, batch_size=TRAIN_BATCH,
+                      device=DEV, graph=g)
+    opt = adam(step.lr)
+    batches = [b for _, b in zip(range(4), step.batches())]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        tmp = Path(tmp)
+        for label in ("fp32", "int2"):
+            train = make_train_step(step, opt,
+                                    schedule=parse_schedule(label),
+                                    root_seed=ROOT_SEED)
+            meta = step_metadata(step, label)
+
+            def trainer(name, data, logs):
+                p = trainable(step.init(0))
+                return Trainer(train, (p, opt.init(p)), iter(data),
+                               TrainerConfig(total_steps=3, ckpt_every=2,
+                                             ckpt_dir=str(tmp / name)),
+                               ckpt_meta=meta, log_fn=logs.append)
+
+            clean = []
+            first = trainer(f"{label}_a", batches[:3], clean)
+            p1, o1 = first.run()
+            (tmp / f"{label}_b").mkdir()
+            shutil.copytree(tmp / f"{label}_a" / "step_0000000002",
+                            tmp / f"{label}_b" / "step_0000000002")
+            replay = trainer(f"{label}_b", batches[2:3],
+                             clean).restore_if_available()
+            check(replay.step == 2, f"{label}: restored step {replay.step}")
+            p2, o2 = replay.run()
+            check(not any("failed" in x for x in clean),
+                  f"{label}: a step of the original or the replay failed: "
+                  f"{clean}")
+            leaves = list(zip(param_leaves(p1) + o1["mu"] + o1["nu"],
+                              param_leaves(p2) + o2["mu"] + o2["nu"]))
+            n_same = sum(bool(torch.equal(a, b)) for a, b in leaves)
+            l1, l2 = first.history[2]["loss"], replay.history[0]["loss"]
+            log(f"[replay] {label}: step 3 from the step-2 checkpoint on "
+                f"step 3's batch: loss {l2:.9f} vs {l1:.9f} "
+                f"({'bit-identical' if l1 == l2 else 'DIFFER'}), {n_same} of "
+                f"{len(leaves)} parameter and moment tensors bit-identical")
+            check(l1 == l2 and n_same == len(leaves)
+                  and o1["step"] == o2["step"] == 3,
+                  f"{label}: the replayed step differs")
+            logs = []
+            failing = trainer(f"{label}_c", batches, logs)
+            failed = []
+
+            def inject(i):
+                if i == 2 and not failed:
+                    failed.append(i)
+                    return True
+                return False
+
+            failing.failure_injector = inject
+            failing.run()
+            rolled = [m for m in logs if "rolled back" in m]
+            log(f"[replay] {label}: failure injected before step 3: "
+                f"{rolled}, ends at step {failing.step} with "
+                f"{len(failing.history)} step records")
+            check(rolled == ["[trainer] rolled back to step 2"]
+                  and failing.step == 3 and len(failing.history) == 3,
+                  f"{label}: the injected failure did not roll back")
+            del p1, o1, p2, o2, leaves, first, replay, failing
+        p = trainable(step.init(0))
+        state = (p, opt.init(p))
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in param_leaves(state[0]) + state[1]["mu"]
+                      + state[1]["nu"])
+        t0 = time.perf_counter()
+        save_checkpoint(str(tmp / "sync"), 0, state)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restore_checkpoint(str(tmp / "sync"), state)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    log(f"[replay] full-width KGAT state {n_bytes} B: synchronous save "
+        f"{t_save:.3f} s, restore to the card {t_restore:.3f} s")
+
+
+def check_launch(torch):
+    """The launcher at its default (reduced) size on the card, in process:
+    kgcn 4 steps with --ckpt, --metrics-out and --trace, then 8 steps on
+    the same directory (it resumes at step 4); the step log, the summary
+    (the port's validator) and the trace exist; a restore under another
+    arch is refused. The second run's summary counts its 4 steps alone."""
+    import tempfile
+
+    from repro_torch.launch import train as launcher
+    from repro_torch.obs import validate_summary
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp:
+        ckpt, out = str(Path(tmp) / "ckpt"), Path(tmp) / "m"
+        argv = ["--arch", "kgcn", "--bits", "2", "--ckpt", ckpt,
+                "--metrics-out", str(out), "--trace",
+                str(out / "trace.json")]
+        t0 = time.perf_counter()
+        launcher.main(argv + ["--steps", "4"])
+        launcher.main(argv + ["--steps", "8"])
+        wall = time.perf_counter() - t0
+        rows = [json.loads(x) for x in
+                (out / "steps.jsonl").read_text().splitlines()]
+        summary = json.loads((out / "summary.json").read_text())
+        validate_summary(summary)
+        step_ms = summary["histograms"].get("train/step_ms", {})
+        check(summary["run"]["kind"] == "train"
+              and step_ms.get("count") == 4
+              and summary["counters"].get("train/steps") == 4,
+              "summary.json does not hold the second run's 4 steps alone")
+        names = {e["name"] for e in json.loads(
+            (out / "trace.json").read_text())["traceEvents"]}
+        log(f"[launch] kgcn --steps 4 then 8 on one --ckpt ({wall:.1f} s): "
+            f"second run's step lines {[r['step'] for r in rows]}, "
+            f"act_total_bytes {rows[0].get('act_total_bytes')}, summary "
+            f"train/step_ms {summary['histograms']['train/step_ms']}, "
+            f"trace spans {sorted(names)}")
+        check([r["step"] for r in rows] == [5, 6, 7, 8],
+              "the second launcher run did not resume at step 4")
+        check({"train", "train/step", "train/step/data",
+               "train/step/update"} <= names, "trace lacks the train spans")
+        try:
+            launcher.main(["--arch", "kgin", "--bits", "2", "--steps", "8",
+                           "--ckpt", ckpt])
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        log(f"[launch] --arch kgin on kgcn's checkpoints: {refused}")
+        check(refused is not None and "written for a different run" in
+              refused, "a restore under another arch was not refused")
 
 
 def _grads(torch, step, params, batch, label):
@@ -1609,9 +1887,11 @@ def _err64(got, ref):
 
 
 def check_train_grads(torch, cfg, ds, g):
-    """One full-width step with the kernels against the same step with
-    every kernel's plain version (same seeds, parameters and batch); at
-    FP32 both against the same step in float64. The kernels' steps run as
+    """One full-width step of ``cfg.model`` with the kernels against the
+    same step with every kernel's plain version (same seeds, parameters and
+    batch), at FP32 and INT2; at FP32 both against the same step in
+    float64, at INT2 the difference against the stochastic rounding's own
+    noise (the INT2 step's distance from the FP32 step). The kernels' steps run as
     the training path runs them. The plain steps run under
     ``torch.use_deterministic_algorithms``: the plain versions still add
     with ``index_add_``, whose atomics' order on the card moved the plain
@@ -1624,7 +1904,7 @@ def check_train_grads(torch, cfg, ds, g):
     from repro_torch.kernels import quant_pack as qp
     from repro_torch.kernels import spmm as sp
     from repro_torch.models.layers import param_leaves
-    from repro_torch.models.registry import build_step
+    from repro_torch.models.registry import arch_of, build_step
     from repro_torch.training.step import trainable
 
     def grad_ew_plain(res, grad, layout):
@@ -1632,8 +1912,8 @@ def check_train_grads(torch, cfg, ds, g):
             return sp.dequant_sddmm_plain(res, grad, layout)
         return sp.sddmm_plain(res, grad, layout)
 
-    step = build_step("kgat", ds=ds, cfg=cfg, batch_size=TRAIN_BATCH,
-                      device=DEV, graph=g)
+    step = build_step(arch_of(cfg.model), ds=ds, cfg=cfg,
+                      batch_size=TRAIN_BATCH, device=DEV, graph=g)
     batch = next(step.batches())
     params = step.init(0)
     names = [f"{k}[{i}]" if isinstance(params[k], list) else k
@@ -1667,8 +1947,9 @@ def check_train_grads(torch, cfg, ds, g):
         torch.use_deterministic_algorithms(False)
     for label in ("fp32", "int2"):
         (lk, gk), (lp, gp) = got[label, "kernels"], got[label, "plain"]
+        tag = label if cfg.model == "kgat" else f"{cfg.model} {label}"
         check(abs(lk - lp) <= TOL * abs(lp),
-              f"{label} loss with kernels {lk} vs plain {lp}")
+              f"{tag} loss with kernels {lk} vs plain {lp}")
         worst = 0.0
         for i, name in enumerate(names):
             diff = float((gk[i] - gp[i]).abs().max())
@@ -1682,14 +1963,15 @@ def check_train_grads(torch, cfg, ds, g):
             else:
                 noise = float((gk[i] - got["fp32", "kernels"][1][i])
                               .abs().max())
-                share = diff / noise
+                share = (diff / noise if noise else
+                         0.0 if diff == 0 else math.inf)
                 ok = share <= GRAD_NOISE_SHARE
                 note = f", share of SR noise {share:.3e}"
             worst = max(worst, share)
-            log(f"[grads] {label} {name}: max |kernels - plain| {diff:.3e}, "
+            log(f"[grads] {tag} {name}: max |kernels - plain| {diff:.3e}, "
                 f"rel {diff / float(gp[i].abs().max()):.3e}{note}")
-            check(ok, f"{label} gradient of {name} out of tolerance")
-        log(f"[grads] {label}: loss kernels {lk:.8f} plain {lp:.8f}"
+            check(ok, f"{tag} gradient of {name} out of tolerance")
+        log(f"[grads] {tag}: loss kernels {lk:.8f} plain {lp:.8f}"
             + (f" float64 {l64:.8f}; worst rms error ratio kernels / "
                f"max(plain, {TOL / GRAD_FP64_RATIO:g}) "
                f"{worst:.3f} (limit {GRAD_FP64_RATIO})"
@@ -1800,6 +2082,7 @@ def main() -> int:
     from repro_torch.kernels import spmm as sp
     from repro_torch.kernels import topk_score as tk
     from repro_torch.models import kgnn
+    from repro_torch.models.registry import model_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1874,19 +2157,32 @@ def main() -> int:
     del res
     runs = run_training(torch, cfg, ds, g)
     profile_step(torch, cfg, ds, g)
-    check_determinism(torch, cfg, ds, g)
-    check_train_grads(torch, cfg, ds, g)
+    check_reduced_kg(torch)
+    runs_kg = run_training_kg(torch, ds, g)
+    kg_cfgs = [model_config(m) for m in KG_MODELS]
+    for kg_cfg in kg_cfgs:
+        profile_step(torch, kg_cfg, ds, g, top=8)
+    check_determinism(torch, [(cfg, "fp32"), (cfg, "int2")]
+                      + [(c, "int2") for c in kg_cfgs], ds, g)
+    for c in [cfg] + kg_cfgs:
+        check_train_grads(torch, c, ds, g)
+        torch.cuda.empty_cache()
+    check_replay(torch, cfg, ds, g)
+    check_launch(torch)
     # launches: the sum over the main-path runs (serving, then training
-    # under each schedule), each counted from 0 just before it
+    # KGAT under each schedule and KGCN, KGIN, R-GCN under FP32 and INT2),
+    # each counted from 0 just before it
     for e in entries:
         by_path = {"serve": counts.get(e["name"], 0),
                    "serve_tier2": counts_t2.get(e["name"], 0)}
         by_path.update({f"train_{label}": r["counts"].get(e["name"], 0)
                         for label, r in runs.items()})
+        by_path.update({f"train_{key}": r["counts"].get(e["name"], 0)
+                        for key, r in runs_kg.items()})
         e["launches_by_path"] = by_path
         e["launches_per_train_step"] = {
             label: r["per_step"].get(e["name"], 0)
-            for label, r in runs.items()}
+            for label, r in {**runs, **runs_kg}.items()}
         e["launches"] = sum(by_path.values())
         check(e["launches"] > 0, f"kernel {e['name']} never launched")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,13 +1,13 @@
-"""Architecture registry of the port (KGAT only so far)."""
+"""Architecture registry of the port (the KG archs: kgat, kgcn, kgin)."""
 
 from __future__ import annotations
 
 from .base import ArchSpec, ShapeSpec
-from .kgnn_paper import KGAT
+from .kgnn_paper import KGAT, KGCN, KGIN
 
 __all__ = ["ARCHS", "get", "ArchSpec", "ShapeSpec"]
 
-ARCHS = {a.name: a for a in (KGAT,)}
+ARCHS = {a.name: a for a in (KGAT, KGCN, KGIN)}
 
 
 def get(name: str) -> ArchSpec:

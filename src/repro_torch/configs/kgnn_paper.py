@@ -1,5 +1,5 @@
-"""The paper's KGAT config (section 4.1.4: dim 64, 3 layers, Amazon-Book
-scale); port of ``repro/configs/kgnn_paper.py``, KGAT only."""
+"""The paper's KGNN configs (section 4.1.4: dim 64, 3 layers, Amazon-Book
+scale); port of ``repro/configs/kgnn_paper.py``."""
 
 from repro_torch.models.kgnn import KGNNConfig
 
@@ -18,5 +18,17 @@ KGAT = ArchSpec(
     name="kgat", family="kgnn", source="arXiv:1905.07854 / paper §4.1.2",
     model_cfg=KGNNConfig(model="kgat", dim=64, n_layers=3, n_bases=4,
                          readout="concat", **_AB),
+    shapes=_KG_SHAPES,
+)
+KGCN = ArchSpec(
+    name="kgcn", family="kgnn", source="KGNN-LS arXiv:1905.04413",
+    model_cfg=KGNNConfig(model="kgcn", dim=64, n_layers=3, readout="sum",
+                         **_AB),
+    shapes=_KG_SHAPES,
+)
+KGIN = ArchSpec(
+    name="kgin", family="kgnn", source="arXiv:2102.07057",
+    model_cfg=KGNNConfig(model="kgin", dim=64, n_layers=3, n_intents=4,
+                         readout="sum", **_AB),
     shapes=_KG_SHAPES,
 )

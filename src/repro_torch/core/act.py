@@ -21,7 +21,8 @@ non-KG models.
 sums each table row's gradient in a fixed order (``ops.segment_sum`` over a
 precomputed grouping of the edges), where ``index_select``'s own backward,
 ``index_add_``, adds with atomics on the card and so changes the last bits
-from run to run.
+from run to run. ``sum_rows`` is its transpose: that fixed-order sum
+forward, the gather backward.
 
 Site resolution follows the reference: explicit ``seed=`` / ``policy=``
 kwargs first, then the ambient ``ActContext`` at the site named ``scope``;
@@ -42,7 +43,7 @@ from .policy import FP32, ACTPolicy
 from .quant import QTensor, dequantize
 
 __all__ = ["act_matmul", "act_dense", "act_relu", "act_nonlin", "act_spmm",
-           "weighted_spmm", "gather_rows", "NONLIN"]
+           "weighted_spmm", "gather_rows", "sum_rows", "NONLIN"]
 
 
 def _resolve_site(op_kind: str, scope: str | None, seed,
@@ -298,3 +299,25 @@ def gather_rows(table, idx, runs):
     (``data.csr.SegmentRuns`` levels, which must group exactly the edges of
     ``idx``): the same bits every run, on the card too."""
     return _GatherRows.apply(table, idx, runs)
+
+
+class _SumRows(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, y, idx, runs):
+        fctx.save_for_backward(idx)
+        return ops.segment_sum(y, runs)
+
+    @staticmethod
+    def backward(fctx, g):
+        (idx,) = fctx.saved_tensors
+        return g.index_select(0, idx), None, None
+
+
+def sum_rows(y, idx, runs):
+    """The transpose of ``gather_rows``: ``out[v] = Σ y[e]`` over the rows
+    ``e`` with ``idx[e] == v``, summed in the order ``runs`` gives them
+    (which must group exactly the rows of ``idx``; ``ops.segment_sum``),
+    the same bits every run; the backward is the gather ``grad_out[idx]``.
+    Never ``index_add_`` or ``scatter_add``, whose atomics reorder the sum
+    on the card."""
+    return _SumRows.apply(y, idx, runs)

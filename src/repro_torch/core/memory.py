@@ -1,5 +1,6 @@
 """Activation-memory accounting (paper Table 5 "Act Mem" column; port of
-``repro/core/memory.py:activation_bytes_report``).
+``repro/core/memory.py``: ``activation_bytes_report`` and
+``publish_activation_report``).
 
 Prices the **recorded residuals**: while a loss runs under an
 ``ActContext``, every compressed op records the residual it saves (scope,
@@ -8,6 +9,9 @@ those records. The figure is analytic (what the compressed ops hold for the
 backward pass), not a reading of the allocator: on the card
 ``torch.cuda.max_memory_allocated`` also counts the attention's
 uncompressed temporaries, which are not ACT sites in the reference either.
+The reference prices a ``jax.eval_shape`` trace of the loss
+(``traced_activation_report``); the port prices the records of a real step
+(``ActContext.report``), which are the same residuals.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import Sequence
 
 from .quant import act_bytes
 
-__all__ = ["activation_bytes_report"]
+__all__ = ["activation_bytes_report", "publish_activation_report"]
 
 
 def _mask_bytes(shape: tuple[int, ...]) -> int:
@@ -45,3 +49,18 @@ def activation_bytes_report(records: Sequence) -> dict[str, float]:
     report["total_fp32_bytes"] = total_fp32
     report["compression_ratio"] = total_fp32 / max(total, 1)
     return report
+
+
+def publish_activation_report(report: dict[str, float]) -> None:
+    """Mirror an activation-bytes report into the process's metrics
+    registry: per-scope rows become ``act/bytes{scope=...}`` gauges, the
+    three aggregates ``act/total_bytes``, ``act/total_fp32_bytes`` and
+    ``act/compression_ratio`` (the run summary carries them)."""
+    from repro_torch.obs import get_registry
+
+    reg = get_registry()
+    for scope, b in report.items():
+        if scope in ("total_bytes", "total_fp32_bytes", "compression_ratio"):
+            reg.gauge(f"act/{scope}").set(float(b))
+        else:
+            reg.gauge("act/bytes", scope=scope).set(float(b))

@@ -114,6 +114,10 @@ class SpmmLayout:
                          self.tile_of_blk, self.row_start, self.row_end,
                          m.n_tiles, m.n_dst)
 
+    def in_degree(self) -> torch.Tensor:
+        """(n_dst,) int32: the number of edges into each destination row."""
+        return self.row_end - self.row_start
+
     def runs(self, transpose: bool = False) -> tuple:
         """The one-level grouping of the edges by destination (by source
         for ``transpose=True``): the backward of a gather by ``dst``

@@ -18,6 +18,12 @@ reference. On ``cuda`` (the default) the rollout's SPMM, the quantizer, the
 top-K and coarse scans and the re-rank's dequantize run the hand-written
 kernels; ``--device cpu`` runs their plain versions.
 
+``--trace OUT.json`` writes a Chrome-trace/Perfetto JSON of the host spans
+(``serve/batch`` drains and the engine's stages), ``--metrics-out DIR`` the
+schema-validated ``summary.json`` of the metrics registry
+(``serve/latency_ms``, queue depth, stage times, cache hits), which
+``main`` empties first so that the summary holds this run's series alone.
+
 ``serve_kgnn`` is the same path as a function, so that a caller can drive it
 at any size (``chip_smoke.py`` runs it at full width).
 """
@@ -37,6 +43,8 @@ from repro_torch.kernels.backend import LAUNCH_COUNTS, full_fp32, \
     resolve_device
 from repro_torch.models import kgnn
 from repro_torch.models.layers import param_leaves
+from repro_torch.obs import get_tracer, log as obs_log, reset_registry, \
+    write_summary
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.eval import streaming_eval_dataset, \
     streaming_recall_ndcg
@@ -247,18 +255,40 @@ def main(argv=None) -> None:
                          "hot-swap the store through a delta refresh")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the kernels; cpu their plain versions")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="write a Chrome-trace/Perfetto JSON of the host "
+                         "spans (serve/batch drains etc.)")
+    ap.add_argument("--metrics-out", default=None, metavar="DIR",
+                    help="write the schema-validated summary.json registry "
+                         "snapshot (serve/latency_ms, queue depth, ...) "
+                         "under DIR")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    cfg = reduced(get(args.arch)).model_cfg
-    ds = reduced_dataset(cfg)
-    params = kgnn.init_params(cfg, seed=0, device=dev)
-    bits = None if args.bits == "fp32" else int(args.bits)
-    serve_kgnn(cfg, ds, params, bits=bits, k=args.k,
-               requests=args.requests, device=dev,
-               train_steps=args.train_steps, two_stage=args.two_stage,
-               item_shards=args.item_shards, cache=args.cache,
-               max_pending=args.max_pending,
-               refresh_steps=args.refresh_steps)
+    reset_registry()   # the summary holds this run's series alone
+    if args.trace:
+        get_tracer().enable()
+    try:
+        cfg = reduced(get(args.arch)).model_cfg
+        ds = reduced_dataset(cfg)
+        params = kgnn.init_params(cfg, seed=0, device=dev)
+        bits = None if args.bits == "fp32" else int(args.bits)
+        serve_kgnn(cfg, ds, params, bits=bits, k=args.k,
+                   requests=args.requests, device=dev,
+                   train_steps=args.train_steps, two_stage=args.two_stage,
+                   item_shards=args.item_shards, cache=args.cache,
+                   max_pending=args.max_pending,
+                   refresh_steps=args.refresh_steps)
+        run = {"kind": "serve", "arch": args.arch,
+               "family": get(args.arch).family,
+               "requests": args.requests, "bits": args.bits}
+        if args.trace:
+            obs_log(f"[serve] trace written to "
+                    f"{get_tracer().save(args.trace, run=run)}")
+        if args.metrics_out:
+            obs_log(f"[serve] metrics summary written to "
+                    f"{write_summary(args.metrics_out, run)}")
+    finally:
+        get_tracer().disable()
 
 
 if __name__ == "__main__":

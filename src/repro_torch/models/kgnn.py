@@ -1,34 +1,45 @@
-"""KGAT over a collaborative knowledge graph (port of ``repro/models/kgnn.py``,
-KGAT only): the FP32 serving rollout and activation-compressed training.
+"""Knowledge-graph neural recommenders over a collaborative knowledge graph
+(port of ``repro/models/kgnn.py``, single-device full-graph path): KGAT,
+KGCN (KGNN-LS), KGIN and R-GCN, for the FP32 serving rollout and
+activation-compressed training.
 
 Users, items and attribute entities share one node space; user-item
-interactions are the ``interact`` relation, merged with the item KG. KGAT's
-attention is computed once from the layer-0 embeddings with the
-basis-decomposed relation projection ``W_r = sum_b a_rb V_b`` (DESIGN.md
-section 3), softmaxed over each destination's edges; each layer aggregates
-with the SPMM kernel over the graph's blocked-CSR layout and applies the
-bi-interaction aggregator; the readout concatenates every layer.
+interactions are the ``interact`` relation, merged with the item KG. Each
+model computes its per-edge weighting once from the layer-0 embeddings
+(``_edge_weights``: KGAT's attention, KGCN's relation-scored softmax,
+KGIN's intent-weighted relation table; R-GCN has none), then runs
+``n_layers`` layers and a readout (concat for KGAT, sum for the others).
 
-One layer function serves both paths. Its five sites (``spmm``, ``w1``,
-``w2``, ``act1``, ``act2`` under ``kgat/layer<l>/``) are ACT ops
-(``repro_torch.core.act``) that resolve their policy and seed from the
-ambient ``ActContext``: ``bpr_loss`` runs them under the training schedule,
-``propagate`` under FP32 with autograd off. The attention is not an ACT
-site, as in the reference: autograd keeps its (E, d) tensors uncompressed.
+KGAT's attention uses the basis-decomposed relation projection
+``W_r = sum_b a_rb V_b`` (DESIGN.md section 3), softmaxed over each
+destination's edges; each layer aggregates with the SPMM kernel over the
+graph's blocked-CSR layout and applies the bi-interaction aggregator. KGCN
+aggregates with the same ACT SPMM, then a dense layer (sigmoid, tanh on the
+last layer). KGIN sums ``e[src] * r[rel]`` by destination and divides by
+the in-degree. R-GCN's messages ``sum_b coef[rel, b] * (e V_b)[src]`` are
+four SPMMs, one per basis, with the gathered coefficients as edge weights.
+
+The ACT sites of each layer (``model_sites``; ``spmm``, ``w1`` ... under
+``<model>/layer<l>/``) resolve their policy and seed from the ambient
+``ActContext``: ``bpr_loss`` runs them under the training schedule,
+``propagate`` under FP32 with autograd off. The edge weights, KGIN's
+aggregation and R-GCN's SPMMs are no ACT sites, as in the reference:
+autograd keeps their tensors uncompressed.
 
 A training step gives the same bits every run, on the card too. The SPMM
 kernel sums each destination in slot order, and the edge-softmax
 denominators are that same kernel run over a ones column (their ∇ew the
-SDDMM kernel on the same column). The attention's gathers (``gather_rows``)
-backpropagate through fixed-order segment sums over the graph's groupings of
-the edges: by destination and by source (the layout's slot runs) and by
+SDDMM kernel on the same column). Every gather (``gather_rows``)
+backpropagates through a fixed-order segment sum over the graph's groupings
+of the edges: by destination and by source (the layout's slot runs) and by
 relation (``CKG.rel_runs``), where ``index_select``'s own backward,
-``index_add_``, adds with atomics on the card. The edge softmax's max
-(``scatter_reduce``) does not depend on order, and ``score_pairs``' batch
-gathers backpropagate through a sort-based ``index_put_``, which is
-deterministic on the card. Every matmul runs in full fp32: ``forward_reps``
-and the training step switch TF32 off for their own span
-(``kernels.backend.full_fp32``) and restore the caller's setting.
+``index_add_``, adds with atomics on the card; KGIN's sum by destination is
+that segment sum (``sum_rows``). The edge softmax's max (``scatter_reduce``)
+does not depend on order, and ``score_pairs``' batch gathers backpropagate
+through a sort-based ``index_put_``, which is deterministic on the card.
+Every matmul runs in full fp32: ``forward_reps`` and the training step
+switch TF32 off for their own span (``kernels.backend.full_fp32``) and
+restore the caller's setting.
 """
 
 from __future__ import annotations
@@ -39,7 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.act import act_matmul, act_nonlin, act_spmm, \
-    gather_rows, weighted_spmm
+    gather_rows, sum_rows, weighted_spmm
 from repro_torch.core.context import act_context, model_context
 from repro_torch.core.policy import FP32
 from repro_torch.data.csr import attach_layout
@@ -47,9 +58,11 @@ from repro_torch.kernels.backend import full_fp32, resolve_device
 
 from .layers import glorot, normal_init, param_leaves
 
-__all__ = ["KGNNConfig", "CKG", "segment_softmax", "kgat_bi_interaction",
-           "init_params", "params_from_jax", "forward_reps", "propagate",
-           "readout", "score_pairs", "bpr_loss"]
+__all__ = ["KGNNConfig", "CKG", "MODELS", "model_sites", "segment_softmax",
+           "kgat_bi_interaction", "init_params", "params_from_jax",
+           "forward_reps", "propagate", "readout", "score_pairs", "bpr_loss"]
+
+MODELS = ("kgat", "kgcn", "kgin", "rgcn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,16 +95,17 @@ class CKG:
 
 @dataclasses.dataclass(frozen=True)
 class KGNNConfig:
-    model: str = "kgat"          # the port carries kgat only
+    model: str = "kgat"          # kgat | kgcn | kgin | rgcn
     n_users: int = 0
     n_entities: int = 0          # items + attribute entities
     n_relations: int = 0         # incl. `interact`, both directions
     dim: int = 64                # embedding size (paper fixes 64)
     n_layers: int = 3            # paper fixes 3
     layer_dims: tuple = ()       # per-layer out dims; default = dim each
-    n_bases: int = 4             # relation-projection bases
+    n_intents: int = 4           # KGIN
+    n_bases: int = 4             # KGAT attention / R-GCN bases
     l2: float = 1e-5             # L2 weight of bpr_loss
-    readout: str = "concat"      # concat (KGAT) | sum | last
+    readout: str = "concat"      # concat (KGAT) | sum (the others) | last
 
     @property
     def n_nodes(self) -> int:
@@ -102,10 +116,19 @@ class KGNNConfig:
         return self.layer_dims or (self.dim,) * self.n_layers
 
 
-def _check_kgat(cfg: KGNNConfig) -> None:
-    if cfg.model != "kgat":
-        raise NotImplementedError(
-            f"the port carries KGAT only; {cfg.model!r} is not ported yet")
+def model_sites(cfg: KGNNConfig) -> tuple[tuple[str, str], ...]:
+    """Per-layer ``(site_name, op_kind)`` table of a model's ACT sites."""
+    if cfg.model == "kgat":
+        return (("spmm", "spmm"), ("w1", "matmul"), ("w2", "matmul"),
+                ("act1", "nonlin"), ("act2", "nonlin"))
+    if cfg.model == "kgcn":
+        return (("spmm", "spmm"), ("dense", "matmul"), ("act", "nonlin"))
+    if cfg.model == "kgin":
+        return (("act", "nonlin"),)
+    if cfg.model == "rgcn":
+        return tuple((f"basis{b}", "matmul") for b in range(cfg.n_bases)) \
+            + (("self", "matmul"), ("act", "nonlin"))
+    raise ValueError(f"unknown KG model {cfg.model!r}; have {MODELS}")
 
 
 def segment_softmax(logits: torch.Tensor, g: CKG) -> torch.Tensor:
@@ -132,35 +155,47 @@ def segment_softmax(logits: torch.Tensor, g: CKG) -> torch.Tensor:
 
 
 def init_params(cfg: KGNNConfig, *, seed: int = 0, device="cuda") -> dict:
-    """KGAT parameters from a seeded CPU ``torch.Generator``, moved to
-    ``device`` (the same seed gives the same values on every device)."""
-    _check_kgat(cfg)
+    """The parameters of ``cfg.model`` from a seeded CPU
+    ``torch.Generator``, moved to ``device`` (the same seed gives the same
+    values on every device)."""
+    model_sites(cfg)                                  # names the model
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     d = cfg.dim
     dims = (d,) + cfg.dims
+    pairs = list(zip(dims[:-1], dims[1:]))
     p = {
         "entity": normal_init(gen, (cfg.n_nodes, d), 0.1),
         "relation": normal_init(gen, (cfg.n_relations, d), 0.1),
-        "att_basis": normal_init(gen, (cfg.n_bases, d, d), 0.1),
-        "att_coef": normal_init(gen, (cfg.n_relations, cfg.n_bases), 0.1),
-        "w1": [glorot(gen, (a, b)) for a, b in zip(dims[:-1], dims[1:])],
-        "w2": [glorot(gen, (a, b)) for a, b in zip(dims[:-1], dims[1:])],
     }
+    if cfg.model == "kgat":
+        p["att_basis"] = normal_init(gen, (cfg.n_bases, d, d), 0.1)
+        p["att_coef"] = normal_init(gen, (cfg.n_relations, cfg.n_bases), 0.1)
+        p["w1"] = [glorot(gen, s) for s in pairs]
+        p["w2"] = [glorot(gen, s) for s in pairs]
+    elif cfg.model == "kgcn":
+        p["w"] = [glorot(gen, s) for s in pairs]
+        p["b"] = [torch.zeros((b,)) for _, b in pairs]
+    elif cfg.model == "kgin":
+        p["intent"] = normal_init(gen, (cfg.n_intents, cfg.n_relations), 0.1)
+    else:                                             # rgcn
+        p["basis"] = normal_init(gen, (cfg.n_bases, d, d), 0.1)
+        p["coef"] = normal_init(gen, (cfg.n_relations, cfg.n_bases), 0.1)
+        p["w_self"] = [glorot(gen, (d, d)) for _ in range(cfg.n_layers)]
     return _to_device(p, dev)
 
 
 def params_from_jax(params_np: dict, device="cuda") -> dict:
-    """Carry the JAX KGAT parameter pytree across, given as numpy arrays:
-    ``entity``, ``relation``, ``att_basis``, ``att_coef`` and the lists
-    ``w1`` and ``w2``."""
-    dev = resolve_device(device)
-    p = {k: torch.from_numpy(np.array(params_np[k], np.float32))
-         for k in ("entity", "relation", "att_basis", "att_coef")}
-    for k in ("w1", "w2"):
-        p[k] = [torch.from_numpy(np.array(w, np.float32))
-                for w in params_np[k]]
-    return _to_device(p, dev)
+    """Carry a JAX KG parameter pytree across, given as numpy arrays: a dict
+    of arrays and lists of arrays (``entity``, ``relation`` and the
+    model's own: KGAT ``att_basis``, ``att_coef``, ``w1``, ``w2``; KGCN
+    ``w``, ``b``; KGIN ``intent``; R-GCN ``basis``, ``coef``, ``w_self``)."""
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    p = {k: [t(w) for w in v] if isinstance(v, (list, tuple)) else t(v)
+         for k, v in params_np.items()}
+    return _to_device(p, resolve_device(device))
 
 
 def _to_device(p: dict, dev: torch.device) -> dict:
@@ -219,6 +254,68 @@ def _kgat_layer(p: dict, layer: int, e: torch.Tensor, g: CKG,
     return kgat_bi_interaction(p, layer, e, e_n)
 
 
+def _kgcn_layer(p: dict, layer: int, e: torch.Tensor, g: CKG,
+                ew: torch.Tensor) -> torch.Tensor:
+    """KGNN-LS graph convolution: σ((Â E)Θ + b) with the relation-scored
+    Â (``ew``); sigmoid, tanh on the last layer."""
+    h = act_spmm(e, ew, g.layout, scope="spmm")
+    j = act_matmul(h + e, p["w"][layer], scope="dense") + p["b"][layer]
+    return act_nonlin(j, scope="act",
+                      fn="tanh" if layer == len(p["w"]) - 1 else "sigmoid")
+
+
+def _kgin_layer(e: torch.Tensor, r_emb: torch.Tensor, g: CKG,
+                deg: torch.Tensor) -> torch.Tensor:
+    """Relational path aggregation (KGIN eq. 8): the mean over each
+    destination's edges of ``e[src] * r_emb[rel]``, then LeakyReLU. The
+    sum by destination is the fixed-order segment sum (``sum_rows``)."""
+    msgs = (gather_rows(e, g.src.long(), g.layout.runs(transpose=True))
+            * gather_rows(r_emb, g.rel.long(), g.rel_runs))
+    agg = sum_rows(msgs, g.dst.long(), g.layout.runs()) / deg
+    return act_nonlin(agg, fn="leaky_relu", scope="act")
+
+
+def _rgcn_layer(p: dict, layer: int, e: torch.Tensor, g: CKG,
+                coef: list, deg: torch.Tensor) -> torch.Tensor:
+    """Basis-decomposed R-GCN, ``W_r = Σ_b a_rb V_b``, basis-first.
+
+    The reference builds the ``(E, B, d)`` messages and contracts them with
+    one einsum; here ``Σ_e Σ_b coef[rel_e, b] proj_b[src_e]`` is ``Σ_b`` of
+    one SPMM per basis with the edges' coefficients ``coef[b]`` (``(E,)``,
+    from ``_edge_weights``) as edge weights: no ``(E, d)`` tensor, ∇proj by
+    the transpose SPMM and ∇coef by the SDDMM. It sums in another order
+    than the reference."""
+    agg = None
+    for b, c in enumerate(coef):
+        pb = act_matmul(e, p["basis"][b], scope=f"basis{b}")
+        t = weighted_spmm(pb, c, g.layout)
+        agg = t if agg is None else agg + t
+    self_t = act_matmul(e, p["w_self"][layer], scope="self")
+    return act_nonlin(agg / deg + self_t, fn="leaky_relu", scope="act")
+
+
+def _edge_weights(p: dict, e0: torch.Tensor, g: CKG, cfg: KGNNConfig):
+    """Per-edge weighting data, computed once from the layer-0 embeddings:
+    kgat the attention probabilities (E,); kgcn the relation-scored
+    adjacency (E,), a softmax over each destination of ``r · e0[src]``;
+    kgin the intent-weighted relation table (R, d); rgcn the edges' basis
+    coefficients ``coef[rel]``, one (E,) column a basis (the reference
+    gathers them in every layer; they are the same in each)."""
+    if cfg.model == "kgat":
+        return _kgat_attention(p, e0, g)
+    if cfg.model == "kgcn":
+        logits = torch.sum(
+            gather_rows(p["relation"], g.rel.long(), g.rel_runs)
+            * gather_rows(e0, g.src.long(), g.layout.runs(transpose=True)),
+            dim=-1)
+        return segment_softmax(logits, g)
+    if cfg.model == "kgin":
+        alpha = torch.softmax(p["intent"], dim=-1)            # (P, R)
+        return p["relation"] + torch.mean(alpha @ p["relation"], dim=0)
+    coef = gather_rows(p["coef"], g.rel.long(), g.rel_runs)     # (E, B)
+    return [c.contiguous() for c in coef.unbind(1)]
+
+
 def readout(outs: list, cfg: KGNNConfig) -> torch.Tensor:
     if cfg.readout == "concat":
         return torch.cat(outs, dim=-1)
@@ -228,20 +325,29 @@ def readout(outs: list, cfg: KGNNConfig) -> torch.Tensor:
 
 
 def forward_reps(params: dict, g: CKG, cfg: KGNNConfig) -> torch.Tensor:
-    """L layers of KGAT message passing under the ambient ``ActContext``
-    (FP32 without one); the readout of every node. Under an active
-    stochastic policy the context must carry a seed source: there is no
-    silent constant seed (``ActContext.check_key``)."""
-    _check_kgat(cfg)
+    """``cfg.n_layers`` layers of ``cfg.model`` message passing under the
+    ambient ``ActContext`` (FP32 without one); the readout of every node.
+    Under an active stochastic policy the context must carry a seed
+    source: there is no silent constant seed (``ActContext.check_key``)."""
+    model_sites(cfg)                                  # names the model
     ctx = model_context()
     ctx.check_key(f"propagate({cfg.model})")
     with full_fp32(), ctx, ctx.scope(cfg.model):
         e = params["entity"]
         outs = [e]
-        att = _kgat_attention(params, e, g)
+        w = _edge_weights(params, e, g, cfg)
+        # in-degree, at least 1 (kgin, rgcn): no gradient flows into it
+        deg = torch.clamp_min(g.layout.in_degree().to(e.dtype), 1.0)[:, None]
         for layer in range(cfg.n_layers):
             with ctx.scope(f"layer{layer}"):
-                e = _kgat_layer(params, layer, e, g, att)
+                if cfg.model == "kgat":
+                    e = _kgat_layer(params, layer, e, g, w)
+                elif cfg.model == "kgcn":
+                    e = _kgcn_layer(params, layer, e, g, w)
+                elif cfg.model == "kgin":
+                    e = _kgin_layer(e, w, g, deg)
+                else:
+                    e = _rgcn_layer(params, layer, e, g, w, deg)
             outs.append(e)
     return readout(outs, cfg)
 
@@ -261,7 +367,7 @@ def score_pairs(reps: torch.Tensor, users: torch.Tensor, items: torch.Tensor,
 
 def bpr_loss(params: dict, g: CKG, batch: dict,
              cfg: KGNNConfig) -> torch.Tensor:
-    """BPR pairwise ranking loss + L2 over every parameter (the KGAT
+    """BPR pairwise ranking loss + L2 over every parameter (the KGAT/KGIN
     objective); the sites resolve from the ambient context."""
     reps = forward_reps(params, g, cfg)
     pos = score_pairs(reps, batch["user"], batch["pos"], cfg.n_users)

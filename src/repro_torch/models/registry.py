@@ -1,14 +1,22 @@
 """Model-step registry: ``--arch <id>`` -> one ``ModelStep`` (port of
-``repro/models/registry.py``, KG family, KGAT only).
+``repro/models/registry.py``, KG family).
 
-``build_step`` binds the KGAT layer functions (``models.kgnn``) to a
-dataset and a config, with the reference's defaults: the small synthetic
-CKG, batch 512, data seed 2, lr 3e-3, dim 32, 3 layers, concat readout.
-The reference's other archs raise ``NotImplementedError`` naming the slice
-of the port that brings them (ROADMAP Queue 1).
+``build_step`` binds the KG layer functions (``models.kgnn``) to a dataset
+and a config, with the reference's defaults: the small synthetic CKG, batch
+512, data seed 2, lr 3e-3, dim 32, 3 layers, readout concat for kgat and
+sum otherwise. A ``cfg`` may name another KG model than the arch's: R-GCN
+has no arch id of its own, as in the reference, and trains as kgat's step
+with its own config (``arch_of``, ``model_config``). The reference's other
+archs raise ``NotImplementedError`` naming the slice of the port that
+brings them (ROADMAP Queue 1).
+
+``PATH_KERNELS`` lists the CUDA kernels a training step of each KG model
+launches, for the checks that the path really went through them.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -16,11 +24,11 @@ from repro_torch.configs import ARCHS, get
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.training.step import ModelStep, enter_or_null, trainable
 
-__all__ = ["build_step", "archs", "NOT_PORTED"]
+__all__ = ["build_step", "archs", "arch_of", "model_config", "path_kernels",
+           "NOT_PORTED", "PATH_KERNELS"]
 
 # the reference's archs that the port does not carry yet, and where they land
 NOT_PORTED = {
-    **{a: "the KG layers deferred from slice 2" for a in ("kgcn", "kgin")},
     "gcn-cora": "slice 6 (the non-KG arch families)",
     **{a: "slice 6 (the non-KG arch families)" for a in (
         "mistral-large-123b", "codeqwen1.5-7b", "stablelm-12b",
@@ -28,6 +36,17 @@ NOT_PORTED = {
         "xdeepfm", "fm")},
 }
 
+
+# the kernels of a KG model's training step: (at FP32, added at INT-b)
+PATH_KERNELS = {
+    "kgat": (("spmm", "sddmm", "segment_sum"),
+             ("quant_pack", "dequant_sddmm", "dequant_matmul")),
+    "kgcn": (("spmm", "sddmm", "segment_sum"),
+             ("quant_pack", "dequant_sddmm", "dequant_matmul")),
+    "kgin": (("segment_sum",), ("quant_pack",)),
+    "rgcn": (("spmm", "sddmm", "segment_sum"),
+             ("quant_pack", "dequant_matmul")),
+}
 
 # the reference's defaults (repro/models/registry.py)
 DATA_SEED = 2
@@ -55,7 +74,8 @@ def build_step(arch: str, *, ds=None, cfg=None, batch_size: int = 512,
         cfg = kgnn.KGNNConfig(
             model=spec.model_cfg.model, n_users=ds.n_users,
             n_entities=ds.n_entities, n_relations=ds.n_relations, dim=DIM,
-            n_layers=N_LAYERS, readout="concat")
+            n_layers=N_LAYERS,
+            readout="concat" if spec.model_cfg.model == "kgat" else "sum")
     g = graph if graph is not None else ds.graph(dev)
 
     def init(seed: int = 0):
@@ -72,6 +92,30 @@ def build_step(arch: str, *, ds=None, cfg=None, batch_size: int = 512,
     return ModelStep(arch=spec.name, family=spec.family, cfg=cfg, init=init,
                      loss=loss, batches=batches, lr=LR,
                      data={"graph": g, "dataset": ds})
+
+
+def arch_of(model: str) -> str:
+    """The arch id whose step trains KG ``model``: R-GCN has none of its
+    own and trains as kgat's step with its own config."""
+    return "kgat" if model == "rgcn" else model
+
+
+def model_config(model: str, spec=get):
+    """The config of KG ``model`` from ``spec(arch)`` (an ``ArchSpec``:
+    ``configs.get``, or a reduced one): the arch's own, and for R-GCN
+    KGAT's with ``model="rgcn"`` and readout sum (4 bases, the config's
+    default)."""
+    cfg = spec(arch_of(model)).model_cfg
+    if model == "rgcn":
+        cfg = dataclasses.replace(cfg, model="rgcn", readout="sum")
+    return cfg
+
+
+def path_kernels(model: str, packed: bool) -> tuple[str, ...]:
+    """The kernels a training step of KG ``model`` launches, with INT-b
+    sites (``packed``) or at FP32."""
+    fp32, more = PATH_KERNELS[model]
+    return fp32 + (more if packed else ())
 
 
 def archs() -> list[str]:

@@ -25,7 +25,8 @@ from repro_torch.core.context import act_context
 from repro_torch.kernels.backend import full_fp32
 from repro_torch.models.layers import param_leaves
 
-__all__ = ["ModelStep", "make_train_step", "trainable", "enter_or_null"]
+__all__ = ["ModelStep", "step_metadata", "make_train_step", "trainable",
+           "enter_or_null"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +39,24 @@ class ModelStep:
     batches: Callable[[], Iterator]
     lr: float = 1e-3               # launcher default learning rate
     data: dict = dataclasses.field(default_factory=dict)  # bound data refs
+
+    def metadata(self) -> dict:
+        """Checkpoint-facing identity (see ``step_metadata``)."""
+        return {"arch": self.arch, "family": self.family,
+                "model": getattr(self.cfg, "model", self.family)}
+
+
+def step_metadata(step: ModelStep, schedule_spec: str | None = None) -> dict:
+    """The identity a checkpoint carries, so that a restore cannot silently
+    resume another run: the step's ``metadata()`` and the CLI-level
+    schedule string (``"int8"``, ``"first_layer_int8_rest_int2"``, ...).
+    ``training.checkpoint.check_meta`` refuses a restore under another
+    arch, model or schedule. (The reference adds the mesh and the table
+    placement of sharded runs; the port runs on one device.)"""
+    meta = step.metadata()
+    if schedule_spec is not None:
+        meta["schedule"] = str(schedule_spec)
+    return meta
 
 
 def enter_or_null(ctx) -> contextlib.AbstractContextManager:

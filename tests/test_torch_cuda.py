@@ -11,6 +11,8 @@ training paths' full-width shapes.
 
 from __future__ import annotations
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -30,12 +32,15 @@ from repro_torch.launch.serve import reduced_dataset, serve_kgnn
 from repro_torch.launch.train import train_kgnn
 from repro_torch.models import kgnn
 from repro_torch.models.layers import param_leaves
-from repro_torch.models.registry import build_step
+from repro_torch.models.registry import arch_of, build_step, model_config, \
+    path_kernels
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.scorer import quantize_query, two_stage_topk
 from repro_torch.serving.store import QuantizedEmbeddingStore
 from repro_torch.training.optimizer import adam
-from repro_torch.training.step import make_train_step, trainable
+from repro_torch.training.step import make_train_step, step_metadata, \
+    trainable
+from repro_torch.training.trainer import Trainer, TrainerConfig
 
 SERVING = ("quant_pack", "spmm", "topk_score")
 
@@ -374,12 +379,81 @@ def test_reduced_training_runs_the_kernels(cuda, bits):
         runs[str(dev)] = train_kgnn(
             cfg, ds, kgnn.init_params(cfg, device=dev), sched, 3, batch=32,
             device=dev, log=lambda _: None)
-    want = ("spmm", "sddmm", "segment_sum") + (
-        ("quant_pack", "dequant_sddmm", "dequant_matmul") if bits else ())
     launches = runs[str(cuda)]["steps"][0]["launches"]
-    assert all(launches.get(k, 0) > 0 for k in want), launches
+    assert all(launches.get(k, 0) > 0
+               for k in path_kernels("kgat", bool(bits))), launches
     losses = [[r["loss"] for r in run["steps"]] for run in runs.values()]
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+
+@pytest.mark.parametrize("model", ["kgcn", "kgin", "rgcn"])
+def test_reduced_kg_models_run_the_kernels_and_repeat(cuda, model):
+    """Three reduced INT2 steps of KGCN, KGIN and R-GCN on the card follow
+    the CPU's plain versions, launch their path's kernels, and two steps
+    from one state give the same bits."""
+    cfg = model_config(model, lambda a: reduced(get(a)))
+    ds = reduced_dataset(cfg)
+    sched = schedule_from_cli(None, 2)
+    runs = {}
+    for dev in ("cpu", cuda):
+        runs[str(dev)] = train_kgnn(
+            cfg, ds, kgnn.init_params(cfg, device=dev), sched, 3, batch=32,
+            device=dev, log=lambda _: None)
+    launches = runs[str(cuda)]["steps"][0]["launches"]
+    assert all(launches.get(k, 0) > 0
+               for k in path_kernels(model, packed=True)), launches
+    losses = [[r["loss"] for r in run["steps"]] for run in runs.values()]
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+    step = build_step(arch_of(model), ds=ds, cfg=cfg, batch_size=32,
+                      device=cuda)
+    opt = adam(step.lr)
+    params = trainable(step.init(0))
+    batch = next(step.batches())
+    train = make_train_step(step, opt, schedule=sched, root_seed=1)
+    state, _ = train((params, opt.init(params)), batch, 0)
+    (p1, o1), m1 = train(_clone_state(state), batch, 1)
+    (p2, o2), m2 = train(_clone_state(state), batch, 1)
+    assert torch.equal(m1["loss"], m2["loss"])
+    for a, b in zip(param_leaves(p1) + o1["mu"] + o1["nu"],
+                    param_leaves(p2) + o2["mu"] + o2["nu"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bits", [0, 2])
+def test_replayed_step_bit_identical_on_card(cuda, tmp_path, bits):
+    """Step 3 from the step-2 checkpoint, restored from disk into a fresh
+    trainer on the card, on step 3's batch: the same loss, parameters and
+    Adam moments as the uninterrupted run, bit for bit."""
+    cfg = reduced(get("kgat")).model_cfg
+    step = build_step("kgat", ds=reduced_dataset(cfg), cfg=cfg,
+                      batch_size=32, device=cuda)
+    opt = adam(step.lr)
+    train = make_train_step(step, opt, schedule=schedule_from_cli(None, bits),
+                            root_seed=1)
+    batches = [b for _, b in zip(range(3), step.batches())]
+
+    def trainer(name, data):
+        p = trainable(step.init(0))
+        return Trainer(train, (p, opt.init(p)), iter(data),
+                       TrainerConfig(total_steps=3, ckpt_every=2,
+                                     ckpt_dir=str(tmp_path / name)),
+                       ckpt_meta=step_metadata(step, f"int{bits}"),
+                       log_fn=lambda _: None)
+
+    first = trainer("a", batches)
+    p1, o1 = first.run()
+    (tmp_path / "b").mkdir()
+    shutil.copytree(tmp_path / "a" / "step_0000000002",
+                    tmp_path / "b" / "step_0000000002")
+    replay = trainer("b", batches[2:]).restore_if_available()
+    assert replay.step == 2
+    p2, o2 = replay.run()
+    assert replay.history[0]["loss"] == first.history[2]["loss"]
+    assert o1["step"] == o2["step"] == 3
+    for a, b in zip(param_leaves(p1) + o1["mu"] + o1["nu"],
+                    param_leaves(p2) + o2["mu"] + o2["nu"]):
+        assert a.is_cuda and torch.equal(a, b)
 
 
 N_COARSE = 3001                  # not a multiple of the 128-item chunk

@@ -42,8 +42,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert len(files) > 20
     scanned = {f.relative_to(ROOT).as_posix() for f in files}
     assert {f"src/repro_torch/{m}.py" for m in (
-        "obs/metrics", "obs/trace", "serving/cache", "serving/refresh",
-        "serving/engine", "serving/scorer")} <= scanned
+        "obs/metrics", "obs/trace", "obs/log", "obs/sinks", "serving/cache",
+        "serving/refresh", "serving/engine", "serving/scorer",
+        "training/checkpoint", "training/trainer", "training/step",
+        "core/memory", "launch/train", "launch/serve")} <= scanned
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
