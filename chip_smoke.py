@@ -7,7 +7,7 @@ their plain versions.
 1. Prints the card's name and power limit as nvidia-smi reports them.
 2. Builds the kernels of the serving and training paths from
    src/repro_torch/csrc for sm_90a (one nvcc per source, started together,
-   while the full-width dataset is generated) and prints ptxas's
+   while the full-width datasets are generated) and prints ptxas's
    register/spill report; fails if the dequant-matmul or dequant-unpack
    kernels spill.
 3. For each kernel, at the shapes its path gives it, compares the kernel
@@ -159,9 +159,38 @@ their plain versions.
    lines 5-8); steps.jsonl, summary.json (the port's validator) and the
    trace's train spans must exist; --arch kgin on that directory must be
    refused.
-12. Prints the kernels JSON line (launches per path: serve, serve_tier2,
-    train_<schedule>, train_<model>_<schedule>), the card's line, then last
-    the ok line.
+12. Sampled minibatch training on the zipf-skewed graph of the same size
+    (``gen_zipf_kg_dataset(**AMAZON_BOOK_ZIPF)``, generated beside the build
+    and printed as [data-zipf]: nodes, edges, largest in-degree).
+    [sampled-kernels] (run with the kernel checks of 3): on the first batch's
+    outermost block (batch 256, fanouts 15,10,5: 135,168 <- 811,008 rows,
+    675,840 slots, trailing all-pad blocks, masked slots), the SPMM (d 64,
+    d 64 transposed, d 1), the fp32 SDDMM (d 64), the packed SDDMM (INT2),
+    the dequant-matmul (INT2, the block's 135,168 destination rows) and the
+    segment sum (by relation and by source at d 64, by destination at d 1)
+    within 1e-5 relative of their plain versions and bit-identical across
+    two runs, each timed beside its library call and bound
+    (``sampled_shape`` in the kernels line).
+    [sampled]: ``training.tiering.run_sampled_training`` at the paper's
+    width (fanouts 15,10,5, batch 256, hot_frac 0.1, Adam 3e-3, root seed
+    1): KGAT FP32 and INT2 8 steps, KGCN, KGIN and R-GCN INT2 4 steps, KGAT
+    INT2 with no hot tier 4 steps; counts reset just before and read just
+    after each run, every kernel of the model's path launched, the same
+    launches every step, losses finite, peak memory below the full-graph
+    KGAT step's. Prints the median step, the four spans' medians
+    (dispatch, gather, scatter, patch), peak memory, hit rate, rows per
+    step, hot-tier and table MiB, ACT bytes, launches per step, and the
+    rows-per-step ratio of hot_frac 0.1 to hot_frac 0.
+    [sampled-determinism]: two KGAT INT2 runs of 4 steps from one seed and
+    one on the sequential schedule (no prefetch, no patch): losses, dense
+    parameters and the flushed entity table bit-identical; the first run
+    under torch.profiler: no index_add_ kernel, device busy time a step and
+    idle share printed.
+    [sampled-reduced]: three reduced sampled INT2 steps of each KG model on
+    the card against the CPU's plain versions, losses within 1e-4.
+13. Prints the kernels JSON line (launches per path: serve, serve_tier2,
+    train_<schedule>, train_<model>_<schedule>, train_sampled_<model>_
+    <schedule>), the card's line, then last the ok line.
 
 Exits non-zero, printing no result, without CUDA, outside a checkout of the
 repository, or when any check fails.
@@ -201,6 +230,12 @@ SCHEDULES = ("fp32", "int8", "int4", "int2")
 KG_MODELS = ("kgcn", "kgin", "rgcn")   # the KG layers beside KGAT
 KG_SCHEDULES = ("fp32", "int2")
 KG_STEPS = 3                 # per model and schedule
+# sampled minibatch training (--sample) on the zipf graph of that size
+SAMPLED_FANOUTS = (15, 10, 5)
+SAMPLED_BATCH = 256
+SAMPLED_RUNS = (("kgat", "fp32", 8, 0.1), ("kgat", "int2", 8, 0.1),
+                ("kgcn", "int2", 4, 0.1), ("kgin", "int2", 4, 0.1),
+                ("rgcn", "int2", 4, 0.1), ("kgat", "int2", 4, 0.0))
 GRAD_FP64_RATIO = 4.0
 GRAD_NOISE_SHARE = 1e-2
 ENGINE_BATCH = 8               # the engine's largest bucket
@@ -2050,6 +2085,297 @@ def check_served_path(torch, cfg, ds, g, params, res):
           "engine responses differ from the plain top-K")
 
 
+# -- neighbour-sampled minibatch training -------------------------------------
+
+
+def _sampled_step(zds, model):
+    """The sampled ``ModelStep`` of KG ``model`` at the paper's width, one
+    layer a fanout, with no full graph on the card."""
+    import dataclasses
+
+    from repro_torch.models.registry import arch_of, build_step, model_config
+
+    cfg = dataclasses.replace(model_config(model),
+                              n_layers=len(SAMPLED_FANOUTS))
+    return build_step(arch_of(model), ds=zds, cfg=cfg, device=DEV,
+                      device_graph=False)
+
+
+def check_sampled_kernels(torch, sp, dq, zds, gen):
+    """Each training kernel on the first sampled batch's outermost block
+    (batch 256, fanouts 15,10,5: about 135 k destinations, 811 k sources,
+    676 k edges, trailing all-pad blocks, masked slots): the SPMM (d 64,
+    its transpose, d 1), the fp32 SDDMM (d 64), the packed SDDMM (INT2),
+    the dequant-matmul (INT2, the block's destination rows) and the segment
+    sum (by relation d 64, by source d 64, by destination d 1) against
+    their plain versions within 1e-5 relative, bit-identical across two
+    runs; each timed beside its bound and library call. Returns the
+    timings by kernel name."""
+    from repro_torch.core.quant import dequantize, quantize
+    from repro_torch.data.minibatch import sampled_items
+
+    t0 = time.perf_counter()
+    item = next(sampled_items(zds, SAMPLED_FANOUTS, batch_size=SAMPLED_BATCH,
+                              seed=0))
+    sample_s = time.perf_counter() - t0
+    blk = item.view.blocks[0].to(DEV)
+    m = blk.layout.meta
+    n_real = int(blk.mask.sum())
+    log(f"[sampled-kernels] first batch sampled in {sample_s:.2f} s; "
+        f"outermost block {m.n_dst} <- {m.n_src} rows, {m.n_edges} slots "
+        f"({n_real} sampled, {m.n_edges - n_real} masked), "
+        f"{m.n_blocks} / {m.t_n_blocks} blocks of {m.block_e} "
+        f"(static caps, pad slots {m.n_blocks * m.block_e - m.n_edges} / "
+        f"{m.t_n_blocks * m.block_e - m.n_edges})")
+    check(m.n_src > m.n_dst and n_real < m.n_edges
+          and m.n_blocks * m.block_e > m.n_edges, "block shape")
+    ew = torch.rand(m.n_edges, generator=gen, device=DEV) * blk.mask
+    x = torch.randn((m.n_src, 64), generator=gen, device=DEV) * 0.1
+    g = torch.randn((m.n_dst, 64), generator=gen, device=DEV) * 1e-3
+    ones = torch.ones((m.n_src, 1), device=DEV)
+    q = quantize(x, 0x5A, bits=2, stochastic=True)
+    xd = x[:m.n_dst].contiguous()
+    qd = quantize(xd, 0x5B, bits=2, stochastic=True)
+    y = torch.randn((m.n_edges, 64), generator=gen, device=DEV) * 1e-3
+    sddmm_lib, pos = _sddmm_library(torch, blk)
+    dp = q.packed.shape[1]
+    E = m.n_edges
+
+    def spmm_case(xin, tr):
+        a = _spmm_library(torch, blk, ew, tr)
+        n_out = m.n_src if tr else m.n_dst
+        d = xin.shape[1]
+        return (f"spmm d={d}{' transpose' if tr else ''}", "spmm",
+                lambda: sp.spmm_cuda(xin, ew, blk.layout, transpose=tr),
+                lambda: sp.spmm_plain(xin, ew, blk.layout, transpose=tr),
+                lambda: torch.sparse.mm(a, xin),
+                xin.shape[0] * d * 4 + E * 8 + (n_out + 1) * 4
+                + n_out * d * 4, 2 * E * d)
+
+    def seg_case(kind, levels, rows, d):
+        ids = {"rel": blk.rel, "src": blk.src, "dst": blk.dst}[kind].long()
+        n_out = levels[-1].n_out
+        yy = rows[:, :d].contiguous()
+        return (f"segment_sum by {kind} d={d}", "segment_sum",
+                lambda: sp.segment_sum_cuda(yy, levels),
+                lambda: sp.segment_sum_plain(yy, levels),
+                lambda: torch.zeros((n_out, d), device=DEV).index_add_(
+                    0, ids, yy),
+                E * (d + 1) * 4 + n_out * (d + 2) * 4, E * d)
+
+    cases = [
+        spmm_case(x, False), spmm_case(g, True), spmm_case(ones, False),
+        ("sddmm d=64", "sddmm", lambda: sp.sddmm_cuda(x, g, blk.layout),
+         lambda: sp.sddmm_plain(x, g, blk.layout),
+         lambda: sddmm_lib(x, g), (m.n_src + m.n_dst) * 64 * 4 + E * 12,
+         2 * E * 64),
+        ("dequant_sddmm INT2 d=64", "dequant_sddmm",
+         lambda: sp.dequant_sddmm_cuda(q, g, blk.layout),
+         lambda: sp.dequant_sddmm_plain(q, g, blk.layout),
+         lambda: sddmm_lib(dequantize(q), g),
+         m.n_src * (dp + 8) + m.n_dst * 64 * 4 + E * 12,
+         2 * E * 64 + 2 * m.n_src * 64),
+        (f"dequant_matmul INT2 R={m.n_dst} 64x64", "dequant_matmul",
+         lambda: dq.dequant_matmul_cuda(qd, g),
+         lambda: dq.dequant_matmul_plain(qd, g),
+         lambda: dequantize(qd).T @ g,
+         m.n_dst * (dp + 8) + m.n_dst * 64 * 4 + 64 * 64 * 4,
+         3 * 2 * m.n_dst * 64 * 64),
+        seg_case("rel", blk.rel_runs, y, 64),
+        seg_case("src", blk.layout.runs(transpose=True), y, 64),
+        seg_case("dst", blk.layout.runs(), y, 1),
+    ]
+    out = {}
+    for label, name, kernel, plain, library, n_bytes, n_ops in cases:
+        got = kernel()
+        same = torch.equal(got, kernel())
+        ref = plain()
+        lib_out = library()
+        if name in ("sddmm", "dequant_sddmm"):
+            lib_out = lib_out.values()[pos]
+        rel, err = _rel(got, ref), float((got - ref).abs().max())
+        lib_rel = _rel(lib_out, ref)
+        log(f"[sampled-kernels] {label}: rel {rel:.3e} (max abs "
+            f"{err:.3e}), two runs {'bit-identical' if same else 'DIFFER'}"
+            f"; library rel {lib_rel:.3e}")
+        check(rel <= TOL and same, f"sampled {label}: rel {rel}, "
+              f"deterministic {same}")
+        check(lib_rel <= LIB_SUM_TOL, f"sampled {label}: library call "
+              f"disagrees ({lib_rel})")
+        ms = time_ms(kernel, 20)
+        plain_ms = time_ms(plain, 5)
+        lib_ms = time_ms(library, 20)
+        peak = BF16_FLOPS if name == "dequant_matmul" else FP32_FLOPS
+        bnd, by = bound_ms(n_bytes, n_ops, peak)
+        log(f"[sampled-kernels]   time: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bnd:.4f} "
+            f"ms ({by})")
+        out.setdefault(name, []).append(dict(
+            shape=f"sampled block E={E} n_dst={m.n_dst} n_src={m.n_src} "
+                  f"{label}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bnd, bound_by=by, library_ms=lib_ms))
+    return out
+
+
+def run_sampled(torch, zds, full_peak):
+    """Sampled minibatch training at the paper's width on the zipf graph
+    through ``run_sampled_training`` (fanouts 15,10,5, batch 256,
+    hot_frac 0.1, Adam 3e-3, root seed 1): KGAT under FP32 and INT2, KGCN,
+    KGIN and R-GCN under INT2, then KGAT INT2 with no hot tier. Launch
+    counts are reset just before each run and read just after; every
+    kernel of the model's path must have launched."""
+    from repro_torch.core.policy import parse_schedule
+    from repro_torch.kernels import backend
+    from repro_torch.launch.train import ROOT_SEED
+    from repro_torch.models.registry import path_kernels
+    from repro_torch.training.tiering import run_sampled_training
+
+    runs = {}
+    for model, label, steps, hot in SAMPLED_RUNS:
+        step = _sampled_step(zds, model)
+        torch.cuda.synchronize()
+        backend.reset_counts()
+        rep, _, _ = run_sampled_training(
+            step, fanouts=SAMPLED_FANOUTS, steps=steps,
+            batch_size=SAMPLED_BATCH, hot_frac=hot,
+            schedule=parse_schedule(label), root_seed=ROOT_SEED)
+        torch.cuda.synchronize()
+        counts = dict(backend.LAUNCH_COUNTS)
+        key = f"{model}_{label}" + ("" if hot else "_hot0")
+        name = key.replace("_", " ")
+        check(all(v % steps == 0 for v in counts.values()),
+              f"sampled {name}: launches differ between steps ({counts})")
+        per_step = {k: v // steps for k, v in counts.items()}
+        phases = {p: statistics.median(v) for p, v in rep.phase_ms.items()}
+        act = rep.act
+        r = runs[key] = dict(
+            counts=counts, per_step=per_step, losses=rep.losses,
+            step_ms=statistics.median(rep.step_ms_all),
+            rows=rep.rows_transferred_per_step, hit=rep.hit_rate,
+            peak=rep.peak_device_bytes)
+        log(f"[sampled] {name}: losses {[f'{v:.6f}' for v in rep.losses]}")
+        log(f"[sampled] {name}: step {r['step_ms']:.2f} ms median of "
+            f"{steps} (first {rep.step_ms_all[0]:.2f} ms); spans "
+            + ", ".join(f"{p} {v:.2f}" for p, v in phases.items())
+            + f" ms; max_memory_allocated {r['peak']} B "
+            f"({r['peak'] / 2**30:.2f} GiB; full-graph KGAT step "
+            f"{full_peak / 2**30:.2f} GiB)")
+        log(f"[sampled] {name}: hit rate {rep.hit_rate:.4f}, rows per step "
+            f"{rep.rows_transferred_per_step:.1f}, hot tier "
+            f"{rep.store_device_bytes / 2**20:.2f} MiB of "
+            f"{rep.table_bytes / 2**20:.2f} MiB table; ACT residual bytes "
+            f"{act['total_bytes']} (FP32 {act['total_fp32_bytes']}, "
+            f"{act['total_fp32_bytes'] / act['total_bytes']:.2f}x); "
+            f"launches per step {json.dumps(per_step, sort_keys=True)}; "
+            f"store {json.dumps(rep.stats, sort_keys=True)}")
+        check(all(math.isfinite(v) for v in rep.losses),
+              f"sampled {name}: non-finite loss")
+        for k in path_kernels(model, label != "fp32"):
+            check(counts.get(k, 0) > 0,
+                  f"kernel {k} never launched on the sampled {name} path")
+        check(0 < r["peak"] < full_peak, f"sampled {name}: peak {r['peak']}")
+        check(rep.hit_rate > 0 if hot else rep.hit_rate == 0,
+              f"sampled {name}: hit rate {rep.hit_rate}")
+    ratio = runs["kgat_int2"]["rows"] / runs["kgat_int2_hot0"]["rows"]
+    log(f"[sampled] rows per step, hot_frac 0.1 / hot_frac 0: "
+        f"{runs['kgat_int2']['rows']:.1f} / "
+        f"{runs['kgat_int2_hot0']['rows']:.1f} = {ratio:.4f}")
+    check(ratio < 1, "the hot tier moves no fewer rows")
+    return runs
+
+
+def check_sampled_determinism(torch, zds):
+    """Two sampled KGAT INT2 runs of 4 steps from one seed, and a run on
+    the sequential schedule (no prefetch, no patch): losses, dense
+    parameters and the flushed entity table bit-identical, without
+    torch.use_deterministic_algorithms; no kernel of the first run is an
+    index_add_ scatter (torch.profiler), whose device busy time a step and
+    idle share of the steps' wall time are printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.policy import parse_schedule
+    from repro_torch.launch.train import ROOT_SEED
+    from repro_torch.models.layers import param_leaves
+    from repro_torch.training.tiering import run_sampled_training
+
+    check(not torch.are_deterministic_algorithms_enabled(),
+          "deterministic algorithms are on")
+    step = _sampled_step(zds, "kgat")
+
+    def run(overlap):
+        rep, dense, store = run_sampled_training(
+            step, fanouts=SAMPLED_FANOUTS, steps=4, batch_size=SAMPLED_BATCH,
+            hot_frac=0.1, schedule=parse_schedule("int2"),
+            root_seed=ROOT_SEED, overlap=overlap)
+        return (rep.losses, param_leaves(dense), store.flush().copy(),
+                rep.step_ms_all)
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ref = run(True)
+    events = prof.key_averages()
+    scatter = sorted({e.key for e in events
+                      if "indexFunc" in e.key or "index_add" in e.key})
+    n_kernels = sum(e.count for e in events)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    wall = sum(ref[3])
+    log(f"[sampled-determinism] profiled kgat int2 run: device busy "
+        f"{busy / len(ref[3]):.2f} ms a step, steps "
+        f"{[round(t, 2) for t in ref[3]]} ms, idle share "
+        f"{1 - busy / wall:.3f}; by kernel, a step: " + ", ".join(
+            f"{e.key[:40]} {e.self_device_time_total / 1e3 / len(ref[3]):.2f}"
+            for e in sorted(events, key=lambda e: -e.self_device_time_total)
+            [:6]))
+    for label, got in (("second run", run(True)),
+                       ("sequential schedule", run(False))):
+        same = [got[0] == ref[0],
+                all(torch.equal(a, b) for a, b in zip(got[1], ref[1])),
+                bool((got[2] == ref[2]).all())]
+        log(f"[sampled-determinism] kgat int2, {label} against the first: "
+            f"losses {'bit-identical' if same[0] else 'DIFFER'}, "
+            f"{len(ref[1])} dense tensors "
+            f"{'bit-identical' if same[1] else 'DIFFER'}, flushed entity "
+            f"table {ref[2].shape} {'bit-identical' if same[2] else 'DIFFER'}")
+        check(all(same), f"sampled kgat int2: {label} differs")
+    log(f"[sampled-determinism] {n_kernels} device events in the first run; "
+        f"index_add_ scatter kernels: {scatter if scatter else 'none'}")
+    check(n_kernels > 0 and not scatter,
+          f"sampled steps scatter with index_add_: {scatter}")
+
+
+def check_sampled_reduced(torch):
+    """Three reduced sampled INT2 steps of each KG model (zipf graph of 60
+    users, d 16, fanouts 3,2, batch 16) on the card against the CPU's plain
+    versions: losses within 1e-4 relative (as check_reduced_kg)."""
+    from repro_torch.core.policy import parse_schedule
+    from repro_torch.data.synthetic import gen_zipf_kg_dataset
+    from repro_torch.models import kgnn
+    from repro_torch.models.registry import arch_of, build_step
+    from repro_torch.training.tiering import run_sampled_training
+
+    ds = gen_zipf_kg_dataset(n_users=60, n_items=100, n_attrs=40,
+                             n_triples=600, seed=0)
+    for model in ("kgat",) + KG_MODELS:
+        cfg = kgnn.KGNNConfig(
+            model=model, n_users=ds.n_users, n_entities=ds.n_entities,
+            n_relations=ds.n_relations, dim=16, n_layers=2,
+            readout="concat" if model == "kgat" else "sum")
+        losses = {}
+        for dev in ("cpu", DEV):
+            step = build_step(arch_of(model), ds=ds, cfg=cfg, device=dev,
+                              device_graph=False)
+            rep, _, _ = run_sampled_training(
+                step, fanouts=(3, 2), steps=3, batch_size=16, hot_frac=0.2,
+                refresh_every=2, schedule=parse_schedule("int2"),
+                root_seed=1)
+            losses[dev] = rep.losses
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses[DEV],
+                                                       losses["cpu"]))
+        log(f"[sampled-reduced] {model} INT2, card vs CPU plain versions: "
+            f"losses {[f'{v:.6f}' for v in losses[DEV]]}, max rel {rel:.3e}")
+        check(rel <= 1e-4, f"reduced sampled {model} differs from the CPU "
+              f"by {rel}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2092,9 +2418,20 @@ def main() -> int:
         f"count {info.count}")
     backend.require_sm90(torch.device("cuda", 0))
 
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    def zipf_graph():
+        import numpy as np
+
+        from repro_torch.configs.kgnn_paper import AMAZON_BOOK_ZIPF
+        from repro_torch.data.synthetic import gen_zipf_kg_dataset
+
+        t = time.perf_counter()
+        zds = gen_zipf_kg_dataset(**AMAZON_BOOK_ZIPF)
+        return zds, int(np.bincount(zds.dst).max()), time.perf_counter() - t
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
         t0 = time.perf_counter()
         build = pool.submit(backend.build)
+        zipf = pool.submit(zipf_graph)
         cfg = get("kgat").model_cfg
         ds = gen_kg_dataset(**DATASET)
         log(f"[data] CKG: {ds.n_nodes} nodes, {len(ds.src)} edges, "
@@ -2104,6 +2441,14 @@ def main() -> int:
         check(ds.n_nodes == cfg.n_nodes and ds.n_relations == cfg.n_relations
               and ds.n_users == cfg.n_users, "dataset does not fit the config")
         logs = build.result()
+        zds, max_deg, zipf_s = zipf.result()
+    log(f"[data-zipf] zipf CKG (a 1.1) of the same size: {zds.n_nodes} "
+        f"nodes, {len(zds.src)} edges, {zds.n_relations} relations, max "
+        f"in-degree {max_deg}, {len(zds.train_pos)} train pairs "
+        f"({zipf_s:.1f} s, beside the build)")
+    check(zds.n_nodes == cfg.n_nodes and zds.n_relations == cfg.n_relations
+          and zds.n_users == cfg.n_users, "zipf dataset does not fit the "
+          "config")
     log(f"[build] nvcc {' '.join(backend.NVCC_FLAGS)} "
         f"({time.perf_counter() - t0:.1f} s incl. data)")
     for name, text in logs.items():
@@ -2144,6 +2489,10 @@ def main() -> int:
                check_dequant_matmul(torch, dq, gen),
                check_coarse(torch, tk, gen),
                check_dequant_unpack(torch, qp, gen)]
+    sampled_shapes = check_sampled_kernels(torch, sp, dq, zds, gen)
+    for e in entries:
+        if e["name"] in sampled_shapes:
+            e["sampled_shape"] = sampled_shapes[e["name"]]
     check_reduced_rollout(torch)
 
     counts, res = run_main_path(torch, cfg, ds, g, params)
@@ -2169,9 +2518,14 @@ def main() -> int:
         torch.cuda.empty_cache()
     check_replay(torch, cfg, ds, g)
     check_launch(torch)
+    del g
+    torch.cuda.empty_cache()
+    runs_s = run_sampled(torch, zds, runs["int2"]["peak"])
+    check_sampled_determinism(torch, zds)
+    check_sampled_reduced(torch)
     # launches: the sum over the main-path runs (serving, then training
-    # KGAT under each schedule and KGCN, KGIN, R-GCN under FP32 and INT2),
-    # each counted from 0 just before it
+    # KGAT under each schedule and KGCN, KGIN, R-GCN under FP32 and INT2,
+    # then the sampled runs), each counted from 0 just before it
     for e in entries:
         by_path = {"serve": counts.get(e["name"], 0),
                    "serve_tier2": counts_t2.get(e["name"], 0)}
@@ -2179,17 +2533,23 @@ def main() -> int:
                         for label, r in runs.items()})
         by_path.update({f"train_{key}": r["counts"].get(e["name"], 0)
                         for key, r in runs_kg.items()})
+        by_path.update({f"train_sampled_{key}": r["counts"].get(e["name"], 0)
+                        for key, r in runs_s.items()})
         e["launches_by_path"] = by_path
         e["launches_per_train_step"] = {
             label: r["per_step"].get(e["name"], 0)
             for label, r in {**runs, **runs_kg}.items()}
+        e["launches_per_train_step"].update({
+            f"train_sampled_{key}": r["per_step"].get(e["name"], 0)
+            for key, r in runs_s.items()})
         e["launches"] = sum(by_path.values())
         check(e["launches"] > 0, f"kernel {e['name']} never launched")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_by_path", "launches_per_train_step")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    optional = ("also_replaces", "other_shape", "library_call",
+    optional = ("also_replaces", "other_shape", "sampled_shape",
+                "library_call",
                 "kernels_per_call", "device_ms", "library_device_ms",
                 "device_ms_by_kernel")
     print(json.dumps({"kernels": [

@@ -8,6 +8,14 @@ from .base import ArchSpec, _s
 # Amazon-Book statistics from paper Table 1
 _AB = dict(n_users=70679, n_entities=88572 + 24915, n_relations=2 * 39 + 2)
 
+# the synthetic graphs of that size (data.synthetic): the latent-factor CKG
+# the full-graph paths train and serve on, and the zipf-skewed one of the
+# sampled path (hot/cold tiering; paper-scale node and relation counts)
+AMAZON_BOOK_CKG = dict(n_users=70679, n_items=24915, n_attrs=88572,
+                       n_relations=39, n_triples=2557746, inter_per_user=12,
+                       seed=0)
+AMAZON_BOOK_ZIPF = dict(AMAZON_BOOK_CKG, zipf_a=1.1)
+
 _KG_SHAPES = (
     _s("paper_full", "kgnn_train", n_triples=2 * 2557746 + 2 * 847733,
        batch=1024),

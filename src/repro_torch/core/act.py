@@ -285,11 +285,16 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(fctx, table, idx, runs):
         fctx.runs = runs
+        fctx.n_rows = table.shape[0]
         return table.index_select(0, idx)
 
     @staticmethod
     def backward(fctx, g):
-        return ops.segment_sum(g, fctx.runs), None, None
+        out = ops.segment_sum(g, fctx.runs)
+        extra = fctx.n_rows - out.shape[0]
+        if extra:
+            out = torch.cat([out, out.new_zeros((extra,) + out.shape[1:])])
+        return out, None, None
 
 
 def gather_rows(table, idx, runs):
@@ -297,7 +302,10 @@ def gather_rows(table, idx, runs):
     ``grad_table[v] = Σ grad_out[e]`` over the edges ``e`` with
     ``idx[e] == v``, summed in the order ``runs`` gives them
     (``data.csr.SegmentRuns`` levels, which must group exactly the edges of
-    ``idx``): the same bits every run, on the card too."""
+    ``idx``): the same bits every run, on the card too. The runs may cover
+    fewer rows than the table (a sampled block gathers from a prefix of a
+    wider table, ``models.kgnn.BlockView``): the rows past them get zero
+    gradient."""
     return _GatherRows.apply(table, idx, runs)
 
 

@@ -13,12 +13,17 @@ the same order as the JAX package, so the arrays are identical
 Pad slots carry ``perm = n_edges``, so ``append(ew, 0)[perm]`` puts the edge
 weights in slot order and zeroes the pads. The transpose direction (edges
 sorted by source) comes from the same builder run on the reversed edges.
+With ``pad_static=True`` each direction is padded to ``static_block_caps``
+blocks by all-pad blocks appended to the last tile, so every layout of one
+(edge count, row counts, block sizes) has the same geometry: the sampled
+minibatch path's blocks (``data.minibatch``).
 
 The port adds, for each direction, the slot run of every output row:
 ``row_start[r] .. row_end[r]`` are the slots of row ``r``'s edges (empty
 rows have ``row_start == row_end``). A tile's real slots are sorted by
-destination and its pad slots come after them, so each run is contiguous
-and holds no pad slot. The CUDA SPMM kernel gives each row a warp and finds
+destination and its pad slots come after them, and the static pad blocks
+come after every tile's slots, so each run is contiguous and holds no pad
+slot. The CUDA SPMM kernel gives each row a warp and finds
 its slots through these two arrays.
 """
 
@@ -30,7 +35,9 @@ import numpy as np
 import torch
 
 __all__ = ["CSRMeta", "SpmmLayout", "Direction", "SegmentRuns",
-           "build_spmm_layout", "relation_runs", "attach_layout"]
+           "static_block_caps", "build_spmm_layout", "relation_runs",
+           "attach_layout", "map_tensors", "to_device", "stable_argsort",
+           "group_ids"]
 
 REL_CHUNK = 256   # slots a relation chunk holds (relation_runs)
 
@@ -127,12 +134,78 @@ class SpmmLayout:
                             dr.row_end, dr.n_out, self.meta.n_edges),)
 
 
+def stable_argsort(keys, n_keys: int) -> np.ndarray:
+    """``np.argsort(keys, kind="stable")`` of integer keys in
+    ``[0, n_keys)``: the same permutation, from one or two stable sorts of
+    16-bit digits, which numpy sorts by radix in linear time (the sampled
+    path sorts hundreds of thousands of ids a batch)."""
+    keys = np.asarray(keys)
+    if not keys.size or n_keys > 1 << 32 or keys.min() < 0 \
+            or keys.max() >= n_keys:
+        return np.argsort(keys, kind="stable")
+    if n_keys <= 1 << 16:
+        return np.argsort(keys.astype(np.uint16), kind="stable")
+    lo = np.argsort((keys & 0xFFFF).astype(np.uint16), kind="stable")
+    hi = (keys[lo] >> 16).astype(np.uint16)
+    return lo[np.argsort(hi, kind="stable")]
+
+
+def group_ids(ids, n_ids: int):
+    """The groups of equal integer ids in ``[0, n_ids)``: ``(uniq, first,
+    inv, order, counts)``, where ``uniq``, ``first``, ``inv`` and
+    ``counts`` are ``np.unique(ids, return_index=True,
+    return_inverse=True, return_counts=True)``'s and ``order`` is the
+    stable sort of ``ids`` (each group's positions in position order, the
+    groups in ``uniq``'s)."""
+    ids = np.asarray(ids).reshape(-1)
+    order = stable_argsort(ids, n_ids)
+    s = ids[order]
+    head = np.empty(len(s), bool)
+    head[:1] = True
+    np.not_equal(s[1:], s[:-1], out=head[1:])
+    starts = np.nonzero(head)[0]
+    inv = np.empty(len(s), np.int64)
+    inv[order] = np.cumsum(head) - 1
+    return (s[starts], order[starts], inv, order,
+            np.diff(np.append(starts, len(s))))
+
+
+def map_tensors(obj, fn):
+    """A copy of a layout, a ``SegmentRuns`` level or a tuple of them with
+    ``fn`` applied to every tensor."""
+    if isinstance(obj, tuple):
+        return tuple(map_tensors(o, fn) for o in obj)
+    return dataclasses.replace(obj, **{
+        f.name: fn(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def to_device(obj, device):
+    """``map_tensors`` moving every tensor to ``device`` (asynchronously
+    from pinned host memory)."""
+    return map_tensors(obj, lambda t: t.to(device, non_blocking=True))
+
+
+def static_block_caps(n_edges: int, n_out: int, *, block_e: int = 256,
+                      block_rows: int = 256) -> int:
+    """The most blocks ``_build_direction`` makes for any assignment of
+    ``n_edges`` edges to ``n_out`` output rows: each tile wastes less than
+    one block and makes at least one, so
+    ``sum_i ceil(c_i / block_e) <= floor(E / block_e) + n_tiles``."""
+    n_tiles = max(1, -(-n_out // block_rows))
+    return n_edges // block_e + n_tiles
+
+
 def _build_direction(gather_ids: np.ndarray, out_ids: np.ndarray,
-                     n_out: int, block_e: int, block_rows: int):
-    """Slot arrays for one aggregation direction (into ``n_out`` rows)."""
+                     n_out: int, block_e: int, block_rows: int,
+                     pad_to_blocks: int | None = None):
+    """Slot arrays for one aggregation direction (into ``n_out`` rows).
+    ``pad_to_blocks`` appends all-pad blocks (``perm == n_edges``) to the
+    last tile until the layout has that many; they lie after every row's
+    run."""
     E = int(out_ids.shape[0])
     n_tiles = max(1, -(-n_out // block_rows))
-    order = np.argsort(out_ids, kind="stable").astype(np.int64)
+    order = stable_argsort(out_ids, n_out).astype(np.int64)
     gat_s = gather_ids[order]
     out_s = out_ids[order]
     tile_of_edge = out_s // block_rows
@@ -156,6 +229,21 @@ def _build_direction(gather_ids: np.ndarray, out_ids: np.ndarray,
     perm_blk[slot] = order
     tile_of_blk = np.repeat(np.arange(n_tiles, dtype=np.int32),
                             blocks_per_tile)
+    if pad_to_blocks is not None:
+        if n_blocks > pad_to_blocks:
+            raise ValueError(
+                f"layout needs {n_blocks} blocks, static cap is "
+                f"{pad_to_blocks} (E={E}, n_out={n_out})")
+        extra = pad_to_blocks - n_blocks
+        if extra:
+            pad = extra * block_e
+            gat_blk = np.concatenate([gat_blk, np.zeros(pad, np.int32)])
+            outg_blk = np.concatenate([outg_blk, np.zeros(pad, np.int32)])
+            lrow_blk = np.concatenate([lrow_blk, np.zeros(pad, np.int32)])
+            perm_blk = np.concatenate([perm_blk, np.full(pad, E, np.int32)])
+            tile_of_blk = np.concatenate([
+                tile_of_blk, np.full(extra, n_tiles - 1, np.int32)])
+        n_blocks = pad_to_blocks
     # row r's edges are sorted positions first[r] .. first[r] + deg[r]; its
     # tile places them from tile_slot0 on, in that order
     deg = np.bincount(out_s, minlength=n_out)[:n_out]
@@ -171,10 +259,10 @@ def _build_direction(gather_ids: np.ndarray, out_ids: np.ndarray,
 
 def build_spmm_layout(src, dst, *, n_dst: int, n_src: int | None = None,
                       block_e: int = 256, block_rows: int = 256,
-                      device="cuda") -> SpmmLayout:
+                      pad_static: bool = False, device="cuda") -> SpmmLayout:
     """One-time host-side preprocessing of a COO edge list; the arrays land
-    on ``device``. (The JAX builder's ``pad_static`` block caps, which the
-    sampled-minibatch path needs, come with that slice.)"""
+    on ``device``. ``pad_static`` pads both directions to
+    ``static_block_caps`` blocks (the sampled blocks' fixed geometry)."""
     from repro_torch.kernels.backend import resolve_device
 
     dev = resolve_device(device)
@@ -184,12 +272,17 @@ def build_spmm_layout(src, dst, *, n_dst: int, n_src: int | None = None,
         raise ValueError(f"bad edge list shapes {src.shape}/{dst.shape}")
     n_src = int(n_src if n_src is not None else n_dst)
     E = int(src.shape[0])
+
+    def cap(n_out):
+        return static_block_caps(E, n_out, block_e=block_e,
+                                 block_rows=block_rows) if pad_static else None
+
     (src_blk, dstg_blk, ldst_blk, perm_blk, tile_of_blk, row_start, row_end,
      n_blocks, n_tiles) = _build_direction(src, dst, n_dst,
-                                           block_e, block_rows)
+                                           block_e, block_rows, cap(n_dst))
     (t_src_blk, _t_outg, t_ldst_blk, t_perm_blk, t_tile_of_blk, t_row_start,
      t_row_end, t_n_blocks, t_n_tiles) = _build_direction(
-        dst, src, n_src, block_e, block_rows)
+        dst, src, n_src, block_e, block_rows, cap(n_src))
     if max(n_blocks, t_n_blocks) * block_e >= 2**31:
         raise ValueError("layout slot count exceeds int32 indexing")
     meta = CSRMeta(n_src=n_src, n_dst=int(n_dst), n_edges=E,
@@ -221,7 +314,7 @@ def relation_runs(rel, n_relations: int, *, chunk: int = REL_CHUNK,
     rel = np.asarray(rel, dtype=np.int64)
     if chunk < 2:
         raise ValueError(f"chunk must be at least 2, got {chunk}")
-    perm = np.argsort(rel, kind="stable")
+    perm = stable_argsort(rel, n_relations)
     counts = np.bincount(rel, minlength=n_relations)[:n_relations]
     n_rows = int(rel.shape[0])
 

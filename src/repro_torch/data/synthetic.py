@@ -1,14 +1,14 @@
-"""Synthetic KG recommendation dataset and BPR sampler (port of
-``repro/data/synthetic.py:31-131,184-197``).
+"""Synthetic KG recommendation datasets and BPR sampler (port of
+``repro/data/synthetic.py:31-197``).
 
-``gen_kg_dataset`` and ``bpr_batches`` make the same numpy calls in the same
-order as the JAX package's, so the same arguments and seed give identical
-arrays. The dataset is latent-factor user/item affinities plus an item KG
-whose relations link items to attributes that share latent directions. The
-CKG node space is
-``[users | items | attrs]``; relation 0 is ``interact`` (both directions), KG
-relations are shifted by 1 with distinct inverses, and self loops take the
-last relation id.
+``gen_kg_dataset``, ``gen_zipf_kg_dataset`` and ``bpr_batches`` make the
+same numpy calls in the same order as the JAX package's, so the same
+arguments and seed give identical arrays. ``gen_kg_dataset`` is
+latent-factor user/item affinities plus an item KG whose relations link
+items to attributes that share latent directions. The CKG node space is
+``[users | items | attrs]``; relation 0 is ``interact`` (both directions),
+KG relations are shifted by 1 with distinct inverses, and self loops take
+the last relation id.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["KGDataset", "gen_kg_dataset", "bpr_batches"]
+__all__ = ["KGDataset", "gen_kg_dataset", "gen_zipf_kg_dataset",
+           "bpr_batches"]
 
 
 @dataclasses.dataclass
@@ -127,6 +128,51 @@ def gen_kg_dataset(*, n_users=200, n_items=300, n_attrs=150, n_relations=6,
         src=np.concatenate(src_list).astype(np.int32),
         dst=np.concatenate(dst_list).astype(np.int32),
         rel=np.concatenate(rel_list).astype(np.int32),
+        n_nodes=n_nodes, n_users=n_users, n_items=n_items,
+        n_entities=n_entities, n_relations=2 * n_relations + 2,
+        train_pos=train_pos, test_pos=test_pos)
+
+
+def gen_zipf_kg_dataset(*, n_users=300, n_items=500, n_attrs=200,
+                        n_relations=6, n_triples=6000, inter_per_user=20,
+                        zipf_a=1.1, test_frac=0.2, seed=0) -> KGDataset:
+    """KG with Zipf-skewed in-degree, the data-tiering setting: item and
+    attribute popularity follow ``p(rank) ∝ rank^-a``, so a small share of
+    the entity rows receives most neighbour-sample requests (the hot/cold
+    tier store's graph). Same node space and relation layout as
+    ``gen_kg_dataset``."""
+    rng = np.random.default_rng(seed)
+
+    def zipf_choice(n, size):
+        p = 1.0 / np.arange(1, n + 1) ** zipf_a
+        return rng.choice(n, size=size, p=p / p.sum())
+
+    inter = np.stack([
+        np.repeat(np.arange(n_users), inter_per_user),
+        zipf_choice(n_items, n_users * inter_per_user)], axis=1)
+    inter = np.unique(inter.astype(np.int64), axis=0)
+    rng.shuffle(inter)
+    n_test = int(len(inter) * test_frac)
+    test_pos, train_pos = inter[:n_test], inter[n_test:]
+
+    heads = zipf_choice(n_items, n_triples).astype(np.int64)
+    rels = rng.integers(0, n_relations, n_triples)
+    tails = zipf_choice(n_attrs, n_triples).astype(np.int64)
+
+    n_entities = n_items + n_attrs
+    n_nodes = n_users + n_entities
+    u_nodes, i_nodes = train_pos[:, 0], n_users + train_pos[:, 1]
+    h_nodes, t_nodes = n_users + heads, n_users + n_items + tails
+    loops = np.arange(n_nodes)
+    return KGDataset(
+        src=np.concatenate([u_nodes, i_nodes, h_nodes, t_nodes,
+                            loops]).astype(np.int32),
+        dst=np.concatenate([i_nodes, u_nodes, t_nodes, h_nodes,
+                            loops]).astype(np.int32),
+        rel=np.concatenate([
+            np.zeros(2 * len(train_pos), np.int64), rels + 1,
+            rels + 1 + n_relations,
+            np.full(n_nodes, 2 * n_relations + 1)]).astype(np.int32),
         n_nodes=n_nodes, n_users=n_users, n_items=n_items,
         n_entities=n_entities, n_relations=2 * n_relations + 2,
         train_pos=train_pos, test_pos=test_pos)

@@ -27,6 +27,21 @@ the first step's residuals) and the schema-validated ``summary.json`` of
 this run's series (``main`` empties the process's metrics registry first);
 ``--trace OUT.json`` a Chrome-trace/Perfetto JSON of the host spans.
 
+``--sample fanout=F1,F2,...`` trains on neighbour-sampled minibatches
+instead (``training.tiering.run_sampled_training``; one fanout per layer,
+the hop next to the seeds first, so ``n_layers = len(fanouts)``) with the
+entity table split into a hot tier on the card (``--hot-frac`` of the rows)
+and the rest in pinned host memory; no full graph is built on the card.
+On ``cuda`` it trains the arch's paper config (d 64) on the
+Amazon-Book-sized zipf-skewed graph, on ``cpu`` the small synthetic CKG at
+dim 32; BPR batch 256 unless ``--batch`` says otherwise. It prints the
+reference's ``[train] done; loss ... hit-rate ... rows/step ... hot-tier
+... MiB of ... MiB table`` line; ``--trace`` and ``--metrics-out``
+(summary only) work as above; it takes no checkpoints.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch kgat --bits 2 \\
+      --sample fanout=15,10,5 --hot-frac 0.1 --steps 20
+
 ``train_kgnn`` is the same path as a function, so that a caller can drive
 it at any size and for any KG model, R-GCN included (``chip_smoke.py`` runs
 it at full width).
@@ -35,6 +50,7 @@ it at full width).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
 
@@ -43,7 +59,8 @@ import torch
 from repro_torch.core.memory import publish_activation_report
 from repro_torch.core.policy import schedule_from_cli, schedule_label
 from repro_torch.kernels.backend import LAUNCH_COUNTS, resolve_device
-from repro_torch.models.registry import arch_of, archs, build_step
+from repro_torch.models.registry import arch_of, archs, build_step, \
+    model_config
 from repro_torch.obs import StepLogWriter, get_tracer, log, \
     reset_registry, write_summary
 from repro_torch.training.optimizer import adam
@@ -133,7 +150,8 @@ def main(argv=None) -> None:
     ap.add_argument("--schedule", default=None,
                     help="PolicySchedule spec (preset | intN/fp32 | "
                          "'[kind:]glob=bits,...'); overrides --bits")
-    ap.add_argument("--batch", type=int, default=512, help="BPR batch size")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="BPR batch size (default 512; 256 with --sample)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the kernels; cpu their plain versions")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
@@ -146,6 +164,13 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint directory; a second run on it resumes "
                          "(default: a fresh temporary directory)")
+    ap.add_argument("--sample", default=None, metavar="fanout=F1,F2,...",
+                    help="neighbour-sampled minibatch training with hot/cold "
+                         "entity tiering; one fanout per layer, the hop next "
+                         "to the seeds first")
+    ap.add_argument("--hot-frac", type=float, default=0.1,
+                    help="--sample: share of the entity rows kept on the "
+                         "card (ranked by in-degree, LFU-refreshed)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     reset_registry()   # the summary holds this run's series alone
@@ -154,6 +179,8 @@ def main(argv=None) -> None:
     if args.trace:
         get_tracer().enable()
     try:
+        if args.sample:
+            return _run_sampled(args, dev, schedule, label)
         res = _run(args, dev, schedule, label)
     finally:
         get_tracer().disable()
@@ -167,8 +194,52 @@ def main(argv=None) -> None:
     print(f"[train] done; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
 
 
+def _run_sampled(args, dev, schedule, label: str) -> None:
+    """--sample: minibatch KG training through the tiered row store."""
+    from repro_torch.configs.kgnn_paper import AMAZON_BOOK_ZIPF
+    from repro_torch.data.minibatch import parse_fanouts
+    from repro_torch.data.synthetic import gen_zipf_kg_dataset
+    from repro_torch.training.tiering import run_sampled_training
+
+    if args.ckpt:
+        raise SystemExit("error: --sample takes no checkpoints (--ckpt)")
+    try:
+        fanouts = parse_fanouts(args.sample)
+    except ValueError as e:
+        raise SystemExit(f"error: {e}") from None
+    batch = args.batch or 256
+    # the card trains at the paper's size, the CPU's plain versions small
+    if dev.type == "cuda":
+        ds = gen_zipf_kg_dataset(**AMAZON_BOOK_ZIPF)
+        cfg = dataclasses.replace(model_config(args.arch),
+                                  n_layers=len(fanouts))
+        step = build_step(args.arch, ds=ds, cfg=cfg, batch_size=batch,
+                          device=dev, device_graph=False)
+    else:
+        step = build_step(args.arch, batch_size=batch, device=dev,
+                          n_layers=len(fanouts), device_graph=False)
+    ds = step.data["dataset"]
+    log(f"[train] sampled {args.arch} ({step.family}) fanouts={fanouts} "
+        f"hot_frac={args.hot_frac} schedule={label} "
+        f"({ds.n_nodes} nodes, {len(ds.src)} edges, d {step.cfg.dim}) "
+        f"device={dev}")
+    report, _, _ = run_sampled_training(
+        step, fanouts=fanouts, steps=args.steps, batch_size=batch,
+        hot_frac=args.hot_frac, schedule=schedule, root_seed=ROOT_SEED,
+        log_fn=log)
+    _finish_telemetry(args, {
+        "kind": "train", "arch": args.arch, "family": step.family,
+        "schedule": label, "steps": args.steps, "mesh": None,
+        "sample": args.sample})
+    print(f"[train] done; loss {report.losses[0]:.4f} -> "
+          f"{report.losses[-1]:.4f}  hit-rate {report.hit_rate:.2%}  "
+          f"rows/step {report.rows_transferred_per_step:.0f}  "
+          f"hot-tier {report.store_device_bytes / 2**20:.2f} MiB of "
+          f"{report.table_bytes / 2**20:.2f} MiB table")
+
+
 def _run(args, dev, schedule, label: str) -> dict:
-    step = build_step(args.arch, batch_size=args.batch, device=dev)
+    step = build_step(args.arch, batch_size=args.batch or 512, device=dev)
     run = {"kind": "train", "arch": args.arch, "family": step.family,
            "schedule": label, "steps": args.steps, "mesh": None,
            "sample": None}
@@ -183,7 +254,7 @@ def _run(args, dev, schedule, label: str) -> dict:
     try:
         res = train_kgnn(
             step.cfg, step.data["dataset"], params, schedule, args.steps,
-            batch=args.batch, device=dev, graph=step.data["graph"],
+            batch=args.batch or 512, device=dev, graph=step.data["graph"],
             log_every=max(args.steps // 8, 5),
             ckpt_dir=args.ckpt or tempfile.mkdtemp(prefix="repro_ckpt_"),
             ckpt_every=max(args.steps // 4, 10), schedule_spec=label,

@@ -1,7 +1,7 @@
 """Knowledge-graph neural recommenders over a collaborative knowledge graph
-(port of ``repro/models/kgnn.py``, single-device full-graph path): KGAT,
-KGCN (KGNN-LS), KGIN and R-GCN, for the FP32 serving rollout and
-activation-compressed training.
+(port of ``repro/models/kgnn.py``, the single-device full-graph and
+neighbour-sampled paths): KGAT, KGCN (KGNN-LS), KGIN and R-GCN, for the
+FP32 serving rollout and activation-compressed training.
 
 Users, items and attribute entities share one node space; user-item
 interactions are the ``interact`` relation, merged with the item KG. Each
@@ -18,6 +18,19 @@ aggregates with the same ACT SPMM, then a dense layer (sigmoid, tanh on the
 last layer). KGIN sums ``e[src] * r[rel]`` by destination and divides by
 the in-degree. R-GCN's messages ``sum_b coef[rel, b] * (e V_b)[src]`` are
 four SPMMs, one per basis, with the gathered coefficients as edge weights.
+
+The layers run on a graph view. The full graph is a ``CKG``: every layer
+aggregates over its edges, into all of its rows. A sampled minibatch is a
+``SampledGraphView`` of per-hop bipartite ``BlockView``s, outermost hop
+first (``data.minibatch``): layer ``l`` reads the ``n_src`` rows of its
+block's source frontier and writes the ``n_dst`` rows of its destination
+frontier, which is their prefix (the seeds-prefix invariant), so block
+indices are positions into the layer-0 table too and the per-hop edge
+weights come from the layer-0 embeddings, as on the full graph. Masked
+slots (``mask == 0``) are weight-0 edges: their logits are ``-1e30``, their
+weights and messages are multiplied by the mask, and KGIN's and R-GCN's
+degree is the mask summed by destination. The readout keeps the seed rows
+of every layer (``sampled_reps``).
 
 The ACT sites of each layer (``model_sites``; ``spmm``, ``w1`` ... under
 ``<model>/layer<l>/``) resolve their policy and seed from the ambient
@@ -53,14 +66,17 @@ from repro_torch.core.act import act_matmul, act_nonlin, act_spmm, \
     gather_rows, sum_rows, weighted_spmm
 from repro_torch.core.context import act_context, model_context
 from repro_torch.core.policy import FP32
-from repro_torch.data.csr import attach_layout
+from repro_torch.data.csr import attach_layout, to_device
+from repro_torch.kernels import ops
 from repro_torch.kernels.backend import full_fp32, resolve_device
 
 from .layers import glorot, normal_init, param_leaves
 
-__all__ = ["KGNNConfig", "CKG", "MODELS", "model_sites", "segment_softmax",
-           "kgat_bi_interaction", "init_params", "params_from_jax",
-           "forward_reps", "propagate", "readout", "score_pairs", "bpr_loss"]
+__all__ = ["KGNNConfig", "CKG", "BlockView", "SampledGraphView", "MODELS",
+           "model_sites", "segment_softmax", "kgat_bi_interaction",
+           "init_params", "params_from_jax", "propagate_view",
+           "forward_reps", "propagate", "readout", "score_pairs", "bpr_loss",
+           "sampled_reps", "sampled_bpr_loss"]
 
 MODELS = ("kgat", "kgcn", "kgin", "rgcn")
 
@@ -79,6 +95,15 @@ class CKG:
     n_relations: int
     layout: object = None
     rel_runs: tuple = None
+    mask = None          # every edge is real
+
+    @property
+    def n_src(self) -> int:
+        return self.n_nodes
+
+    @property
+    def n_dst(self) -> int:
+        return self.n_nodes
 
     @classmethod
     def build(cls, src, dst, rel, *, n_nodes: int, n_relations: int,
@@ -91,6 +116,52 @@ class CKG:
 
         g = cls(t(src), t(dst), t(rel), int(n_nodes), int(n_relations))
         return attach_layout(g, block_e=block_e, block_rows=block_rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockView:
+    """One sampled fanout hop: a bipartite edge block (port of
+    ``repro/models/kgnn.py:BlockView``), built on the host by
+    ``data.minibatch.sample_kg_blocks``. ``src`` indexes the layer's input
+    table (``n_src`` rows), ``dst`` its first ``n_dst`` rows; ``mask`` is 1
+    for a sampled edge and 0 for a pad slot. ``layout`` is the block's
+    blocked-CSR layout (``pad_static``) and ``rel_runs`` its grouping by
+    relation (``data.csr.relation_runs``)."""
+
+    src: torch.Tensor     # (Eb,) int32 block-local source row
+    dst: torch.Tensor     # (Eb,) int32 block-local destination row
+    rel: torch.Tensor     # (Eb,) int32 relation ids
+    mask: torch.Tensor    # (Eb,) float32 1 = sampled edge, 0 = pad
+    layout: object
+    rel_runs: tuple
+    n_src: int
+    n_dst: int
+
+    def to(self, device) -> "BlockView":
+        return dataclasses.replace(
+            self, layout=to_device(self.layout, device),
+            rel_runs=to_device(self.rel_runs, device),
+            **{k: getattr(self, k).to(device, non_blocking=True)
+               for k in ("src", "dst", "rel", "mask")})
+
+
+@dataclasses.dataclass(frozen=True)
+class SampledGraphView:
+    """A neighbour-sampled minibatch: one ``BlockView`` per layer,
+    outermost hop first; the innermost hop's destinations are the
+    ``n_seeds`` seeds. The entity table the model is given is the gathered
+    outermost frontier (``n_input_rows`` rows; ``training.tiering``)."""
+
+    blocks: tuple
+    n_seeds: int
+
+    @property
+    def n_input_rows(self) -> int:
+        return self.blocks[0].n_src
+
+    def to(self, device) -> "SampledGraphView":
+        return dataclasses.replace(
+            self, blocks=tuple(b.to(device) for b in self.blocks))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,8 +202,10 @@ def model_sites(cfg: KGNNConfig) -> tuple[tuple[str, str], ...]:
     raise ValueError(f"unknown KG model {cfg.model!r}; have {MODELS}")
 
 
-def segment_softmax(logits: torch.Tensor, g: CKG) -> torch.Tensor:
-    """Numerically stable softmax of per-edge logits over each destination.
+def segment_softmax(logits: torch.Tensor, g) -> torch.Tensor:
+    """Numerically stable softmax of per-edge logits over each destination
+    of a graph or block ``g``; a masked slot's logit is ``-1e30`` and its
+    weight is multiplied by the mask (0).
 
     The max is ``scatter_reduce(amax)`` (order-free) and carries no
     gradient: the softmax does not depend on the shift, so its derivative
@@ -144,14 +217,17 @@ def segment_softmax(logits: torch.Tensor, g: CKG) -> torch.Tensor:
     destination runs (``gather_rows``).
     """
     seg = g.dst.long()
-    mx = torch.full((g.n_nodes,), float("-inf"), dtype=logits.dtype,
+    if g.mask is not None:
+        logits = torch.where(g.mask > 0, logits, -1e30)
+    mx = torch.full((g.n_dst,), float("-inf"), dtype=logits.dtype,
                     device=logits.device)
     mx = mx.scatter_reduce(0, seg, logits.detach(), reduce="amax",
                            include_self=True)
     ex = torch.exp(logits - mx.index_select(0, seg))
-    ones = torch.ones((g.n_nodes, 1), dtype=ex.dtype, device=ex.device)
+    ones = torch.ones((g.n_src, 1), dtype=ex.dtype, device=ex.device)
     den = weighted_spmm(ones, ex, g.layout)[:, 0]
-    return ex / (gather_rows(den, seg, g.layout.runs()) + 1e-16)
+    w = ex / (gather_rows(den, seg, g.layout.runs()) + 1e-16)
+    return w if g.mask is None else w * g.mask
 
 
 def init_params(cfg: KGNNConfig, *, seed: int = 0, device="cuda") -> dict:
@@ -214,7 +290,24 @@ def kgat_bi_interaction(p: dict, layer: int, e: torch.Tensor,
     return add + mul
 
 
-def _kgat_attention(p: dict, e: torch.Tensor, g: CKG) -> torch.Tensor:
+def _self_rows(e: torch.Tensor, g) -> torch.Tensor:
+    """The destination rows of a layer's input table (all of them on the
+    full graph; the first ``n_dst`` on a block)."""
+    return e if e.shape[0] == g.n_dst else e[:g.n_dst]
+
+
+def _in_degree(g, dtype) -> torch.Tensor:
+    """(n_dst, 1) in-degree, at least 1; on a block the mask summed by
+    destination (every destination has ``fanout`` slots, masked ones
+    included). No gradient flows into it."""
+    if g.mask is None:
+        deg = g.layout.in_degree().to(dtype)
+    else:
+        deg = ops.segment_sum(g.mask.to(dtype), g.layout.runs())
+    return torch.clamp_min(deg, 1.0)[:, None]
+
+
+def _kgat_attention(p: dict, e: torch.Tensor, g) -> torch.Tensor:
     """pi(h,r,t) = (W_r e_t)ᵀ tanh(W_r e_h + e_r), softmaxed over dst.
 
     The basis projections ``(B, N, d)`` are computed once and mixed per
@@ -229,9 +322,14 @@ def _kgat_attention(p: dict, e: torch.Tensor, g: CKG) -> torch.Tensor:
     edges into each row of the 80-row relation tables at full width); a
     ``tensor[idx]`` gather's, a sort-based ``index_put_``, walks each index's
     duplicates serially.
+
+    On a block the projections cover the ``n_src`` rows of the layer-0
+    table that the block reads (a prefix of it).
     """
     src, dst, rel = g.src.long(), g.dst.long(), g.rel.long()
     by_src, by_dst = g.layout.runs(transpose=True), g.layout.runs()
+    if e.shape[0] > g.n_src:
+        e = e[:g.n_src]
     proj = torch.stack([e @ p["att_basis"][b]
                         for b in range(p["att_basis"].shape[0])])
     coef = gather_rows(p["att_coef"], rel, g.rel_runs)      # (E, B)
@@ -248,34 +346,37 @@ def _kgat_attention(p: dict, e: torch.Tensor, g: CKG) -> torch.Tensor:
     return segment_softmax(logits, g)
 
 
-def _kgat_layer(p: dict, layer: int, e: torch.Tensor, g: CKG,
+def _kgat_layer(p: dict, layer: int, e: torch.Tensor, g,
                 att: torch.Tensor) -> torch.Tensor:
     e_n = act_spmm(e, att, g.layout, scope="spmm")
-    return kgat_bi_interaction(p, layer, e, e_n)
+    return kgat_bi_interaction(p, layer, _self_rows(e, g), e_n)
 
 
-def _kgcn_layer(p: dict, layer: int, e: torch.Tensor, g: CKG,
+def _kgcn_layer(p: dict, layer: int, e: torch.Tensor, g,
                 ew: torch.Tensor) -> torch.Tensor:
     """KGNN-LS graph convolution: σ((Â E)Θ + b) with the relation-scored
     Â (``ew``); sigmoid, tanh on the last layer."""
     h = act_spmm(e, ew, g.layout, scope="spmm")
-    j = act_matmul(h + e, p["w"][layer], scope="dense") + p["b"][layer]
+    j = act_matmul(h + _self_rows(e, g), p["w"][layer],
+                   scope="dense") + p["b"][layer]
     return act_nonlin(j, scope="act",
                       fn="tanh" if layer == len(p["w"]) - 1 else "sigmoid")
 
 
-def _kgin_layer(e: torch.Tensor, r_emb: torch.Tensor, g: CKG,
+def _kgin_layer(e: torch.Tensor, r_emb: torch.Tensor, g,
                 deg: torch.Tensor) -> torch.Tensor:
     """Relational path aggregation (KGIN eq. 8): the mean over each
     destination's edges of ``e[src] * r_emb[rel]``, then LeakyReLU. The
     sum by destination is the fixed-order segment sum (``sum_rows``)."""
     msgs = (gather_rows(e, g.src.long(), g.layout.runs(transpose=True))
             * gather_rows(r_emb, g.rel.long(), g.rel_runs))
+    if g.mask is not None:
+        msgs = msgs * g.mask[:, None]
     agg = sum_rows(msgs, g.dst.long(), g.layout.runs()) / deg
     return act_nonlin(agg, fn="leaky_relu", scope="act")
 
 
-def _rgcn_layer(p: dict, layer: int, e: torch.Tensor, g: CKG,
+def _rgcn_layer(p: dict, layer: int, e: torch.Tensor, g,
                 coef: list, deg: torch.Tensor) -> torch.Tensor:
     """Basis-decomposed R-GCN, ``W_r = Σ_b a_rb V_b``, basis-first.
 
@@ -290,17 +391,18 @@ def _rgcn_layer(p: dict, layer: int, e: torch.Tensor, g: CKG,
         pb = act_matmul(e, p["basis"][b], scope=f"basis{b}")
         t = weighted_spmm(pb, c, g.layout)
         agg = t if agg is None else agg + t
-    self_t = act_matmul(e, p["w_self"][layer], scope="self")
+    self_t = act_matmul(_self_rows(e, g), p["w_self"][layer], scope="self")
     return act_nonlin(agg / deg + self_t, fn="leaky_relu", scope="act")
 
 
-def _edge_weights(p: dict, e0: torch.Tensor, g: CKG, cfg: KGNNConfig):
-    """Per-edge weighting data, computed once from the layer-0 embeddings:
-    kgat the attention probabilities (E,); kgcn the relation-scored
-    adjacency (E,), a softmax over each destination of ``r · e0[src]``;
-    kgin the intent-weighted relation table (R, d); rgcn the edges' basis
-    coefficients ``coef[rel]``, one (E,) column a basis (the reference
-    gathers them in every layer; they are the same in each)."""
+def _edge_weights(p: dict, e0: torch.Tensor, g, cfg: KGNNConfig):
+    """Per-edge weighting data of graph or block ``g``, computed from the
+    layer-0 embeddings: kgat the attention probabilities (E,); kgcn the
+    relation-scored adjacency (E,), a softmax over each destination of
+    ``r · e0[src]``; kgin the intent-weighted relation table (R, d); rgcn
+    the edges' basis coefficients ``coef[rel]`` (times the mask on a
+    block), one (E,) column a basis (the reference gathers them in every
+    layer; they are the same in each)."""
     if cfg.model == "kgat":
         return _kgat_attention(p, e0, g)
     if cfg.model == "kgcn":
@@ -313,6 +415,8 @@ def _edge_weights(p: dict, e0: torch.Tensor, g: CKG, cfg: KGNNConfig):
         alpha = torch.softmax(p["intent"], dim=-1)            # (P, R)
         return p["relation"] + torch.mean(alpha @ p["relation"], dim=0)
     coef = gather_rows(p["coef"], g.rel.long(), g.rel_runs)     # (E, B)
+    if g.mask is not None:
+        return [c * g.mask for c in coef.unbind(1)]
     return [c.contiguous() for c in coef.unbind(1)]
 
 
@@ -324,32 +428,59 @@ def readout(outs: list, cfg: KGNNConfig) -> torch.Tensor:
     return outs[-1]
 
 
+def propagate_view(params: dict, view, cfg: KGNNConfig, ctx) -> list:
+    """``cfg.n_layers`` layers of ``cfg.model`` over a ``CKG`` (every layer
+    on the whole graph) or a ``SampledGraphView`` (layer ``l`` on block
+    ``l``, outputs cut to the seed rows), under the entered ``ctx`` with
+    ``layer<l>`` scopes; returns the per-layer outputs, layer 0 first. On a
+    sampled view the edge weights are computed per block, each from the
+    layer-0 embeddings (KGIN's relation table once)."""
+    sampled = isinstance(view, SampledGraphView)
+    graphs = view.blocks if sampled else (view,) * cfg.n_layers
+    if len(graphs) != cfg.n_layers:
+        raise ValueError(f"{cfg.model} has {cfg.n_layers} layers, the "
+                         f"view {len(graphs)} blocks")
+
+    def keep(x):
+        return x[:view.n_seeds] if sampled else x
+
+    e = params["entity"]
+    outs = [keep(e)]
+    if sampled and cfg.model != "kgin":
+        weights = [_edge_weights(params, e, g, cfg) for g in graphs]
+    else:
+        weights = [_edge_weights(params, e, graphs[0], cfg)] * cfg.n_layers
+    degs = ([_in_degree(g, e.dtype) for g in graphs] if sampled
+            else [_in_degree(view, e.dtype)] * cfg.n_layers)
+    for layer, (g, w, deg) in enumerate(zip(graphs, weights, degs)):
+        with ctx.scope(f"layer{layer}"):
+            if cfg.model == "kgat":
+                e = _kgat_layer(params, layer, e, g, w)
+            elif cfg.model == "kgcn":
+                e = _kgcn_layer(params, layer, e, g, w)
+            elif cfg.model == "kgin":
+                e = _kgin_layer(e, w, g, deg)
+            else:
+                e = _rgcn_layer(params, layer, e, g, w, deg)
+        outs.append(keep(e))
+    return outs
+
+
+def _reps(params: dict, view, cfg: KGNNConfig, who: str) -> torch.Tensor:
+    model_sites(cfg)                                  # names the model
+    ctx = model_context()
+    ctx.check_key(who)
+    with full_fp32(), ctx, ctx.scope(cfg.model):
+        outs = propagate_view(params, view, cfg, ctx)
+    return readout(outs, cfg)
+
+
 def forward_reps(params: dict, g: CKG, cfg: KGNNConfig) -> torch.Tensor:
     """``cfg.n_layers`` layers of ``cfg.model`` message passing under the
     ambient ``ActContext`` (FP32 without one); the readout of every node.
     Under an active stochastic policy the context must carry a seed
     source: there is no silent constant seed (``ActContext.check_key``)."""
-    model_sites(cfg)                                  # names the model
-    ctx = model_context()
-    ctx.check_key(f"propagate({cfg.model})")
-    with full_fp32(), ctx, ctx.scope(cfg.model):
-        e = params["entity"]
-        outs = [e]
-        w = _edge_weights(params, e, g, cfg)
-        # in-degree, at least 1 (kgin, rgcn): no gradient flows into it
-        deg = torch.clamp_min(g.layout.in_degree().to(e.dtype), 1.0)[:, None]
-        for layer in range(cfg.n_layers):
-            with ctx.scope(f"layer{layer}"):
-                if cfg.model == "kgat":
-                    e = _kgat_layer(params, layer, e, g, w)
-                elif cfg.model == "kgcn":
-                    e = _kgcn_layer(params, layer, e, g, w)
-                elif cfg.model == "kgin":
-                    e = _kgin_layer(e, w, g, deg)
-                else:
-                    e = _rgcn_layer(params, layer, e, g, w, deg)
-            outs.append(e)
-    return readout(outs, cfg)
+    return _reps(params, g, cfg, f"propagate({cfg.model})")
 
 
 @torch.no_grad()
@@ -372,6 +503,29 @@ def bpr_loss(params: dict, g: CKG, batch: dict,
     reps = forward_reps(params, g, cfg)
     pos = score_pairs(reps, batch["user"], batch["pos"], cfg.n_users)
     neg = score_pairs(reps, batch["user"], batch["neg"], cfg.n_users)
+    loss = -torch.mean(torch.nn.functional.logsigmoid(pos - neg))
+    reg = sum(torch.sum(x ** 2) for x in param_leaves(params))
+    return loss + cfg.l2 * reg
+
+
+def sampled_reps(params: dict, view: SampledGraphView,
+                 cfg: KGNNConfig) -> torch.Tensor:
+    """The readout of the seed rows of a sampled minibatch.
+    ``params["entity"]`` is the gathered outermost frontier
+    (``view.n_input_rows`` rows); the sites resolve under the same
+    ``<model>/layer<l>/<site>`` scopes as ``forward_reps``."""
+    return _reps(params, view, cfg, f"sampled_reps({cfg.model})")
+
+
+def sampled_bpr_loss(params: dict, view: SampledGraphView,
+                     cfg: KGNNConfig) -> torch.Tensor:
+    """BPR over seeds packed ``[users | pos items | neg items]`` in thirds,
+    scored by position; L2 over the parameters the step touches (the
+    gathered entity rows and the dense parameters)."""
+    reps = sampled_reps(params, view, cfg)
+    b = view.n_seeds // 3
+    pos = torch.sum(reps[:b] * reps[b:2 * b], dim=-1)
+    neg = torch.sum(reps[:b] * reps[2 * b:3 * b], dim=-1)
     loss = -torch.mean(torch.nn.functional.logsigmoid(pos - neg))
     reg = sum(torch.sum(x ** 2) for x in param_leaves(params))
     return loss + cfg.l2 * reg

@@ -56,9 +56,14 @@ N_LAYERS = 3
 
 
 def build_step(arch: str, *, ds=None, cfg=None, batch_size: int = 512,
-               device="cuda", graph=None) -> ModelStep:
+               device="cuda", graph=None, n_layers: int = N_LAYERS,
+               device_graph: bool = True) -> ModelStep:
     """The ``ModelStep`` of ``arch`` on ``device``. ``ds``/``cfg`` bring
-    other sizes; ``graph`` reuses a CKG already built on the device."""
+    other sizes (``n_layers`` sizes the default config); ``graph``
+    reuses a CKG already built on the device. With ``device_graph=False``
+    no CKG or layout is built on the device (the sampled path,
+    ``training.tiering``, builds per-batch blocks instead) and ``loss``
+    raises."""
     from repro_torch.data.synthetic import bpr_batches, gen_kg_dataset
     from repro_torch.models import kgnn
 
@@ -74,14 +79,18 @@ def build_step(arch: str, *, ds=None, cfg=None, batch_size: int = 512,
         cfg = kgnn.KGNNConfig(
             model=spec.model_cfg.model, n_users=ds.n_users,
             n_entities=ds.n_entities, n_relations=ds.n_relations, dim=DIM,
-            n_layers=N_LAYERS,
+            n_layers=n_layers,
             readout="concat" if spec.model_cfg.model == "kgat" else "sum")
-    g = graph if graph is not None else ds.graph(dev)
+    g = graph if graph is not None or not device_graph else ds.graph(dev)
 
     def init(seed: int = 0):
         return trainable(kgnn.init_params(cfg, seed=seed, device=dev))
 
     def loss(params, batch, *, ctx=None):
+        if g is None:
+            raise ValueError("this step was built without the full graph "
+                             "(device_graph=False): train it through "
+                             "training.tiering.run_sampled_training")
         with enter_or_null(ctx):
             return kgnn.bpr_loss(params, g, batch, cfg)
 
@@ -91,7 +100,7 @@ def build_step(arch: str, *, ds=None, cfg=None, batch_size: int = 512,
 
     return ModelStep(arch=spec.name, family=spec.family, cfg=cfg, init=init,
                      loss=loss, batches=batches, lr=LR,
-                     data={"graph": g, "dataset": ds})
+                     data={"graph": g, "dataset": ds, "device": dev})
 
 
 def arch_of(model: str) -> str:

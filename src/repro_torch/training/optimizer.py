@@ -45,14 +45,20 @@ def adam(lr: float, *, b1: float = 0.9, b2: float = 0.999,
         bc1 = 1 - torch.tensor(b1, **f32) ** t
         bc2 = 1 - torch.tensor(b2, **f32) ** t
         lr_t = torch.tensor(lr, **f32)
+        # the three scalars go to each device once and asynchronously: a
+        # blocking copy would wait for the card's queued work each time
+        consts = {}
         for p, g, m, v in zip(param_leaves(params), grads, state["mu"],
                               state["nu"]):
+            if p.device not in consts:
+                consts[p.device] = [c.to(p.device, non_blocking=True)
+                                    for c in (bc1, bc2, lr_t)]
+            c1, c2, lr_d = consts[p.device]
             g = g.to(torch.float32)
             m.copy_(b1 * m + (1 - b1) * g)
             v.copy_(b2 * v + (1 - b2) * g * g)
-            dev = dict(device=p.device)
-            u = (m / bc1.to(**dev)) / (torch.sqrt(v / bc2.to(**dev)) + eps)
-            p.copy_((p.to(torch.float32) - lr_t.to(**dev) * u).to(p.dtype))
+            u = (m / c1) / (torch.sqrt(v / c2) + eps)
+            p.copy_((p.to(torch.float32) - lr_d * u).to(p.dtype))
         return params, {"step": step, "mu": state["mu"], "nu": state["nu"]}
 
     return Optimizer(init, update)

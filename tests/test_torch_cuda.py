@@ -950,3 +950,91 @@ def test_sharded_engine_on_streams_matches_one_shard(cuda):
             assert stage.snapshot()["count"] == 3 * shards
     np.testing.assert_array_equal(res[1][1], res[2][1])
     np.testing.assert_array_equal(res[1][0], res[2][0])
+
+
+def _sampled_world(dev, model, fanouts=(3, 2)):
+    from repro_torch.data.synthetic import gen_zipf_kg_dataset
+
+    ds = gen_zipf_kg_dataset(n_users=60, n_items=100, n_attrs=40,
+                             n_triples=600, seed=0)
+    cfg = kgnn.KGNNConfig(
+        model=model, n_users=ds.n_users, n_entities=ds.n_entities,
+        n_relations=ds.n_relations, dim=16, n_layers=len(fanouts),
+        readout="concat" if model == "kgat" else "sum")
+    return ds, build_step(arch_of(model), ds=ds, cfg=cfg, device=dev,
+                          device_graph=False)
+
+
+def test_sampled_blocks_run_the_kernels_like_the_plain_versions(cuda):
+    """On a sampled block (n_src several times n_dst, trailing all-pad
+    blocks in both directions, masked slots with real endpoints) each
+    kernel computes what its plain version computes, and the same bits
+    twice."""
+    from repro_torch.data.minibatch import sampled_items
+
+    ds, _ = _sampled_world("cpu", "kgat")
+    item = next(sampled_items(ds, (5, 4), batch_size=64, seed=0))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for blk in item.view.blocks:
+        m = blk.layout.meta
+        assert m.n_src > m.n_dst and (blk.mask == 0).any()
+        assert m.n_blocks * m.block_e > m.n_edges
+        cb = blk.to(cuda)
+        x = torch.randn((m.n_src, 64), generator=gen, device=cuda)
+        g = torch.randn((m.n_dst, 64), generator=gen, device=cuda)
+        ew = torch.rand((m.n_edges,), generator=gen, device=cuda) * cb.mask
+        q = quantize(x, 3, bits=2)
+        cases = [
+            (lambda: ops.spmm(x, ew, cb.layout),
+             lambda: sp.spmm_plain(x, ew, cb.layout)),
+            (lambda: ops.spmm(g, ew, cb.layout, transpose=True),
+             lambda: sp.spmm_plain(g, ew, cb.layout, transpose=True)),
+            (lambda: ops.spmm(x[:, :1].contiguous(), ew, cb.layout),
+             lambda: sp.spmm_plain(x[:, :1], ew, cb.layout)),
+            (lambda: ops.spmm_grad_ew(x, g, cb.layout),
+             lambda: sp.sddmm_plain(x, g, cb.layout)),
+            (lambda: ops.spmm_grad_ew(q, g, cb.layout),
+             lambda: sp.dequant_sddmm_plain(q, g, cb.layout)),
+            (lambda: ops.segment_sum(x[:m.n_edges], cb.rel_runs),
+             lambda: sp.segment_sum_plain(x[:m.n_edges], cb.rel_runs)),
+            (lambda: ops.segment_sum(cb.mask, cb.layout.runs()),
+             lambda: sp.segment_sum_plain(cb.mask, cb.layout.runs())),
+        ]
+        for kernel, plain in cases:
+            a, ref = kernel(), plain()
+            assert _rel(a, ref) <= 1e-5
+            assert torch.equal(kernel(), a)
+
+
+@pytest.mark.parametrize("model", ["kgat", "kgcn", "kgin", "rgcn"])
+def test_sampled_training_on_card_follows_cpu_and_repeats(cuda, model):
+    """Three sampled INT2 steps on the card follow the CPU's plain versions
+    and launch the path's kernels; two runs, and the overlapped and
+    sequential schedules, give the same bits (losses, dense parameters,
+    the flushed entity table); no step launches index_add_."""
+    from repro_torch.training.tiering import run_sampled_training
+
+    sched = schedule_from_cli(None, 2)
+    kw = dict(fanouts=(3, 2), steps=3, batch_size=16, hot_frac=0.2,
+              refresh_every=2, schedule=sched, root_seed=1)
+    _, cpu_step = _sampled_world("cpu", model)
+    ref, _, _ = run_sampled_training(cpu_step, **kw)
+    _, step = _sampled_world(cuda, model)
+    runs = []
+    for overlap in (True, True, False):
+        backend.reset_counts()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            runs.append(run_sampled_training(step, overlap=overlap, **kw))
+        assert not [e.key for e in prof.key_averages()
+                    if "indexFunc" in e.key]
+        assert all(backend.LAUNCH_COUNTS.get(k, 0) > 0
+                   for k in path_kernels(model, packed=True))
+    np.testing.assert_allclose(runs[0][0].losses, ref.losses, rtol=1e-4)
+    (r1, d1, s1) = runs[0]
+    for r2, d2, s2 in runs[1:]:
+        assert r1.losses == r2.losses
+        assert np.array_equal(s1.flush(), s2.flush())
+        for a, b in zip(param_leaves(d1), param_leaves(d2)):
+            assert torch.equal(a, b)
+    assert r1.peak_device_bytes > 0 and r1.stats["patch_rows"] > 0
