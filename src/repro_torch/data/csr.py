@@ -25,6 +25,12 @@ destination and its pad slots come after them, and the static pad blocks
 come after every tile's slots, so each run is contiguous and holds no pad
 slot. The CUDA SPMM kernel gives each row a warp and finds
 its slots through these two arrays.
+
+For several ranks (``training.data_parallel``) the edges are split by
+destination shard once on the host (``partition_edges``, the reference's
+arrays exactly) and each shard's edges get their own layout and relation
+grouping (``shard_graph_arrays``); ``row_partition`` is the row-block
+geometry of a table stored across the ``model`` ranks.
 """
 
 from __future__ import annotations
@@ -37,7 +43,9 @@ import torch
 __all__ = ["CSRMeta", "SpmmLayout", "Direction", "SegmentRuns",
            "static_block_caps", "build_spmm_layout", "relation_runs",
            "attach_layout", "map_tensors", "to_device", "stable_argsort",
-           "group_ids"]
+           "group_ids", "EdgePartition", "partition_edges",
+           "unpartition_edges", "shard_graph_arrays", "RowPartition",
+           "row_partition"]
 
 REL_CHUNK = 256   # slots a relation chunk holds (relation_runs)
 
@@ -349,3 +357,218 @@ def attach_layout(g, *, block_e: int = 256, block_rows: int = 256):
     rel_runs = relation_runs(g.rel.cpu().numpy(), g.n_relations,
                              device=g.src.device)
     return dataclasses.replace(g, layout=layout, rel_runs=rel_runs)
+
+
+# -- several ranks: the edges split by destination shard ----------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgePartition:
+    """Edges split by destination shard (port of
+    ``repro/data/csr.py:EdgePartition``): host numpy arrays, one row a
+    shard, padded to one edge capacity ``e_cap`` and one halo capacity
+    ``h_cap`` (pad edges have ``mask == 0``, ``perm == n_edges`` and their
+    endpoints at 0). ``src_h`` indexes the shard's ``halo``, the unique
+    global sources it reads; ``dst_l`` is local to its ``rows_per_shard``
+    rows. Within a shard the edges keep their original relative order."""
+
+    src_g: np.ndarray       # (S, Ec) int32 global source ids (pads: 0)
+    src_h: np.ndarray       # (S, Ec) int32 halo-local source index
+    dst_l: np.ndarray       # (S, Ec) int32 destination row local to the shard
+    rel: np.ndarray         # (S, Ec) int32 relation ids (pads: 0)
+    mask: np.ndarray        # (S, Ec) float32 1 = real edge, 0 = pad
+    perm: np.ndarray        # (S, Ec) int32 original edge index; pads n_edges
+    halo: np.ndarray        # (S, Hc) int32 unique global sources per shard
+    halo_count: np.ndarray  # (S,) int32 real halo rows (the rest repeat 0)
+    n_shards: int = 1
+    rows_per_shard: int = 0
+    n_nodes: int = 0        # original (unpadded) node count
+    n_edges: int = 0
+
+    @property
+    def n_nodes_padded(self) -> int:
+        return self.n_shards * self.rows_per_shard
+
+    @property
+    def e_cap(self) -> int:
+        return int(self.src_g.shape[1])
+
+    @property
+    def h_cap(self) -> int:
+        return int(self.halo.shape[1])
+
+    def edge_counts(self) -> np.ndarray:
+        """(S,) real edges of each shard."""
+        return (self.perm < self.n_edges).sum(axis=1)
+
+
+def partition_edges(src, dst, rel=None, *, n_nodes: int, n_shards: int,
+                    pad_multiple: int = 8) -> EdgePartition:
+    """Split a COO edge list by destination shard (host-side, once): the
+    reference's numpy calls in its order, so the arrays are equal."""
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    rel = np.zeros_like(src) if rel is None else np.asarray(rel, np.int64)
+    if not (src.shape == dst.shape == rel.shape) or src.ndim != 1:
+        raise ValueError(
+            f"bad edge list shapes {src.shape}/{dst.shape}/{rel.shape}")
+    if n_shards < 1:
+        raise ValueError(f"n_shards={n_shards}")
+    if src.size and not (0 <= src.min() and src.max() < n_nodes
+                         and 0 <= dst.min() and dst.max() < n_nodes):
+        # an out-of-range dst would fall in no shard and vanish silently
+        raise ValueError(
+            f"edge endpoints outside [0, {n_nodes}): src range "
+            f"[{src.min()}, {src.max()}], dst range "
+            f"[{dst.min()}, {dst.max()}]")
+    E = int(src.shape[0])
+    rows = -(-n_nodes // n_shards)            # ceil; node space pads to S*rows
+    shard_of = dst // rows
+    per = [np.flatnonzero(shard_of == s) for s in range(n_shards)]
+    e_cap = max(1, max((len(ix) for ix in per), default=1))
+    e_cap = -(-e_cap // pad_multiple) * pad_multiple
+
+    halos = [np.unique(src[ix]) if len(ix) else np.zeros(1, np.int64)
+             for ix in per]
+    h_cap = max(1, max(len(h) for h in halos))
+    h_cap = -(-h_cap // pad_multiple) * pad_multiple
+
+    src_g = np.zeros((n_shards, e_cap), np.int32)
+    src_h = np.zeros((n_shards, e_cap), np.int32)
+    dst_l = np.zeros((n_shards, e_cap), np.int32)
+    rel_a = np.zeros((n_shards, e_cap), np.int32)
+    mask = np.zeros((n_shards, e_cap), np.float32)
+    perm = np.full((n_shards, e_cap), E, np.int32)
+    halo = np.zeros((n_shards, h_cap), np.int32)
+    halo_n = np.zeros((n_shards,), np.int32)
+    for s, ix in enumerate(per):
+        k = len(ix)
+        src_g[s, :k] = src[ix]
+        src_h[s, :k] = np.searchsorted(halos[s], src[ix])
+        dst_l[s, :k] = dst[ix] - s * rows
+        rel_a[s, :k] = rel[ix]
+        mask[s, :k] = 1.0
+        perm[s, :k] = ix
+        halo[s, :len(halos[s])] = halos[s]
+        halo_n[s] = len(halos[s])
+    return EdgePartition(
+        src_g=src_g, src_h=src_h, dst_l=dst_l, rel=rel_a, mask=mask,
+        perm=perm, halo=halo, halo_count=halo_n, n_shards=n_shards,
+        rows_per_shard=int(rows), n_nodes=int(n_nodes), n_edges=E)
+
+
+def unpartition_edges(part: EdgePartition):
+    """The original (src, dst, rel) COO lists from a partition: pad slots
+    dropped, real edges back at their original positions."""
+    E = part.n_edges
+    perm = np.asarray(part.perm).ravel()
+    keep = perm < E
+    if int(keep.sum()) != E:
+        raise ValueError(
+            f"partition covers {int(keep.sum())} edges, expected {E}")
+    src = np.zeros(E, np.int32)
+    dst = np.zeros(E, np.int32)
+    rel = np.zeros(E, np.int32)
+    shard_ix = np.repeat(np.arange(part.n_shards), part.e_cap)[keep]
+    p = perm[keep]
+    src[p] = np.asarray(part.src_g).ravel()[keep]
+    dst[p] = (np.asarray(part.dst_l).ravel()[keep]
+              + shard_ix * part.rows_per_shard)
+    rel[p] = np.asarray(part.rel).ravel()[keep]
+    return src, dst, rel
+
+
+def shard_graph_arrays(part: EdgePartition, s: int, n_relations: int, *,
+                       block_e: int = 256, block_rows: int = 256,
+                       device="cuda") -> dict:
+    """Shard ``s``'s edges as the layers take them, on ``device``: ``src``
+    (halo-local), ``dst`` (shard-local), ``rel``, ``mask``, the blocked-CSR
+    ``layout`` (``n_src = h_cap`` halo rows, ``n_dst = rows_per_shard``)
+    and the grouping by relation ``rel_runs``, built on the host once.
+
+    Pad edges keep ``mask == 0`` (weight-0 slots, as on a sampled block),
+    but their endpoints are spread over the rows, pad ``j`` at destination
+    ``j % rows_per_shard`` and halo row ``j % h_cap``, where the partition
+    puts them all at 0: a shard with 441,598 pads (the smaller of two at
+    full width) would otherwise give row 0 a run of that many slots, which
+    one group of lanes walks alone. Every pad comes after the shard's real
+    edges, so a real row's run holds its real edges first, in their
+    order, and then at most pads whose terms are zero: each real row sums
+    the same values in the same order as the single-device graph does."""
+    from repro_torch.kernels.backend import resolve_device
+
+    dev = resolve_device(device)
+    k = int((part.perm[s] < part.n_edges).sum())
+    src = part.src_h[s].astype(np.int64)
+    dst = part.dst_l[s].astype(np.int64)
+    j = np.arange(part.e_cap - k)
+    src[k:] = j % part.h_cap
+    dst[k:] = j % part.rows_per_shard
+    layout = build_spmm_layout(src, dst, n_dst=part.rows_per_shard,
+                               n_src=part.h_cap, block_e=block_e,
+                               block_rows=block_rows, device=dev)
+
+    def t(a, dtype=np.int32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    return {"src": t(src), "dst": t(dst), "rel": t(part.rel[s]),
+            "mask": t(part.mask[s], np.float32), "layout": layout,
+            "rel_runs": relation_runs(part.rel[s], n_relations, device=dev),
+            "halo": t(part.halo[s]), "halo_count": int(part.halo_count[s]),
+            "n_real": k}
+
+
+@dataclasses.dataclass(frozen=True)
+class RowPartition:
+    """Host-side geometry of a dim-0 row-sharded table over the ``model``
+    ranks (port of ``repro/data/csr.py:RowPartition``): global row ``i``
+    lives on shard ``i // rows_per_shard`` at local offset
+    ``i % rows_per_shard``; rows ``>= n_rows`` are padding (zero, and zero
+    gradient)."""
+
+    n_rows: int          # real rows (e.g. n_nodes)
+    n_shards: int        # model-axis extent
+    rows_per_shard: int  # block rows per shard (includes padding)
+
+    @property
+    def n_rows_padded(self) -> int:
+        return self.n_shards * self.rows_per_shard
+
+    def owner_of(self, ids):
+        return np.asarray(ids) // self.rows_per_shard
+
+    def local_of(self, ids):
+        ids = np.asarray(ids)
+        return ids - self.owner_of(ids) * self.rows_per_shard
+
+    def pad_table(self, table):
+        """Zero-pad a host ``(n_rows, ...)`` table to ``n_rows_padded``."""
+        table = np.asarray(table)
+        if table.shape[0] != self.n_rows:
+            raise ValueError(
+                f"table has {table.shape[0]} rows, partition built for "
+                f"{self.n_rows}")
+        pad = [(0, self.n_rows_padded - self.n_rows)]
+        pad += [(0, 0)] * (table.ndim - 1)
+        return np.pad(table, pad)
+
+    def blocks(self, table):
+        """Padded table reshaped ``(n_shards, rows_per_shard, ...)``."""
+        padded = self.pad_table(table)
+        return padded.reshape(
+            self.n_shards, self.rows_per_shard, *padded.shape[1:])
+
+
+def row_partition(n_rows: int, n_shards: int, *, pad_to: int | None = None):
+    """Split ``n_rows`` table rows evenly over ``n_shards`` ranks;
+    ``pad_to`` widens the addressable row space first (the 2D mesh passes
+    the edge partition's ``n_nodes_padded``, so every data shard's
+    destination rows have an owner)."""
+    if n_rows < 1 or n_shards < 1:
+        raise ValueError(
+            f"row_partition needs n_rows >= 1 and n_shards >= 1, got "
+            f"{n_rows} rows over {n_shards} shards")
+    span = max(int(n_rows), int(pad_to or 0))
+    return RowPartition(
+        n_rows=int(n_rows), n_shards=int(n_shards),
+        rows_per_shard=-(-span // int(n_shards)))

@@ -168,9 +168,14 @@ def build(names=SOURCES) -> dict[str, str]:
     """Compile every missing library of ``names``, one ``nvcc`` each, all
     started together; returns each build's compiler output ("" when the
     library was already built; ``build_log`` reads it back). Raises with the
-    compiler's output on failure."""
-    with _BUILD_LOCK:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compiler's output on failure. A file lock in the build directory keeps
+    processes that build at once (the ranks of a multi-rank run) from
+    compiling the same library twice."""
+    import fcntl
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _BUILD_LOCK, open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
         procs = {}
         logs = {}
         for name in names:

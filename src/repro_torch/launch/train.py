@@ -42,9 +42,28 @@ reference's ``[train] done; loss ... hit-rate ... rows/step ... hot-tier
   PYTHONPATH=src python -m repro_torch.launch.train --arch kgat --bits 2 \\
       --sample fanout=15,10,5 --hot-frac 0.1 --steps 20
 
+``--mesh data=N`` trains on N ranks, one process each: the edges split by
+destination over the ``data`` ranks, parameters replicated, gradients
+all-reduced through the INT8 stochastic-rounding mean (``--allreduce
+fp32``: the exact mean); ``--mesh data=N,model=M`` also stores the entity
+table as row blocks across the ``model`` ranks
+(``training.data_parallel``). The launcher spawns the ranks itself
+(``launch.mesh.run_ranks``), or joins ``torchrun``'s. On ``cuda`` each rank
+takes its own card with NCCL when there are enough cards, else all share
+``cuda:0`` and talk over gloo; ``--device cpu`` runs the ranks on the CPU
+over gloo. Every rank's loss is the same scalar; rank 0 logs, writes the
+checkpoints (the full logical state, the files a single-device run
+writes) and the sinks. A checkpoint carries the mesh and the table
+placement, so a resume onto another mesh is refused; ``--reshard-from
+DIR`` starts from such a checkpoint on the current mesh instead. The
+``[dp]`` line names the backend and the collective route.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch kgat \\
+      --mesh data=2,model=2 --allreduce int8 --steps 10 --device cpu
+
 ``train_kgnn`` is the same path as a function, so that a caller can drive
 it at any size and for any KG model, R-GCN included (``chip_smoke.py`` runs
-it at full width).
+it at full width); ``train_kgnn_dp`` is the multi-rank one.
 """
 
 from __future__ import annotations
@@ -68,7 +87,8 @@ from repro_torch.training.step import make_train_step, step_metadata, \
     trainable
 from repro_torch.training.trainer import Trainer, TrainerConfig
 
-__all__ = ["train_kgnn", "main"]
+__all__ = ["train_kgnn", "train_kgnn_dp", "dp_job", "train_rank",
+           "shard_setup", "main"]
 
 ROOT_SEED = 1     # the reference launcher's root key is PRNGKey(1)
 
@@ -103,7 +123,8 @@ def _measured(train_step, dev: torch.device, step_writer=None):
 def train_kgnn(cfg, ds, params, schedule, steps: int, *, batch: int = 1024,
                device="cuda", graph=None, log_every: int = 1, log=None,
                ckpt_dir: str | None = None, ckpt_every: int = 10,
-               schedule_spec: str | None = None, step_writer=None) -> dict:
+               schedule_spec: str | None = None, step_writer=None,
+               opt_state=None) -> dict:
     """Train ``cfg.model`` (kgat, kgcn, kgin or rgcn) up to step ``steps``
     from a copy of ``params`` (the caller's stay as they were) under
     ``schedule``.
@@ -130,7 +151,8 @@ def train_kgnn(cfg, ds, params, schedule, steps: int, *, batch: int = 1024,
                                            root_seed=ROOT_SEED), dev,
                            step_writer)
     trainer = Trainer(
-        train_step, (p, opt.init(p)), step.batches(),
+        train_step, (p, opt.init(p) if opt_state is None else opt_state),
+        step.batches(),
         TrainerConfig(total_steps=steps, log_every=log_every,
                       ckpt_dir=ckpt_dir, ckpt_every=ckpt_every),
         log_fn=log, ckpt_meta=step_metadata(step, schedule_spec),
@@ -171,11 +193,31 @@ def main(argv=None) -> None:
     ap.add_argument("--hot-frac", type=float, default=0.1,
                     help="--sample: share of the entity rows kept on the "
                          "card (ranked by in-degree, LFU-refreshed)")
+    ap.add_argument("--mesh", default=None,
+                    help="MeshSpec layout, e.g. data=2 (edges split over 2 "
+                         "ranks) or data=2,model=2 (and the entity table "
+                         "row-sharded over 2): one process a rank")
+    ap.add_argument("--allreduce", default="int8", choices=["int8", "fp32"],
+                    help="--mesh: gradient all-reduce (int8 = the "
+                         "stochastic-rounding compressed mean)")
+    ap.add_argument("--reshard-from", default=None, metavar="DIR",
+                    help="start from the latest checkpoint under DIR "
+                         "whatever mesh wrote it (arch and schedule still "
+                         "checked), laid out on the current --mesh")
     args = ap.parse_args(argv)
-    dev = resolve_device(args.device)
+    if args.sample and args.mesh:
+        from repro_torch.training.data_parallel import check_no_sampled_dp
+        try:
+            check_no_sampled_dp(args.sample, mesh_spec=args.mesh)
+        except NotImplementedError as e:
+            raise SystemExit(f"error: {e}") from None
+    mesh_spec = _parse_mesh(args.mesh) if args.mesh else None
     reset_registry()   # the summary holds this run's series alone
     schedule = schedule_from_cli(args.schedule, args.bits)
     label = schedule_label(args.schedule, args.bits)
+    if mesh_spec is not None:
+        return _run_dp(args, mesh_spec, schedule, label)
+    dev = resolve_device(args.device)
     if args.trace:
         get_tracer().enable()
     try:
@@ -229,7 +271,7 @@ def _run_sampled(args, dev, schedule, label: str) -> None:
         log_fn=log)
     _finish_telemetry(args, {
         "kind": "train", "arch": args.arch, "family": step.family,
-        "schedule": label, "steps": args.steps, "mesh": None,
+        "schedule": label, "steps": args.steps, "mesh": args.mesh,
         "sample": args.sample})
     print(f"[train] done; loss {report.losses[0]:.4f} -> "
           f"{report.losses[-1]:.4f}  hit-rate {report.hit_rate:.2%}  "
@@ -241,7 +283,7 @@ def _run_sampled(args, dev, schedule, label: str) -> None:
 def _run(args, dev, schedule, label: str) -> dict:
     step = build_step(args.arch, batch_size=args.batch or 512, device=dev)
     run = {"kind": "train", "arch": args.arch, "family": step.family,
-           "schedule": label, "steps": args.steps, "mesh": None,
+           "schedule": label, "steps": args.steps, "mesh": args.mesh,
            "sample": None}
     params = step.init(0)
     n = sum(t.numel() for v in params.values()
@@ -251,6 +293,12 @@ def _run(args, dev, schedule, label: str) -> dict:
     step_writer = (StepLogWriter(os.path.join(args.metrics_out,
                                               "steps.jsonl"))
                    if args.metrics_out else None)
+    opt_state = None
+    if args.reshard_from:
+        params, opt_state = _reshard_from(args.reshard_from, step, params,
+                                          label)
+        log(f"[train] resharded checkpoint from {args.reshard_from} onto "
+            f"1 device")
     try:
         res = train_kgnn(
             step.cfg, step.data["dataset"], params, schedule, args.steps,
@@ -258,12 +306,247 @@ def _run(args, dev, schedule, label: str) -> dict:
             log_every=max(args.steps // 8, 5),
             ckpt_dir=args.ckpt or tempfile.mkdtemp(prefix="repro_ckpt_"),
             ckpt_every=max(args.steps // 4, 10), schedule_spec=label,
-            step_writer=step_writer)
+            step_writer=step_writer, opt_state=opt_state)
     finally:
         if step_writer is not None:
             step_writer.close()
     _finish_telemetry(args, run)
     return res
+
+
+# -- several ranks (--mesh) -----------------------------------------------------
+
+
+def _parse_mesh(spec: str):
+    """``--mesh`` string -> validated ``MeshSpec`` (SystemExit on junk)."""
+    from repro_torch.sharding.mesh_spec import MeshSpec, MeshSpecError
+
+    try:
+        return MeshSpec.parse(spec).check_axes(("data", "model"),
+                                               required=("data",))
+    except MeshSpecError as e:
+        raise SystemExit(f"--mesh: {e}") from None
+
+
+def _reshard_from(base: str, step, params, label: str):
+    """The latest checkpoint under ``base`` (the full logical state),
+    whatever mesh wrote it: arch, model and schedule are still checked."""
+    from repro_torch.training.checkpoint import restore_checkpoint
+
+    opt = adam(step.lr)
+    got, state = restore_checkpoint(base, (params, opt.init(params)),
+                                    expect_meta=step_metadata(step, label))
+    if got is None:
+        raise SystemExit(f"--reshard-from: no checkpoint found under {base}")
+    return state
+
+
+def dp_job(cfg, ds, schedule, steps: int, *, batch: int = 1024,
+           allreduce: str = "int8",
+           ckpt_dir: str | None = None, ckpt_every: int = 10,
+           schedule_spec: str | None = None,
+           reshard_from: str | None = None, log_every: int = 1,
+           metrics_out: str | None = None,
+           trace: str | None = None, verbose: bool = True,
+           run: dict | None = None) -> dict:
+    """The description of one multi-rank training run that ``train_rank``
+    carries out on each rank (the arguments of ``train_kgnn_dp``)."""
+    return dict(cfg=cfg, ds=ds, schedule=schedule, steps=steps, batch=batch,
+                allreduce=allreduce,
+                ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                schedule_spec=schedule_spec, reshard_from=reshard_from,
+                log_every=log_every, metrics_out=metrics_out, trace=trace, verbose=verbose,
+                run=run)
+
+
+def train_kgnn_dp(cfg, ds, schedule, steps: int, *, mesh, device="cuda",
+                  **kw) -> list:
+    """Train ``cfg.model`` on the ranks of ``mesh`` (a ``MeshSpec`` or its
+    string) up to step ``steps``, from the seed-0 parameters
+    (or ``reshard_from``'s checkpoint), under ``schedule``, through
+    ``training.data_parallel.make_dp_step`` with ``allreduce``'s
+    all-reduce (``int8`` or ``fp32``); the replicated parameters are held
+    bitwise equal across the ranks after every step.
+    One process a rank (``launch.mesh.run_ranks``), each running
+    ``train_rank``; the keywords are ``dp_job``'s.
+
+    Returns one dict a rank: ``steps`` (per step ``loss``, ``seconds``,
+    ``launches`` by kernel, ``max_memory_allocated``), ``counts`` (kernel
+    launches of the whole run), ``peak`` (the rank's peak allocated device
+    memory, None on the CPU), ``shard`` (every shard's edges and halo
+    rows, the caps), ``mesh`` (backend, route, device),
+    ``allreduce_bytes`` (the analytic report on this rank's leaves, int8
+    and fp32) and ``allreduce_sent`` (the bytes this rank hands its
+    all-reduce calls, int8 and fp32)."""
+    from repro_torch.launch.mesh import run_ranks
+
+    return run_ranks(train_rank, str(mesh), device=str(device),
+                     args=(dp_job(cfg, ds, schedule, steps, **kw),))
+
+
+def shard_setup(step, mesh, cache: dict | None = None):
+    """``(part, view, model_axis)`` of ``step`` on this rank: the edge
+    partition and the shard's view, built on the host once (and kept in
+    ``cache`` for later runs of the same graph and mesh)."""
+    from repro_torch.training import data_parallel as dp
+
+    key = (id(step.dp_spec.graph), str(mesh.spec))
+    if cache is not None and key in cache:
+        return cache[key]
+    model_axis = "model" if "model" in mesh.spec.names else None
+    part = dp.partition_graph(step.dp_spec.graph, mesh)
+    out = (part, dp.shard_view(step.dp_spec, part, mesh,
+                               model_axis=model_axis), model_axis)
+    if cache is not None:
+        cache[key] = out
+    return out
+
+
+def train_rank(rt, job: dict, cache: dict | None = None) -> dict:
+    """One rank of ``train_kgnn_dp``: ``job`` is a ``dp_job``, ``rt`` the
+    rank's ``launch.mesh.RankRuntime``; ``cache`` keeps the shard's
+    partition and view across runs of one process."""
+    from repro_torch.kernels.backend import reset_counts
+    from repro_torch.training import data_parallel as dp
+    from repro_torch.training.checkpoint import RankCheckpoints
+    from repro_torch.sharding.comm import ROUTE
+    from repro_torch.training.compress import allreduce_byte_report, \
+        allreduce_sent_bytes
+
+    cfg, ds, mesh, dev = job["cfg"], job["ds"], rt.mesh, rt.device
+    say = log if rt.is_root and job["verbose"] else (lambda *_, **__: None)
+    if rt.is_root and job["trace"]:
+        get_tracer().enable()
+    step = build_step(arch_of(cfg.model), ds=ds, cfg=cfg,
+                      batch_size=job["batch"], device=dev,
+                      device_graph=False)
+    spec = step.dp_spec
+    part, view, model_axis = shard_setup(step, mesh, cache)
+    placement = spec.placement_str() if model_axis else None
+    opt = adam(step.lr)
+    params = step.init(0)
+    logical = (params, opt.init(params))
+
+    def to_local(state):
+        if model_axis is not None:
+            state = dp.block_rows(dp.pad_row_sharded(
+                state, spec, part, mesh.shape[model_axis]), spec, part, mesh)
+        return trainable(state[0]), state[1]
+
+    def to_logical(state):
+        if model_axis is None:
+            return state
+        return dp.unpad_row_sharded(dp.gather_row_blocks(
+            state, spec, part, mesh), spec, part.n_nodes)
+
+    state = logical
+    if job["reshard_from"]:
+        state = _reshard_from(job["reshard_from"], step, params,
+                              job["schedule_spec"])
+        say(f"[train] resharded checkpoint from {job['reshard_from']} onto "
+            f"mesh {mesh.spec}")
+    state = to_local(state)
+    del logical, params
+    counts = part.edge_counts().tolist()
+    say(f"[dp] {step.arch} ({cfg.model}): mesh {mesh.spec}, {rt.world_size} "
+        f"ranks, backend {mesh.backend}, collective route {ROUTE}, "
+        f"rank 0 on {dev}, allreduce={job['allreduce']}; edges/shard "
+        f"{counts} (cap {part.e_cap}), halo rows/shard "
+        f"{part.halo_count.tolist()} (cap {part.h_cap}), rows/shard "
+        f"{part.rows_per_shard}"
+        + (f", row-sharded [{placement}] over model="
+           f"{mesh.shape[model_axis]}" if model_axis else ""))
+    train_step = dp.make_dp_step(
+        step, part, mesh, opt, schedule=job["schedule"], root_seed=ROOT_SEED,
+        mesh_spec=mesh.spec, compress_grads=job["allreduce"] == "int8",
+        view=view)
+    step_writer = (StepLogWriter(os.path.join(job["metrics_out"],
+                                              "steps.jsonl"))
+                   if rt.is_root and job["metrics_out"] else None)
+    meta = step_metadata(step, job["schedule_spec"], mesh_spec=mesh.spec,
+                         placement=placement)
+    trainer = Trainer(
+        _measured(train_step, dev, step_writer), state, step.batches(),
+        TrainerConfig(total_steps=job["steps"], log_every=job["log_every"],
+                      max_failures=1),
+        log_fn=say, ckpt_meta=meta, step_writer=step_writer,
+        items_per_step=len(ds.src))
+    if job["ckpt_dir"]:
+        trainer.ckpt = RankCheckpoints(
+            job["ckpt_dir"], is_root=rt.is_root, to_logical=to_logical,
+            to_local=to_local, logical_template=to_logical(state), meta=meta)
+        trainer.cfg.ckpt_every = job["ckpt_every"]
+        trainer.restore_if_available()
+    reset_counts()
+    try:
+        params_out, _ = trainer.run()
+    finally:
+        if step_writer is not None:
+            step_writer.close()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    counts_run = dict(LAUNCH_COUNTS)
+    if rt.is_root and (job["trace"] or job["metrics_out"]):
+        run = job["run"] or {"kind": "train", "arch": step.arch,
+                             "family": step.family,
+                             "schedule": job["schedule_spec"],
+                             "steps": job["steps"], "mesh": str(mesh.spec),
+                             "sample": None}
+        _finish_telemetry(argparse.Namespace(trace=job["trace"],
+                                             metrics_out=job["metrics_out"]),
+                          run)
+        get_tracer().disable()
+    axes = ("data", model_axis) if model_axis else "data"
+    sharded_over = ({n: model_axis for n in spec.row_sharded()}
+                    if model_axis else None)
+    return {
+        "steps": [{k: v for k, v in r.items() if k != "act"}
+                  for r in trainer.history],
+        "counts": counts_run,
+        "peak": (max((r["max_memory_allocated"] for r in trainer.history),
+                     default=0) if dev.type == "cuda" else None),
+        "shard": {"e_cap": part.e_cap, "h_cap": part.h_cap,
+                  "rows": part.rows_per_shard, "edges_all": counts,
+                  "halo_all": part.halo_count.tolist()},
+        "mesh": {"spec": str(mesh.spec), "backend": mesh.backend,
+                 "route": ROUTE, "device": str(dev)},
+        **{key: {w: report(params_out, axes, placement=sharded_over,
+                           compressed=w == "int8") for w in ("int8", "fp32")}
+           for key, report in (("allreduce_bytes", allreduce_byte_report),
+                               ("allreduce_sent", allreduce_sent_bytes))},
+    }
+
+
+def _run_dp(args, mesh_spec, schedule, label: str) -> None:
+    """--mesh: the launcher's default step on the mesh's ranks."""
+    step = build_step(args.arch, batch_size=args.batch or 512, device="cpu",
+                      device_graph=False)
+    if step.dp_spec is None:
+        raise SystemExit(f"--mesh: data parallelism is not implemented for "
+                         f"--arch {args.arch}: {step.dp_unsupported}")
+    run = {"kind": "train", "arch": args.arch, "family": step.family,
+           "schedule": label, "steps": args.steps, "mesh": str(mesh_spec),
+           "sample": None}
+    res = train_kgnn_dp(
+        step.cfg, step.data["dataset"], schedule, args.steps,
+        mesh=mesh_spec, device=args.device, batch=args.batch or 512,
+        allreduce=args.allreduce,
+        ckpt_dir=args.ckpt or tempfile.mkdtemp(prefix="repro_ckpt_"),
+        ckpt_every=max(args.steps // 4, 10), schedule_spec=label,
+        reshard_from=args.reshard_from, log_every=max(args.steps // 8, 5),
+        metrics_out=args.metrics_out, trace=args.trace, run=run)
+    hist = res[0]["steps"]
+    if not hist:
+        print(f"[train] done; nothing to run past step {args.steps}")
+        return
+    rep = res[0]["allreduce_bytes"][args.allreduce]
+    sent = res[0]["allreduce_sent"][args.allreduce]
+    print(f"[train] {mesh_spec}: {len(res)} ranks, all-reduce "
+          f"{sum(r['bytes'] for r in rep)} B/step analytic ({args.allreduce}"
+          f"; " + ", ".join(f"{r['axes']} {r['bytes']}" for r in rep)
+          + f"), {sum(r['bytes'] for r in sent)} B/step sent")
+    losses = [r["loss"] for r in hist]
+    print(f"[train] done; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
 
 
 def _finish_telemetry(args, run: dict) -> None:

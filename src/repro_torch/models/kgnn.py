@@ -32,6 +32,20 @@ weights and messages are multiplied by the mask, and KGIN's and R-GCN's
 degree is the mask summed by destination. The readout keeps the seed rows
 of every layer (``sampled_reps``).
 
+On several ranks (``training.data_parallel``) each ``data`` rank runs the
+same layers on one shard of the edges, split by destination: a
+``ShardGraphView`` (``Shard2DGraphView`` when the entity table is stored as
+row blocks across the ``model`` ranks). Its sources index the shard's
+halo, the unique rows it reads, which ``table`` brings in from every rank
+(a tiled all-gather, then the halo's rows); its destinations are the
+shard's own rows (``local_rows``), and ``unshard`` gathers the readout for
+the BPR scores (``kg_shard_loss``, ``kg_shard_reps``). The layers reach
+every difference between these views through the same hooks (the view's
+``layer_graph``, ``local_rows``, ``seed_rows``, ``unshard`` and
+``param_l2``; the layer graph's ``table``, ``mask_logits``,
+``mask_weights``, ``mask_messages`` and ``edge_ones``), each the identity
+on the full graph.
+
 The ACT sites of each layer (``model_sites``; ``spmm``, ``w1`` ... under
 ``<model>/layer<l>/``) resolve their policy and seed from the ambient
 ``ActContext``: ``bpr_loss`` runs them under the training schedule,
@@ -72,17 +86,80 @@ from repro_torch.kernels.backend import full_fp32, resolve_device
 
 from .layers import glorot, normal_init, param_leaves
 
-__all__ = ["KGNNConfig", "CKG", "BlockView", "SampledGraphView", "MODELS",
+__all__ = ["KGNNConfig", "CKG", "BlockView", "SampledGraphView",
+           "ShardGraphView", "Shard2DGraphView", "MODELS",
            "model_sites", "segment_softmax", "kgat_bi_interaction",
            "init_params", "params_from_jax", "propagate_view",
            "forward_reps", "propagate", "readout", "score_pairs", "bpr_loss",
-           "sampled_reps", "sampled_bpr_loss"]
+           "sampled_reps", "sampled_bpr_loss", "kg_shard_loss",
+           "kg_shard_reps"]
 
 MODELS = ("kgat", "kgcn", "kgin", "rgcn")
 
 
+class _ViewHooks:
+    """The hooks the layers call on a view and on its layer graphs, each
+    the identity here (the full graph; the sampled view overrides the
+    view hooks, a block and a shard the edge hooks). A layer graph's
+    ``mask`` is None when every edge is real."""
+
+    # -- the view: which graph each layer runs on, which rows it keeps ------
+
+    def check_depth(self, n_layers: int) -> None:
+        pass
+
+    def layer_graph(self, layer: int):
+        return self
+
+    def local_rows(self, table):
+        """This view's rows of the entity parameter (its layer-0 input)."""
+        return table
+
+    def seed_rows(self, e):
+        """The rows of a layer output that the readout keeps."""
+        return e
+
+    def unshard(self, x):
+        """The readout rows of every node from this view's rows."""
+        return x
+
+    def param_l2(self, params: dict):
+        """The L2 of every parameter, the same scalar on every rank."""
+        return sum(torch.sum(x ** 2) for x in param_leaves(params))
+
+    # -- a layer graph: where its sources come from, its pad slots ----------
+
+    def input_rows(self, e):
+        """The rows of a layer input its edges read (a block reads a prefix
+        of a wider table)."""
+        return e
+
+    def table(self, x, axis: int = 0):
+        """The table the sources index (``n_src`` rows along ``axis``),
+        from this graph's rows of ``x``."""
+        return x
+
+    def tables(self, xs: list) -> list:
+        """``table`` of several same-shaped inputs."""
+        return xs
+
+    def mask_logits(self, logits):
+        return logits if self.mask is None else \
+            torch.where(self.mask > 0, logits, -1e30)
+
+    def mask_weights(self, w):
+        return w if self.mask is None else w * self.mask
+
+    def mask_messages(self, m):
+        return m if self.mask is None else m * self.mask[:, None]
+
+    def edge_ones(self, dtype):
+        return (torch.ones(self.src.shape, dtype=dtype, device=self.src.device)
+                if self.mask is None else self.mask.to(dtype))
+
+
 @dataclasses.dataclass(frozen=True)
-class CKG:
+class CKG(_ViewHooks):
     """Collaborative knowledge graph in COO form (inverse edges included),
     always with its blocked-CSR ``layout`` and its grouping of the edges by
     relation (``rel_runs``, ``data.csr.relation_runs``) on the same
@@ -119,7 +196,7 @@ class CKG:
 
 
 @dataclasses.dataclass(frozen=True)
-class BlockView:
+class BlockView(_ViewHooks):
     """One sampled fanout hop: a bipartite edge block (port of
     ``repro/models/kgnn.py:BlockView``), built on the host by
     ``data.minibatch.sample_kg_blocks``. ``src`` indexes the layer's input
@@ -137,6 +214,9 @@ class BlockView:
     n_src: int
     n_dst: int
 
+    def input_rows(self, e):
+        return e[:self.n_src] if e.shape[0] > self.n_src else e
+
     def to(self, device) -> "BlockView":
         return dataclasses.replace(
             self, layout=to_device(self.layout, device),
@@ -146,7 +226,7 @@ class BlockView:
 
 
 @dataclasses.dataclass(frozen=True)
-class SampledGraphView:
+class SampledGraphView(_ViewHooks):
     """A neighbour-sampled minibatch: one ``BlockView`` per layer,
     outermost hop first; the innermost hop's destinations are the
     ``n_seeds`` seeds. The entity table the model is given is the gathered
@@ -159,9 +239,151 @@ class SampledGraphView:
     def n_input_rows(self) -> int:
         return self.blocks[0].n_src
 
+    def check_depth(self, n_layers: int) -> None:
+        if len(self.blocks) != n_layers:
+            raise ValueError(f"the model has {n_layers} layers, the view "
+                             f"{len(self.blocks)} blocks")
+
+    def layer_graph(self, layer: int):
+        return self.blocks[layer]
+
+    def seed_rows(self, e):
+        return e[:self.n_seeds]
+
     def to(self, device) -> "SampledGraphView":
         return dataclasses.replace(
             self, blocks=tuple(b.to(device) for b in self.blocks))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardGraphView(_ViewHooks):
+    """One ``data`` rank's shard of a graph split by destination (port of
+    ``repro/models/kgnn.py:ShardGraphView``), on the rank's device; it is
+    also the graph of every layer. Built by ``training.data_parallel``
+    from one row of a ``data.csr.EdgePartition`` and its layout
+    (``data.csr.shard_graph_arrays``): ``src`` indexes the ``h_cap`` rows
+    ``table`` returns (every rank's rows gathered, then the shard's
+    ``halo``), ``dst`` the shard's ``num_rows`` rows, pad edges carry
+    ``mask == 0``. ``local_rows`` cuts this rank's rows out of a
+    replicated node table (zero-padded to ``n_nodes_padded``)."""
+
+    src: torch.Tensor       # (Ec,) int32 halo-local source row
+    dst: torch.Tensor       # (Ec,) int32 shard-local destination row
+    rel: torch.Tensor       # (Ec,) int32 relation ids
+    mask: torch.Tensor      # (Ec,) float32 1 = real edge, 0 = pad
+    layout: object
+    rel_runs: tuple
+    halo: torch.Tensor      # (Hc,) int32 unique global sources (pads 0)
+    halo_count: int         # real halo rows
+    mesh: object            # sharding.comm.TorchMesh
+    axis: str               # the data axis
+    num_rows: int           # rows per shard
+    n_nodes_padded: int     # num_rows * data ranks
+
+    @property
+    def n_src(self) -> int:
+        return int(self.halo.shape[0])
+
+    @property
+    def n_dst(self) -> int:
+        return self.num_rows
+
+    def local_rows(self, table):
+        pad = self.n_nodes_padded - table.shape[0]
+        if pad:
+            table = torch.cat([table, table.new_zeros((pad,)
+                                                      + table.shape[1:])])
+        i = self.mesh.index(self.axis)
+        return table[i * self.num_rows:(i + 1) * self.num_rows]
+
+    def table(self, x, axis: int = 0):
+        from repro_torch.sharding.comm import all_gather
+
+        full = all_gather(x, self.mesh, self.axis, dim=axis)
+        return _HaloRows.apply(full, self.halo, self.halo_count, axis)
+
+    def tables(self, xs: list) -> list:
+        return list(self.table(torch.stack(xs, dim=1)).unbind(1))
+
+    def unshard(self, x):
+        from repro_torch.sharding.comm import all_gather
+
+        return all_gather(x, self.mesh, self.axis, dim=0)
+
+
+class _HaloRows(torch.autograd.Function):
+    """``full.index_select(dim, halo)``; backward copies the real halo rows'
+    cotangents into a zero table (the real halo ids are unique, so no
+    order of additions is involved; the pad rows repeat id 0 and only pad
+    edges, whose cotangents are zero, read them)."""
+
+    @staticmethod
+    def forward(fctx, full, halo, count, dim):
+        fctx.shape, fctx.dim = full.shape, dim
+        fctx.save_for_backward(halo[:count])
+        return full.index_select(dim, halo)
+
+    @staticmethod
+    def backward(fctx, g):
+        (real,) = fctx.saved_tensors
+        out = g.new_zeros(fctx.shape)
+        out.index_copy_(fctx.dim, real.long(),
+                        g.narrow(fctx.dim, 0, real.shape[0]))
+        return out, None, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard2DGraphView(ShardGraphView):
+    """A ``ShardGraphView`` whose entity table is stored as row blocks
+    across the ``model`` ranks (port of
+    ``repro/models/kgnn.py:Shard2DGraphView``; the 2D data x model mesh).
+    Only two hooks differ from the 1D view:
+
+      * ``local_rows``: the shard's rows are the contiguous global ids
+        ``[s * num_rows, (s + 1) * num_rows)``; ``sharding.rowshard.
+        fetch_rows`` assembles them from the blocks with one sum over the
+        ``model`` ranks, one real row plus zeros each, so the same bits as
+        slicing a replicated table, and everything after it is the 1D
+        computation;
+      * ``param_l2``: the row-sharded tables add through
+        ``rowshard_l2`` (the blocks' sums added over ``model``).
+
+    Everything after the fetch is replicated over ``model``; the backwards
+    of both functions rely on that."""
+
+    model_axis: str = "model"
+    table_rows: int = 0      # block rows a model rank holds
+    n_valid_rows: int = 0    # real node count; padded ids fetch as zero
+    row_sharded: tuple = ()  # top-level parameter names stored as blocks
+    local_runs: tuple = ()   # fetch_rows' backward grouping of local_ids
+
+    def local_ids(self) -> torch.Tensor:
+        s = self.mesh.index(self.axis)
+        return torch.arange(s * self.num_rows, (s + 1) * self.num_rows,
+                            device=self.dst.device)
+
+    def local_rows(self, table):
+        from repro_torch.sharding.rowshard import fetch_rows
+
+        return fetch_rows(table, self.local_ids(), mesh=self.mesh,
+                          axis=self.model_axis,
+                          rows_per_shard=self.table_rows,
+                          n_valid=self.n_valid_rows,
+                          runs=self.local_runs or None)
+
+    def param_l2(self, params: dict):
+        from repro_torch.sharding.rowshard import rowshard_l2
+
+        total = 0.0
+        for name, sub in params.items():
+            if name in self.row_sharded:
+                total = total + rowshard_l2(sub, mesh=self.mesh,
+                                            axis=self.model_axis)
+            else:
+                total = total + sum(torch.sum(x ** 2) for x in
+                                    (sub if isinstance(sub, list)
+                                     else [sub]))
+        return total
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,8 +439,7 @@ def segment_softmax(logits: torch.Tensor, g) -> torch.Tensor:
     destination runs (``gather_rows``).
     """
     seg = g.dst.long()
-    if g.mask is not None:
-        logits = torch.where(g.mask > 0, logits, -1e30)
+    logits = g.mask_logits(logits)
     mx = torch.full((g.n_dst,), float("-inf"), dtype=logits.dtype,
                     device=logits.device)
     mx = mx.scatter_reduce(0, seg, logits.detach(), reduce="amax",
@@ -227,7 +448,7 @@ def segment_softmax(logits: torch.Tensor, g) -> torch.Tensor:
     ones = torch.ones((g.n_src, 1), dtype=ex.dtype, device=ex.device)
     den = weighted_spmm(ones, ex, g.layout)[:, 0]
     w = ex / (gather_rows(den, seg, g.layout.runs()) + 1e-16)
-    return w if g.mask is None else w * g.mask
+    return g.mask_weights(w)
 
 
 def init_params(cfg: KGNNConfig, *, seed: int = 0, device="cuda") -> dict:
@@ -303,7 +524,7 @@ def _in_degree(g, dtype) -> torch.Tensor:
     if g.mask is None:
         deg = g.layout.in_degree().to(dtype)
     else:
-        deg = ops.segment_sum(g.mask.to(dtype), g.layout.runs())
+        deg = ops.segment_sum(g.edge_ones(dtype), g.layout.runs())
     return torch.clamp_min(deg, 1.0)[:, None]
 
 
@@ -324,19 +545,21 @@ def _kgat_attention(p: dict, e: torch.Tensor, g) -> torch.Tensor:
     duplicates serially.
 
     On a block the projections cover the ``n_src`` rows of the layer-0
-    table that the block reads (a prefix of it).
+    table that the block reads (a prefix of it). On a shard they cover the
+    shard's rows, and the source side reads them from every rank
+    (``g.table`` along axis 1: one all-gather for the four bases).
     """
     src, dst, rel = g.src.long(), g.dst.long(), g.rel.long()
     by_src, by_dst = g.layout.runs(transpose=True), g.layout.runs()
-    if e.shape[0] > g.n_src:
-        e = e[:g.n_src]
+    e = g.input_rows(e)
     proj = torch.stack([e @ p["att_basis"][b]
                         for b in range(p["att_basis"].shape[0])])
+    proj_src = g.table(proj, axis=1)
     coef = gather_rows(p["att_coef"], rel, g.rel_runs)      # (E, B)
     eh = et = None
     for b in range(proj.shape[0]):
         c = coef[:, b:b + 1]
-        th = c * gather_rows(proj[b], src, by_src)
+        th = c * gather_rows(proj_src[b], src, by_src)
         tt = c * gather_rows(proj[b], dst, by_dst)
         eh = th if eh is None else eh + th
         et = tt if et is None else et + tt
@@ -348,7 +571,7 @@ def _kgat_attention(p: dict, e: torch.Tensor, g) -> torch.Tensor:
 
 def _kgat_layer(p: dict, layer: int, e: torch.Tensor, g,
                 att: torch.Tensor) -> torch.Tensor:
-    e_n = act_spmm(e, att, g.layout, scope="spmm")
+    e_n = act_spmm(g.table(e), att, g.layout, scope="spmm")
     return kgat_bi_interaction(p, layer, _self_rows(e, g), e_n)
 
 
@@ -356,7 +579,7 @@ def _kgcn_layer(p: dict, layer: int, e: torch.Tensor, g,
                 ew: torch.Tensor) -> torch.Tensor:
     """KGNN-LS graph convolution: σ((Â E)Θ + b) with the relation-scored
     Â (``ew``); sigmoid, tanh on the last layer."""
-    h = act_spmm(e, ew, g.layout, scope="spmm")
+    h = act_spmm(g.table(e), ew, g.layout, scope="spmm")
     j = act_matmul(h + _self_rows(e, g), p["w"][layer],
                    scope="dense") + p["b"][layer]
     return act_nonlin(j, scope="act",
@@ -368,10 +591,9 @@ def _kgin_layer(e: torch.Tensor, r_emb: torch.Tensor, g,
     """Relational path aggregation (KGIN eq. 8): the mean over each
     destination's edges of ``e[src] * r_emb[rel]``, then LeakyReLU. The
     sum by destination is the fixed-order segment sum (``sum_rows``)."""
-    msgs = (gather_rows(e, g.src.long(), g.layout.runs(transpose=True))
-            * gather_rows(r_emb, g.rel.long(), g.rel_runs))
-    if g.mask is not None:
-        msgs = msgs * g.mask[:, None]
+    msgs = g.mask_messages(
+        gather_rows(g.table(e), g.src.long(), g.layout.runs(transpose=True))
+        * gather_rows(r_emb, g.rel.long(), g.rel_runs))
     agg = sum_rows(msgs, g.dst.long(), g.layout.runs()) / deg
     return act_nonlin(agg, fn="leaky_relu", scope="act")
 
@@ -385,10 +607,12 @@ def _rgcn_layer(p: dict, layer: int, e: torch.Tensor, g,
     one SPMM per basis with the edges' coefficients ``coef[b]`` (``(E,)``,
     from ``_edge_weights``) as edge weights: no ``(E, d)`` tensor, ∇proj by
     the transpose SPMM and ∇coef by the SDDMM. It sums in another order
-    than the reference."""
+    than the reference. On a shard the four projections come in through
+    one ``g.tables`` call."""
+    tabs = g.tables([act_matmul(e, p["basis"][b], scope=f"basis{b}")
+                     for b in range(len(coef))])
     agg = None
-    for b, c in enumerate(coef):
-        pb = act_matmul(e, p["basis"][b], scope=f"basis{b}")
+    for pb, c in zip(tabs, coef):
         t = weighted_spmm(pb, c, g.layout)
         agg = t if agg is None else agg + t
     self_t = act_matmul(_self_rows(e, g), p["w_self"][layer], scope="self")
@@ -408,16 +632,15 @@ def _edge_weights(p: dict, e0: torch.Tensor, g, cfg: KGNNConfig):
     if cfg.model == "kgcn":
         logits = torch.sum(
             gather_rows(p["relation"], g.rel.long(), g.rel_runs)
-            * gather_rows(e0, g.src.long(), g.layout.runs(transpose=True)),
+            * gather_rows(g.table(e0), g.src.long(),
+                          g.layout.runs(transpose=True)),
             dim=-1)
         return segment_softmax(logits, g)
     if cfg.model == "kgin":
         alpha = torch.softmax(p["intent"], dim=-1)            # (P, R)
         return p["relation"] + torch.mean(alpha @ p["relation"], dim=0)
     coef = gather_rows(p["coef"], g.rel.long(), g.rel_runs)     # (E, B)
-    if g.mask is not None:
-        return [c * g.mask for c in coef.unbind(1)]
-    return [c.contiguous() for c in coef.unbind(1)]
+    return [g.mask_weights(c.contiguous()) for c in coef.unbind(1)]
 
 
 def readout(outs: list, cfg: KGNNConfig) -> torch.Tensor:
@@ -429,30 +652,26 @@ def readout(outs: list, cfg: KGNNConfig) -> torch.Tensor:
 
 
 def propagate_view(params: dict, view, cfg: KGNNConfig, ctx) -> list:
-    """``cfg.n_layers`` layers of ``cfg.model`` over a ``CKG`` (every layer
-    on the whole graph) or a ``SampledGraphView`` (layer ``l`` on block
-    ``l``, outputs cut to the seed rows), under the entered ``ctx`` with
-    ``layer<l>`` scopes; returns the per-layer outputs, layer 0 first. On a
-    sampled view the edge weights are computed per block, each from the
-    layer-0 embeddings (KGIN's relation table once)."""
-    sampled = isinstance(view, SampledGraphView)
-    graphs = view.blocks if sampled else (view,) * cfg.n_layers
-    if len(graphs) != cfg.n_layers:
-        raise ValueError(f"{cfg.model} has {cfg.n_layers} layers, the "
-                         f"view {len(graphs)} blocks")
-
-    def keep(x):
-        return x[:view.n_seeds] if sampled else x
-
-    e = params["entity"]
-    outs = [keep(e)]
-    if sampled and cfg.model != "kgin":
-        weights = [_edge_weights(params, e, g, cfg) for g in graphs]
-    else:
-        weights = [_edge_weights(params, e, graphs[0], cfg)] * cfg.n_layers
-    degs = ([_in_degree(g, e.dtype) for g in graphs] if sampled
-            else [_in_degree(view, e.dtype)] * cfg.n_layers)
-    for layer, (g, w, deg) in enumerate(zip(graphs, weights, degs)):
+    """``cfg.n_layers`` layers of ``cfg.model`` over a view, under the
+    entered ``ctx`` with ``layer<l>`` scopes; returns the per-layer outputs
+    the readout keeps (``view.seed_rows``), layer 0 first. Layer ``l`` runs
+    on ``view.layer_graph(l)``: the whole ``CKG``, block ``l`` of a
+    ``SampledGraphView``, or the rank's ``ShardGraphView``. The edge
+    weights and degrees are computed once per distinct layer graph, each
+    from the layer-0 embeddings (KGIN's relation table once)."""
+    view.check_depth(cfg.n_layers)
+    graphs = [view.layer_graph(layer) for layer in range(cfg.n_layers)]
+    e = view.local_rows(params["entity"])
+    outs = [view.seed_rows(e)]
+    weights, degs = {}, {}
+    for g in graphs:
+        if id(g) not in weights:
+            weights[id(g)] = (next(iter(weights.values()))
+                              if cfg.model == "kgin" and weights
+                              else _edge_weights(params, e, g, cfg))
+            degs[id(g)] = _in_degree(g, e.dtype)
+    for layer, g in enumerate(graphs):
+        w, deg = weights[id(g)], degs[id(g)]
         with ctx.scope(f"layer{layer}"):
             if cfg.model == "kgat":
                 e = _kgat_layer(params, layer, e, g, w)
@@ -462,7 +681,7 @@ def propagate_view(params: dict, view, cfg: KGNNConfig, ctx) -> list:
                 e = _kgin_layer(e, w, g, deg)
             else:
                 e = _rgcn_layer(params, layer, e, g, w, deg)
-        outs.append(keep(e))
+        outs.append(view.seed_rows(e))
     return outs
 
 
@@ -504,8 +723,7 @@ def bpr_loss(params: dict, g: CKG, batch: dict,
     pos = score_pairs(reps, batch["user"], batch["pos"], cfg.n_users)
     neg = score_pairs(reps, batch["user"], batch["neg"], cfg.n_users)
     loss = -torch.mean(torch.nn.functional.logsigmoid(pos - neg))
-    reg = sum(torch.sum(x ** 2) for x in param_leaves(params))
-    return loss + cfg.l2 * reg
+    return loss + cfg.l2 * g.param_l2(params)
 
 
 def sampled_reps(params: dict, view: SampledGraphView,
@@ -527,5 +745,24 @@ def sampled_bpr_loss(params: dict, view: SampledGraphView,
     pos = torch.sum(reps[:b] * reps[b:2 * b], dim=-1)
     neg = torch.sum(reps[:b] * reps[2 * b:3 * b], dim=-1)
     loss = -torch.mean(torch.nn.functional.logsigmoid(pos - neg))
-    reg = sum(torch.sum(x ** 2) for x in param_leaves(params))
-    return loss + cfg.l2 * reg
+    return loss + cfg.l2 * view.param_l2(params)
+
+
+def kg_shard_reps(params: dict, view, cfg: KGNNConfig) -> torch.Tensor:
+    """This shard's rows of the readout (port of
+    ``repro/models/kgnn.py:kg_shard_reps``); the sites resolve from the
+    ambient context under the same scopes as ``forward_reps``."""
+    return _reps(params, view, cfg, f"kg_shard_reps({cfg.model})")
+
+
+def kg_shard_loss(params: dict, view, batch: dict, cfg: KGNNConfig):
+    """One shard's part of the global BPR objective plus the full L2 (port
+    of ``repro/models/kgnn.py:kg_shard_loss``): ``(local batch BPR + l2 *
+    reg, local batch BPR)``. With the batch split evenly over the ``data``
+    ranks, the mean over them of the first is the global objective. The
+    layers are ``propagate_view``'s, as on one device."""
+    reps = view.unshard(kg_shard_reps(params, view, cfg))
+    pos = score_pairs(reps, batch["user"], batch["pos"], cfg.n_users)
+    neg = score_pairs(reps, batch["user"], batch["neg"], cfg.n_users)
+    loss_loc = -torch.mean(torch.nn.functional.logsigmoid(pos - neg))
+    return loss_loc + cfg.l2 * view.param_l2(params), loss_loc

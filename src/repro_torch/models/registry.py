@@ -10,6 +10,11 @@ with its own config (``arch_of``, ``model_config``). The reference's other
 archs raise ``NotImplementedError`` naming the slice of the port that
 brings them (ROADMAP Queue 1).
 
+KG steps carry a ``ShardSpec`` (``kg_dp_spec``: edges split by destination
+over the ``data`` ranks, the entity table row-sharded over the ``model``
+ranks of a 2D mesh), so every KG model trains on several ranks
+(``training.data_parallel``).
+
 ``PATH_KERNELS`` lists the CUDA kernels a training step of each KG model
 launches, for the checks that the path really went through them.
 """
@@ -17,15 +22,17 @@ launches, for the checks that the path really went through them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from repro_torch.configs import ARCHS, get
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.training.step import ModelStep, enter_or_null, trainable
+from repro_torch.training.step import ROW_SHARDED, ModelStep, ShardSpec, \
+    enter_or_null, trainable
 
 __all__ = ["build_step", "archs", "arch_of", "model_config", "path_kernels",
-           "NOT_PORTED", "PATH_KERNELS"]
+           "kg_dp_spec", "NOT_PORTED", "PATH_KERNELS"]
 
 # the reference's archs that the port does not carry yet, and where they land
 NOT_PORTED = {
@@ -53,6 +60,23 @@ DATA_SEED = 2
 LR = 3e-3
 DIM = 32
 N_LAYERS = 3
+
+
+def kg_dp_spec(cfg, graph=None) -> ShardSpec:
+    """The KG mesh contract (port of ``repro/models/registry.py:
+    kg_dp_spec``): edges split by destination over ``data`` (``graph``: the
+    host COO, a ``data.synthetic.KGDataset``), the batch split; the shard's
+    objective is ``kgnn.kg_shard_loss`` over the same ``propagate_view``
+    layers as one device; the entity table row-sharded over ``model`` (on
+    a 1D ``data=N`` mesh the placement is inert)."""
+    from repro_torch.models import kgnn
+
+    return ShardSpec(
+        graph=graph, scope=cfg.model, sites=kgnn.model_sites(cfg),
+        n_layers=cfg.n_layers,
+        shard_loss=functools.partial(kgnn.kg_shard_loss, cfg=cfg),
+        shard_reps=functools.partial(kgnn.kg_shard_reps, cfg=cfg),
+        placement=(("entity", ROW_SHARDED),))
 
 
 def build_step(arch: str, *, ds=None, cfg=None, batch_size: int = 512,
@@ -100,7 +124,8 @@ def build_step(arch: str, *, ds=None, cfg=None, batch_size: int = 512,
 
     return ModelStep(arch=spec.name, family=spec.family, cfg=cfg, init=init,
                      loss=loss, batches=batches, lr=LR,
-                     data={"graph": g, "dataset": ds, "device": dev})
+                     data={"graph": g, "dataset": ds, "device": dev},
+                     dp_spec=kg_dp_spec(cfg, ds))
 
 
 def arch_of(model: str) -> str:

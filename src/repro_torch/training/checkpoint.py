@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
-           "check_meta", "CheckpointManager"]
+           "check_meta", "CheckpointManager", "RankCheckpoints"]
 
 
 def _step_dir(base: str, step: int) -> str:
@@ -266,3 +266,45 @@ class CheckpointManager:
         self.wait()
         return restore_checkpoint(self.base, template, step=step,
                                   expect_meta=self.meta)
+
+
+class RankCheckpoints:
+    """A multi-rank run's checkpoints, with the ``CheckpointManager`` face
+    the trainer calls (``save``, ``wait``, ``restore``).
+
+    Checkpoints hold the full logical state, the same files a
+    single-device run writes: ``to_logical(state)`` turns a rank's state
+    into it (for a 2D mesh, the row blocks gathered over the ``model``
+    ranks and cut to the real rows: a collective every rank calls), the
+    root rank writes it, and ``to_local(state)`` turns a restored logical
+    state back into this rank's. Every rank reads the files on restore
+    (``logical_template`` gives their structure, devices and dtypes), so a
+    restore takes no collective. ``meta`` carries the mesh and placement
+    (``training.step.step_metadata``), so a checkpoint of another mesh is
+    refused; ``launch.train --reshard-from`` restores one across meshes."""
+
+    def __init__(self, base: str, *, is_root: bool, to_logical, to_local,
+                 logical_template, keep: int = 3, meta: dict | None = None):
+        self.inner = CheckpointManager(base, keep=keep, meta=meta)
+        self.is_root = is_root
+        self.to_logical = to_logical
+        self.to_local = to_local
+        self.logical_template = logical_template
+
+    def save(self, step: int, tree) -> None:
+        full = self.to_logical(tree)
+        if self.is_root:
+            self.inner.save(step, full)
+
+    def wait(self) -> None:
+        if self.is_root:
+            self.inner.wait()
+
+    def restore(self, template, *, step: int | None = None):
+        self.wait()
+        got, full = restore_checkpoint(self.inner.base,
+                                       self.logical_template, step=step,
+                                       expect_meta=self.inner.meta)
+        if got is None:
+            return None, template
+        return got, self.to_local(full)

@@ -7,7 +7,10 @@ A ``ModelStep`` binds a model's loss to its config and data:
   * ``loss(params, batch, *, ctx=None) -> scalar``: the objective, every ACT
     site resolved through the ``ActContext`` it runs in (``ctx`` is entered
     for the call; ``None`` leaves resolution to the caller's context);
-  * ``batches() -> iterator``: the step's default data stream.
+  * ``batches() -> iterator``: the step's default data stream;
+  * ``dp_spec``: what the multi-rank path shards (``ShardSpec``: the edges
+    over the ``data`` ranks, and per parameter its layout over the
+    ``model`` ranks), or ``None`` with ``dp_unsupported`` naming why.
 
 The registry (``repro_torch.models.registry``) builds them; the launcher,
 the trainer and ``chip_smoke.py`` consume the same object.
@@ -25,8 +28,55 @@ from repro_torch.core.context import act_context
 from repro_torch.kernels.backend import full_fp32
 from repro_torch.models.layers import param_leaves
 
-__all__ = ["ModelStep", "step_metadata", "make_train_step", "trainable",
-           "enter_or_null"]
+__all__ = ["ShardSpec", "DPSpec", "ROW_SHARDED", "REPLICATED", "ModelStep",
+           "step_metadata", "make_train_step", "trainable", "enter_or_null"]
+
+# per-parameter placement kinds of ``ShardSpec.placement``; REPLICATED is
+# the default for any parameter not listed
+ROW_SHARDED = "rows"
+REPLICATED = "replicated"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """What a step shards and what it replicates on several ranks (port of
+    ``repro/training/step.py:ShardSpec``).
+
+    The data axis: ``graph`` is the host COO edge list to split by
+    destination (``data.csr.partition_edges``; anything with ``src``,
+    ``dst``, ``rel``, ``n_nodes`` and ``n_relations``); the batch splits
+    evenly over the ``data`` ranks. ``sites`` lists the per-layer ACT sites
+    ``(name, op_kind)``; they resolve through the ambient ``ActContext``
+    under the same ``<scope>/layer<l>/<site>`` paths as the single-device
+    step. ``shard_loss(params, view, batch) -> (local objective, local
+    batch loss)`` and ``shard_reps(params, view) -> local readout rows``
+    run the model on one shard's view.
+
+    The model axis: ``placement`` gives, per top-level parameter name, its
+    layout over the ``model`` ranks: ``(name, ROW_SHARDED)`` stores dim 0
+    as row blocks; anything not listed is REPLICATED. On a 1D ``data=N``
+    mesh the placement is inert.
+    """
+
+    graph: Any
+    scope: str
+    sites: tuple
+    n_layers: int
+    shard_loss: Callable = None
+    shard_reps: Callable | None = None
+    placement: tuple = ()
+
+    def row_sharded(self) -> tuple:
+        """Top-level parameter names row-sharded over the model axis."""
+        return tuple(n for n, kind in self.placement if kind == ROW_SHARDED)
+
+    def placement_str(self) -> str:
+        """Stable string form for checkpoint metadata (``"entity=rows"``)."""
+        return ",".join(f"{n}={kind}" for n, kind in self.placement)
+
+
+# the reference's pre-2D name
+DPSpec = ShardSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +89,8 @@ class ModelStep:
     batches: Callable[[], Iterator]
     lr: float = 1e-3               # launcher default learning rate
     data: dict = dataclasses.field(default_factory=dict)  # bound data refs
+    dp_spec: ShardSpec | None = None
+    dp_unsupported: str | None = None   # why dp_spec is None, for errors
 
     def metadata(self) -> dict:
         """Checkpoint-facing identity (see ``step_metadata``)."""
@@ -46,16 +98,23 @@ class ModelStep:
                 "model": getattr(self.cfg, "model", self.family)}
 
 
-def step_metadata(step: ModelStep, schedule_spec: str | None = None) -> dict:
+def step_metadata(step: ModelStep, schedule_spec: str | None = None, *,
+                  mesh_spec=None, placement: str | None = None) -> dict:
     """The identity a checkpoint carries, so that a restore cannot silently
-    resume another run: the step's ``metadata()`` and the CLI-level
-    schedule string (``"int8"``, ``"first_layer_int8_rest_int2"``, ...).
+    resume another run: the step's ``metadata()``, the CLI-level schedule
+    string (``"int8"``, ``"first_layer_int8_rest_int2"``, ...) and, for a
+    multi-rank run, the mesh (a ``MeshSpec`` or its string) and the table
+    placement (``ShardSpec.placement_str()``).
     ``training.checkpoint.check_meta`` refuses a restore under another
-    arch, model or schedule. (The reference adds the mesh and the table
-    placement of sharded runs; the port runs on one device.)"""
+    arch, model, schedule, mesh or placement (``--reshard-from`` is the
+    way across meshes)."""
     meta = step.metadata()
     if schedule_spec is not None:
         meta["schedule"] = str(schedule_spec)
+    if mesh_spec is not None:
+        meta["mesh"] = str(mesh_spec)
+    if placement is not None:
+        meta["placement"] = str(placement)
     return meta
 
 

@@ -1038,3 +1038,38 @@ def test_sampled_training_on_card_follows_cpu_and_repeats(cuda, model):
         for a, b in zip(param_leaves(d1), param_leaves(d2)):
             assert torch.equal(a, b)
     assert r1.peak_device_bytes > 0 and r1.stats["patch_rows"] > 0
+
+
+@pytest.mark.parametrize("arch", ["kgat", "kgin"])
+def test_two_rank_step_on_card_follows_single_device(cuda, arch):
+    """Two gloo ranks sharing the card (``data=2``), kernels on: the FP32
+    forward rows equal the single-device kernel rollout's within 1e-6
+    relative, the exact all-reduce step's loss within 1e-6 and gradients
+    within 1e-5 of max |grad| of the single-device kernel step; two INT2
+    steps with the int8 all-reduce keep the ranks' copies equal (the step
+    checks) and give both ranks the same finite losses; every kernel of
+    the path launched on each rank."""
+    from _torch_dp_ranks import card_job, dataset, step_of
+
+    from repro_torch.core.context import act_context
+    from repro_torch.launch.mesh import run_ranks
+
+    res = run_ranks(card_job, "data=2", device="cuda", args=(arch,),
+                    timeout_s=300)
+    step = step_of(arch, dataset(), device=cuda)
+    params = step.init(0)
+    reps = kgnn.propagate(params, step.data["graph"], step.cfg).cpu().numpy()
+    with act_context(None, 7) as ctx:
+        loss = step.loss(params, next(iter(step.batches())), ctx=ctx)
+    grads = [g.cpu().numpy() for g in
+             torch.autograd.grad(loss, param_leaves(params))]
+    gmax = max(np.abs(g).max() for g in grads)
+    for r in res:
+        assert np.abs(r["reps"] - reps).max() <= 1e-6 * np.abs(reps).max()
+        assert abs(r["loss"] - float(loss)) <= 1e-6
+        assert max(np.abs(a - b).max() for a, b in
+                   zip(r["grads"], grads)) <= 1e-5 * gmax
+        assert r["losses"] == res[0]["losses"]
+        assert np.isfinite(r["losses"]).all()
+        for k in path_kernels(arch, True):
+            assert r["counts"].get(k, 0) > 0, k
