@@ -8,8 +8,8 @@ their plain versions.
 2. Builds the kernels of the serving and training paths from
    src/repro_torch/csrc for sm_90a (one nvcc per source, started together,
    while the full-width datasets are generated) and prints ptxas's
-   register/spill report; fails if the dequant-matmul or dequant-unpack
-   kernels spill.
+   register/spill report; fails if the dequant-matmul, dequant-unpack or
+   segment-sum kernels spill.
 3. For each kernel, at the shapes its path gives it, compares the kernel
    with its plain PyTorch version on the same inputs on the card:
      quant_pack  codes, scale and zero bit-identical (70,679x256 and
@@ -27,11 +27,17 @@ their plain versions.
                  FP32 layers' gradient) and d 1 (the edge softmax's ones
                  column) and bit-identical across two runs; timed at both;
      segment_sum the attention's gather backward (port-only, no TPU
-                 kernel): <= 1e-5 relative and bit-identical across two
-                 runs on the full-width graph's groupings by destination
-                 and by source (d 64), by relation (d 64 and d 4, chunked
-                 levels) and by destination at d 1; the library call is
-                 index_add_;
+                 kernel; csrc/segment_sum.cu): <= 1e-5 relative and
+                 bit-identical across two runs on the full-width graph's
+                 groupings by destination and by source (d 64), by
+                 relation (d 64 and d 4, chunked levels) and by
+                 destination at d 1; the library call is index_add_; for
+                 each grouping the longest run, the chunk C, the CUDA
+                 kernels each level's launch starts, and the device time
+                 (held stream) of the kernel, of index_add_ and of the
+                 SPMM route (the SPMM kernel with gat := perm, which the
+                 port took before csrc/segment_sum.cu) beside the bound; the relation
+                 grouping as one level, timed beside its chunk levels;
      dequant_sddmm  the same at bits 8/4/2/1 (d 64) and on a padded pack
                  (d 37, bits 2); timed at INT2 and INT8, d 64;
      dequant_matmul <= 1e-5 relative at R 184,166, 64 x 64, bits 8/4/2/1,
@@ -170,7 +176,10 @@ their plain versions.
     segment sum (by relation and by source at d 64, by destination at d 1)
     within 1e-5 relative of their plain versions and bit-identical across
     two runs, each timed beside its library call and bound
-    (``sampled_shape`` in the kernels line).
+    (``sampled_shape`` in the kernels line); the segment sums also with
+    the device times and run lengths of the full-graph lines, and the run
+    fails if the sum by source at d 64 is slower than index_add_ in
+    device time.
     [sampled]: ``training.tiering.run_sampled_training`` at the paper's
     width (fanouts 15,10,5, batch 256, hot_frac 0.1, Adam 3e-3, root seed
     1): KGAT FP32 and INT2 8 steps, KGCN, KGIN and R-GCN INT2 4 steps, KGAT
@@ -207,8 +216,13 @@ their plain versions.
     rank; the ranks' losses equal and their parameter copies bitwise
     equal after every step; the exact run's losses within 1e-4 of the
     [train] run's, the int8 runs' first loss within 1e-5 and their last
-    below their first), then on ``data=2`` one reduced INT2 step of KGCN, KGIN and
-    R-GCN. Prints the backend and route, each shard's edges and halo
+    below their first), then on ``data=2`` one reduced INT2 step of KGCN,
+    KGIN and R-GCN and [dp-retry]: a reduced KGAT INT2 run of 4 steps
+    (checkpoints at step 2) in which rank 1 fails step 3; both ranks must
+    log that one failure and roll back to step 2, and the run's losses
+    must equal, bit for bit, those of a run with no failure on the
+    batches the failed run kept. Every ``train_rank`` run checkpoints, each
+    to its own temporary directory. Prints the backend and route, each shard's edges and halo
     rows, each rank's peak memory, the median step (N ranks sharing one
     H100) and the all-reduce bytes a step, int8 and fp32; profiles one
     INT2 step on every rank (rank 0's wall, device busy time, idle share,
@@ -268,6 +282,8 @@ GRAD_FP64_RATIO = 4.0
 DP_MESHES = ("data=2", "data=2,model=2")
 DP_RUNS = (("fp32", "int8"), ("int2", "int8"), ("fp32", "fp32"))
 DP_STEPS = 3                 # per run: (schedule, all-reduce)
+DP_RETRY_STEPS, DP_RETRY_EVERY = 4, 2   # [dp-retry]: checkpoints at step 2
+DP_RETRY_FAIL = (1, 3)       # rank 1 fails step 3: every rank rolls back to 2
 DP_LOSS_TOL = 1e-6           # exact all-reduce losses vs one device's
 DP_GRAD_TOL = 1e-5           # exact all-reduce gradients vs one device's
 DP_INT8_SLACK = 1e-3         # int8 mean within (1 + this) codes of exact
@@ -465,10 +481,13 @@ def _topk_inputs(torch, quantize, gen, b, n_items, d, *, ties):
     return q, items, excl
 
 
-def kernels_per_call(torch, fn, reads: int = 3):
+def kernels_per_call(torch, fn, reads: int = 8,
+                     names=("scan_kernel", "merge_"), require: bool = True):
     """CUDA kernels one call of ``fn`` launches, read from torch.profiler:
     the most of ``reads`` profiled calls (the profiler can lose a device
-    event, never add one); fails where it sees none of them."""
+    event, never add one, and has lost one in each of three reads) of the
+    kernels whose names hold one of ``names``; with ``require``, fails
+    where it sees none of them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -480,10 +499,9 @@ def kernels_per_call(torch, fn, reads: int = 3):
             torch.cuda.synchronize()
         counts.append(sum(1 for e in prof.events()
                           if e.device_type == torch.autograd.DeviceType.CUDA
-                          and ("scan_kernel" in e.name
-                               or "merge_" in e.name)))
-    check(max(counts) > 0, "torch.profiler recorded no scan or merge kernel "
-          "of the call: its launches cannot be counted")
+                          and any(n in e.name for n in names)))
+    check(max(counts) > 0 or not require, f"torch.profiler recorded no "
+          f"kernel of the call named {names}: its launches cannot be counted")
     return max(counts)
 
 
@@ -728,7 +746,8 @@ def _with_other_shape(entry, *others):
     (one: a dict; several: a list)."""
     keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "kernels_per_call", "device_ms",
-            "library_device_ms", "select_ms", "select_device_ms")
+            "library_device_ms", "select_ms", "select_device_ms",
+            "spmm_route_device_ms", "longest_run", "kernels_per_launch")
     rows = [{k: o[k] for k in keys if k in o} for o in others]
     entry["other_shape"] = rows[0] if len(rows) == 1 else rows
     return entry
@@ -894,6 +913,70 @@ def check_sddmm(torch, sp, g, gen):
     return _with_other_shape(*entries)
 
 
+def spmm_route_segment_sum(torch, sp, y, levels):
+    """The segment sum's earlier route, timed beside its own kernel: the
+    SPMM kernel (csrc/spmm.cu) with x := y, gat := perm and no weights,
+    one launch a level, each run summed whole by one group of lanes (not a
+    counted launch: the port no longer takes this route)."""
+    from repro_torch.kernels import backend
+
+    fn = backend.kernel_fn("spmm", "spmm_launch", sp._ARGTYPES)
+    for runs in levels:
+        out = torch.empty((runs.n_out, y.shape[1]), device=y.device)
+        backend.launch(fn, y.data_ptr(), y.shape[1], None,
+                       runs.perm.data_ptr(), runs.perm.data_ptr(),
+                       runs.row_start.data_ptr(), runs.row_end.data_ptr(),
+                       runs.n_out, out.data_ptr(), backend.stream_of(y))
+        y = out
+    return y
+
+
+def segment_sum_report(torch, sp, y, levels, library, n_bytes, tag):
+    """The segment-sum kernel on one grouping beside index_add_ and its
+    earlier route (``spmm_route_segment_sum``): the longest run, the chunk
+    C, the CUDA kernels each level's launch starts (the plan's count;
+    torch.profiler, which can lose a kernel's event but never add one,
+    must see no more), and device times (20 calls behind a held stream, in
+    turns with the earlier route) against the bound. Returns them for the
+    kernels line."""
+    from repro_torch.data.csr import SEG_CHUNK
+
+    longest = max(int((lv.row_end - lv.row_start).max()) if lv.n_out else 0
+                  for lv in levels)
+    per_level = [1 + (lv.plan.n_parts > 0) for lv in levels]
+    # the count the plan gives is the one reported; the profiler, which
+    # has missed every event of a call in eight reads, may only see fewer
+    seen = kernels_per_call(torch, lambda: sp.segment_sum_cuda(y, levels),
+                            names=("seg_",), require=False)
+    check(seen <= sum(per_level), f"{tag}: the profiler saw {seen} CUDA "
+          f"kernels a call, the plan says {per_level}")
+    old = spmm_route_segment_sum(torch, sp, y, levels)
+    old_rel = _rel(old, sp.segment_sum_plain(y, levels))
+
+    def kernel():
+        return sp.segment_sum_cuda(y, levels)
+
+    def route():
+        return spmm_route_segment_sum(torch, sp, y, levels)
+
+    # in turns (route, kernel, kernel, route): each pair's spread is the
+    # run's noise
+    r1, k1, k2, r2 = (device_ms(torch, f)
+                      for f in (route, kernel, kernel, route))
+    k, rt = (k1 + k2) / 2, (r1 + r2) / 2
+    lib = device_ms(torch, library)
+    bnd, by = bound_ms(n_bytes, 0)
+    log(f"  {tag}: longest run {longest} slots, C {SEG_CHUNK}, CUDA kernels "
+        f"a launch {per_level} (profiler {seen} a call); device time kernel "
+        f"{k:.4f} ms ({k1:.4f} / {k2:.4f}), index_add_ {lib:.4f} ms, SPMM "
+        f"route {rt:.4f} ms ({r1:.4f} / {r2:.4f}; rel {old_rel:.2e} to the "
+        f"plain version), bound {bnd:.4f} ms ({by}; 20 calls queued behind a "
+        f"held stream, CUDA events, in turns)")
+    return dict(longest_run=longest, chunk=SEG_CHUNK,
+                kernels_per_launch=per_level, device_ms=k,
+                library_device_ms=lib, spmm_route_device_ms=rt)
+
+
 def check_segment_sum(torch, sp, g, gen):
     """The attention's gather backward at full width, on each grouping the
     training step sums over: by destination and by source (d 64, the basis
@@ -901,13 +984,29 @@ def check_segment_sum(torch, sp, g, gen):
     the basis coefficients; chunked levels) and by destination at d 1 (the
     softmax denominators). The library call is ``index_add_`` over the
     edges' own ids (what ``index_select``'s backward runs)."""
+    from repro_torch.data.csr import relation_runs
+
     log("[segment_sum] kernel vs plain on the full-width KGAT graph")
     m = g.layout.meta
+    t0 = time.perf_counter()
+    rel_one = relation_runs(g.rel.cpu().numpy(), g.n_relations,
+                            chunk=m.n_edges + 1, device=DEV)
+    log(f"  the relation grouping as one level (no host chunk levels): "
+        f"built in {time.perf_counter() - t0:.2f} s")
     cases = (("dst", g.layout.runs(), g.dst, 64),
              ("src", g.layout.runs(transpose=True), g.src, 64),
              ("rel", g.rel_runs, g.rel, 64),
              ("rel", g.rel_runs, g.rel, 4),
              ("dst", g.layout.runs(), g.dst, 1))
+    for d in (64, 4):
+        y = torch.randn((m.n_edges, d), generator=gen, device=DEV) * 1e-3
+        rel = _rel(sp.segment_sum_cuda(y, rel_one),
+                   sp.segment_sum_cuda(y, g.rel_runs))
+        one, levels = (device_ms(torch, lambda lv=lv: sp.segment_sum_cuda(
+            y, lv)) for lv in (rel_one, g.rel_runs))
+        log(f"  by relation d={d}, one level against {len(g.rel_runs)} "
+            f"levels: device time {one:.4f} ms against {levels:.4f} ms, rel "
+            f"{rel:.2e} (measured, not taken)")
     entries = []
     for kind, levels, ids, d in cases:
         y = torch.randn((m.n_edges, d), generator=gen, device=DEV) * 1e-3
@@ -943,13 +1042,15 @@ def check_segment_sum(torch, sp, g, gen):
         # the function's bytes: the per-edge rows read once, an edge id per
         # slot, two row pointers and one d-wide row out per output row
         n_bytes = m.n_edges * (d + 1) * 4 + n_out * (d + 2) * 4
+        report = segment_sum_report(torch, sp, y, levels, library, n_bytes,
+                                    f"by {kind} d={d}")
         entries.append(_entry(
-            "segment_sum", "spmm",
+            "segment_sum", "segment_sum",
             "none: port-only, the backward of the attention's gathers "
             "(src/repro/models/kgnn.py:556-559 and :123 leave it to XLA's "
             "scatter-add)", err, ms, plain, lib, n_bytes, m.n_edges * d,
             f"E={m.n_edges} by {kind} n={n_out} d={d}",
-            library_call="torch.Tensor.index_add_"))
+            library_call="torch.Tensor.index_add_", **report))
     return _with_other_shape(*entries)
 
 
@@ -2148,9 +2249,18 @@ def check_sampled_kernels(torch, sp, dq, qp, zds, gen):
     item = next(sampled_items(zds, SAMPLED_FANOUTS, batch_size=SAMPLED_BATCH,
                               seed=0))
     sample_s = time.perf_counter() - t0
+    from repro_torch.data.csr import segment_plan
+
+    host = item.view.blocks[0].layout
+    t0 = time.perf_counter()
+    segment_plan(host.t_row_start.numpy(), host.t_row_end.numpy())
+    plan_ms = (time.perf_counter() - t0) * 1e3
     blk = item.view.blocks[0].to(DEV)
     m = blk.layout.meta
     n_real = int(blk.mask.sum())
+    log(f"[sampled-kernels] the segment-sum plan of the outermost block's "
+        f"grouping by source ({m.n_src} rows; built with the layout in the "
+        f"sampler thread) took {plan_ms:.1f} ms on the host")
     log(f"[sampled-kernels] first batch sampled in {sample_s:.2f} s; "
         f"outermost block {m.n_dst} <- {m.n_src} rows, {m.n_edges} slots "
         f"({n_real} sampled, {m.n_edges - n_real} masked), "
@@ -2228,11 +2338,15 @@ def check_block_kernels(torch, sp, dq, qp, blk, gen, tag):
                 xin.shape[0] * d * 4 + E * 8 + (n_out + 1) * 4
                 + n_out * d * 4, 2 * E * d)
 
+    seg_inputs = {}
+
     def seg_case(kind, levels, rows, d):
         ids = {"rel": blk.rel, "src": blk.src, "dst": blk.dst}[kind].long()
         n_out = levels[-1].n_out
         yy = rows[:, :d].contiguous()
-        return (f"segment_sum by {kind} d={d}", "segment_sum",
+        label = f"segment_sum by {kind} d={d}"
+        seg_inputs[label] = (yy, levels)
+        return (label, "segment_sum",
                 lambda: sp.segment_sum_cuda(yy, levels),
                 lambda: sp.segment_sum_plain(yy, levels),
                 lambda: torch.zeros((n_out, d), device=DEV).index_add_(
@@ -2303,10 +2417,20 @@ def check_block_kernels(torch, sp, dq, qp, blk, gen, tag):
             f"{plain_ms:.4f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
             f"{bnd:.4f} ms ({by})")
+        extra = {}
+        if name == "segment_sum":
+            yy, levels = seg_inputs[label]
+            extra = segment_sum_report(torch, sp, yy, levels, library,
+                                       n_bytes, f"[{tag}-kernels] {label}")
+            if tag == "sampled" and label == "segment_sum by src d=64":
+                check(extra["device_ms"] <= extra["library_device_ms"],
+                      f"sampled {label}: kernel {extra['device_ms']} ms "
+                      f"slower than index_add_'s "
+                      f"{extra['library_device_ms']} ms (device time)")
         out.setdefault(name, []).append(dict(
             shape=f"{tag} block E={E} n_dst={m.n_dst} n_src={m.n_src} "
                   f"{label}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bnd, bound_by=by, library_ms=lib_ms))
+            bound_ms=bnd, bound_by=by, library_ms=lib_ms, **extra))
     return out
 
 
@@ -2510,8 +2634,10 @@ def dp_rank_phase(rt, job):
     """What each rank of the [dp] phase runs (``launch.mesh.run_ranks``):
     the sharded FP32 forward and the exact all-reduce step held against
     the single-device references (on rank 0), then the training runs of
-    ``DP_RUNS`` through the launcher's ``train_rank``, then (1D only) one
-    INT2 step of KGCN, KGIN and R-GCN at the launcher's default size."""
+    ``DP_RUNS`` through the launcher's ``train_rank`` (each with its own
+    checkpoint directory under ``job["ckpt"]``), then (1D only) one INT2
+    step of KGCN, KGIN and R-GCN at the launcher's default size and the
+    [dp-retry] run (``dp_retry_phase``)."""
     import numpy as np
     import torch
 
@@ -2576,8 +2702,8 @@ def dp_rank_phase(rt, job):
     for label, allreduce in DP_RUNS:
         res = train_rank(rt, dp_job(
             cfg, ds, parse_schedule(label), DP_STEPS, batch=TRAIN_BATCH,
-            allreduce=allreduce, schedule_spec=label, verbose=False),
-            cache=cache)
+            allreduce=allreduce, schedule_spec=label, verbose=False,
+            ckpt_dir=f"{job['ckpt']}/{label}_{allreduce}"), cache=cache)
         out["runs"][f"{label}_{allreduce}"] = res
         torch.cuda.empty_cache()
     out["plain_int8"] = {}
@@ -2598,8 +2724,70 @@ def dp_rank_phase(rt, job):
             assert arch_of(model)
             out["runs"][f"{model}_int2_reduced"] = train_rank(rt, dp_job(
                 scfg, sds, parse_schedule("int2"), 1, batch=512,
-                schedule_spec="int2", verbose=False), cache=cache)
+                schedule_spec="int2", verbose=False,
+                ckpt_dir=f"{job['ckpt']}/{model}"), cache=cache)
+        out["retry"] = dp_retry_phase(rt, sds, f"{job['ckpt']}/retry",
+                                      cache)
     return out
+
+
+def dp_retry_phase(rt, sds, ckpt_dir, cache):
+    """[dp-retry] on one rank: a reduced KGAT INT2 run (d 32, 3 layers,
+    the int8 all-reduce, ``DP_RETRY_STEPS`` steps, a checkpoint every
+    ``DP_RETRY_EVERY``) through ``train_rank`` in which rank
+    ``DP_RETRY_FAIL[0]`` fails step ``DP_RETRY_FAIL[1]``, and the same run
+    with no failure on the batches the failed run kept."""
+    from repro_torch.core.policy import parse_schedule
+    from repro_torch.launch.train import dp_job, train_rank
+    from repro_torch.models import kgnn
+
+    rcfg = kgnn.KGNNConfig(
+        model="kgat", n_users=sds.n_users, n_entities=sds.n_entities,
+        n_relations=sds.n_relations, dim=32, n_layers=3, readout="concat")
+    rjob = dp_job(rcfg, sds, parse_schedule("int2"), DP_RETRY_STEPS,
+                  batch=512, schedule_spec="int2", verbose=False,
+                  ckpt_dir=ckpt_dir, ckpt_every=DP_RETRY_EVERY,
+                  fail_at=DP_RETRY_FAIL)
+    run = train_rank(rt, rjob, cache=cache)
+    back = DP_RETRY_FAIL[1] // DP_RETRY_EVERY * DP_RETRY_EVERY
+    return dict(losses=[h["loss"] for h in run["steps"]], log=run["log"],
+                counts=run["counts"],
+                unfailed=_unfailed_dp_losses(rt, rjob, range(
+                    back, DP_RETRY_FAIL[1] + 1), cache))
+
+
+def _unfailed_dp_losses(rt, job, skip, cache):
+    """The losses of ``job``'s run on this rank with no failure, set up as
+    ``train_rank`` sets it up (seed-0 parameters, Adam, the launcher's root
+    seed), on the batches the run that failed and rolled back kept: the
+    stream without ``skip`` (the rolled-back steps' and the failed
+    attempt's; the trainer does not rewind its data)."""
+    from repro_torch.launch.train import ROOT_SEED, shard_setup
+    from repro_torch.models.registry import arch_of, build_step
+    from repro_torch.training import data_parallel as dp
+    from repro_torch.training.optimizer import adam
+    from repro_torch.training.step import trainable
+
+    cfg = job["cfg"]
+    step = build_step(arch_of(cfg.model), ds=job["ds"], cfg=cfg,
+                      batch_size=job["batch"], device=rt.device,
+                      device_graph=False)
+    part, view, _ = shard_setup(step, rt.mesh, cache)
+    opt = adam(step.lr)
+    params = trainable(step.init(0))
+    state = (params, opt.init(params))
+    train = dp.make_dp_step(step, part, rt.mesh, opt,
+                            schedule=job["schedule"], root_seed=ROOT_SEED,
+                            mesh_spec=rt.mesh.spec,
+                            compress_grads=job["allreduce"] == "int8",
+                            view=view)
+    batches = [b for i, (_, b) in enumerate(zip(
+        range(job["steps"] + len(skip)), step.batches())) if i not in skip]
+    losses = []
+    for i, b in enumerate(batches[:job["steps"]]):
+        state, m = train(state, b, i)
+        losses.append(float(m["loss"]))
+    return losses
 
 
 def _int8_allreduce_check(torch, rt, step, params, view, model_axis):
@@ -2765,6 +2953,35 @@ def _profile_dp_step(torch, rt, step, part, view, model_axis):
                                or "index_add" in e.key})}
 
 
+def check_dp_retry(res):
+    """[dp-retry]: rank 1's injected failure before step 3 of a reduced
+    KGAT INT2 run on ``data=2`` (the int8 all-reduce) reached both ranks at
+    the step's agreement point: each logged it once and rolled back to the
+    step-2 checkpoint; the run's losses equal, bit for bit, a run that never
+    failed on the batches the failed run kept, and the ranks' losses
+    agree."""
+    rank, step = DP_RETRY_FAIL
+    back = step // DP_RETRY_EVERY * DP_RETRY_EVERY
+    for r, one in enumerate(res):
+        run = one["retry"]
+        failed = [m for m in run["log"] if "failed" in m]
+        rolled = [m for m in run["log"] if "rolled back" in m]
+        log(f"[dp-retry] rank {r}: {failed + rolled}; losses "
+            f"{[f'{v:.9f}' for v in run['losses']]} against the unfailed "
+            f"run's {[f'{v:.9f}' for v in run['unfailed']]}")
+        check(len(failed) == 1 and f"step {step} failed (1/3)" in failed[0]
+              and f"rank {rank} failed" in failed[0],
+              f"dp-retry rank {r}: failure lines {failed}")
+        check(rolled == [f"[trainer] rolled back to step {back}"],
+              f"dp-retry rank {r}: rollback lines {rolled}")
+        check(run["losses"] == run["unfailed"]
+              and len(run["losses"]) == DP_RETRY_STEPS,
+              f"dp-retry rank {r}: losses {run['losses']} vs the unfailed "
+              f"run's {run['unfailed']}")
+        check(run["losses"] == res[0]["retry"]["losses"],
+              "dp-retry: the ranks' losses differ")
+
+
 def run_dp(torch, cfg, ds, ref, single):
     """The [dp] phase: the paper's KGAT config at full width on ranks that
     share the one H100 over gloo, ``data=2`` and ``data=2,model=2``
@@ -2790,11 +3007,14 @@ def run_dp(torch, cfg, ds, ref, single):
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.models.registry import path_kernels
 
+    import tempfile
+
     paths = {}
     for mesh in DP_MESHES:
         t0 = time.perf_counter()
-        res = run_ranks(dp_rank_phase, mesh, device=DEV, args=(dict(
-            cfg=cfg, ds=ds, ref=ref),), timeout_s=900)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as ck:
+            res = run_ranks(dp_rank_phase, mesh, device=DEV, args=(dict(
+                cfg=cfg, ds=ds, ref=ref, ckpt=ck),), timeout_s=900)
         wall = time.perf_counter() - t0
         root = res[0]
         n = len(res)
@@ -2808,6 +3028,11 @@ def run_dp(torch, cfg, ds, ref, single):
         log(f"[dp] {mesh}: edges per data shard {sh['edges_all']} (cap "
             f"{sh['e_cap']}), halo rows {sh['halo_all']} (cap {sh['h_cap']}),"
             f" {sh['rows']} rows a shard")
+        if "retry" in root:
+            check_dp_retry(res)
+            paths[f"train_dp_{mesh}_retry"] = {
+                k: sum(r["retry"]["counts"].get(k, 0) for r in res)
+                for k in root["retry"]["counts"]}
         c = root["checks"]
         log(f"[dp] {mesh}: sharded FP32 rollout vs one device: "
             f"{'bit-identical' if c['reps_equal'] else 'differs'}, max rel "
@@ -3007,7 +3232,7 @@ def main() -> int:
                                           or "Compiling" in line)
                     or "spill" in line):
                 log(f"  {name}: {line.strip()}")
-    for name in ("dequant_matmul", "dequant_unpack"):
+    for name in ("dequant_matmul", "dequant_unpack", "segment_sum"):
         spills = [ln for ln in logs[name].splitlines() if "spill" in ln]
         check(bool(spills), f"{name}.cu: no ptxas spill report")
         check(all("0 bytes spill stores, 0 bytes spill loads" in ln
@@ -3109,7 +3334,8 @@ def main() -> int:
                 "shard_shape",
                 "library_call",
                 "kernels_per_call", "device_ms", "library_device_ms",
-                "device_ms_by_kernel")
+                "device_ms_by_kernel", "spmm_route_device_ms",
+                "longest_run", "chunk", "kernels_per_launch")
     print(json.dumps({"kernels": [
         {k: e[k] for k in keys + tuple(o for o in optional if o in e)}
         for e in entries]}))

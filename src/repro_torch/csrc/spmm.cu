@@ -37,15 +37,10 @@
 // an empty row is written as 0. ew == nullptr means weight 1. The transpose
 // direction of the layout (t_* arrays) runs through the kernel unchanged.
 //
-// Segment sum (port-only, no TPU counterpart; kernels/spmm.py:
-// segment_sum_cuda). The backward of a gather, grad_table[v] = sum of
-// grad_out[e] over the edges e of row v, is this kernel with x := grad_out
-// (E rows), gat := perm and no weights: a grouping of the edges
-// (data/csr.py:SegmentRuns) lists each row's edges as a run of slots, and
-// each row is summed in slot order, deterministic where index_add_ adds
-// with atomics. Bound: bytes, the (E, d) gradient read once (E*d*4), a perm
-// entry per slot, the row pointers and the output written once. The rows
-// are gathered in perm order, one d-wide row per slot, each read once.
+// The segment sum over a grouping of the edges (the backward of a gather)
+// is this kernel with x := grad_out, gat := perm and no weights; the port
+// runs it through its own kernel, csrc/segment_sum.cu, which splits long
+// runs, and chip_smoke.py times this route beside it.
 #include <cuda_runtime.h>
 
 #include <cstdint>

@@ -26,6 +26,15 @@ come after every tile's slots, so each run is contiguous and holds no pad
 slot. The CUDA SPMM kernel gives each row a warp and finds
 its slots through these two arrays.
 
+Every grouping a fixed-order segment sum runs over (``SegmentRuns``: a
+direction of the layout, ``relation_runs``, the tier store's and the row
+blocks' positions) carries its ``SegmentPlan``, built here on the host
+beside its row pointers (``segment_runs``, ``segment_plan``): how the
+segment-sum kernel (``csrc/segment_sum.cu``) cuts each row's run into
+chunks of ``SEG_CHUNK`` slots and deals the chunks and the empty rows out
+to tiles of ``SEG_TILE`` rows and slot positions. The runs of a grouping
+lie in slot order and do not overlap.
+
 For several ranks (``training.data_parallel``) the edges are split by
 destination shard once on the host (``partition_edges``, the reference's
 arrays exactly) and each shard's edges get their own layout and relation
@@ -41,13 +50,19 @@ import numpy as np
 import torch
 
 __all__ = ["CSRMeta", "SpmmLayout", "Direction", "SegmentRuns",
-           "static_block_caps", "build_spmm_layout", "relation_runs",
+           "SegmentPlan", "segment_plan", "segment_runs", "SEG_CHUNK",
+           "SEG_TILE", "static_block_caps", "build_spmm_layout", "relation_runs",
            "attach_layout", "map_tensors", "to_device", "stable_argsort",
            "group_ids", "EdgePartition", "partition_edges",
            "unpartition_edges", "shard_graph_arrays", "RowPartition",
            "row_partition"]
 
 REL_CHUNK = 256   # slots a relation chunk holds (relation_runs)
+# the segment-sum kernel's contract and work split (csrc/segment_sum.cu
+# kChunk and kTile: change them together)
+SEG_CHUNK = 256   # slots a chunk of a run holds; chunks sum in chunk order
+SEG_TILE = 512    # rows plus slot positions one tile of the kernel covers
+_CHUNK_SHIFT = SEG_CHUNK.bit_length() - 1   # SEG_CHUNK is a power of two
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,17 +95,42 @@ class Direction:
 
 
 @dataclasses.dataclass(frozen=True)
+class SegmentPlan:
+    """How the segment-sum kernel splits one level (``segment_plan``).
+
+    An item is one chunk of a row's run: slots ``row_start[r] + k *
+    SEG_CHUNK`` up to ``SEG_CHUNK`` further, cut off at ``row_end[r]``;
+    row ``r`` owns items ``item_ptr[r] .. item_ptr[r + 1]`` (none when its
+    run is empty). Tile ``t`` takes items ``tiles[0, t] .. tiles[0, t +
+    1]``, writes the empty rows among ``tiles[1, t] .. tiles[1, t + 1]``
+    as zeros, and reads the run slots from ``tiles[2, t]`` on. A row of
+    more than one chunk (``long_rows``) sums each chunk into its partials,
+    ``long_part[j] + k``, and a second kernel adds them in chunk order."""
+
+    item_ptr: torch.Tensor    # (n_out + 1,) int32
+    tiles: torch.Tensor       # (3, n_tiles + 1) int32: item, row, slot
+    long_rows: torch.Tensor   # (n_long,) int32, ascending
+    long_part: torch.Tensor   # (n_long + 1,) int32
+    n_tiles: int
+    n_parts: int              # partials of the long rows
+
+
+@dataclasses.dataclass(frozen=True)
 class SegmentRuns:
     """One level of a fixed-order segment sum over ``n_rows`` input rows:
     output row ``r`` is the sum of input rows ``perm[s]`` for slots
-    ``row_start[r] <= s < row_end[r]``, in slot order. A grouping is a tuple
-    of levels, each summing the previous level's output."""
+    ``row_start[r] <= s < row_end[r]``; each chunk of ``SEG_CHUNK`` slots
+    of a run (at run-relative offsets) is summed in slot order, and the
+    chunks' sums in chunk order, so a run of at most ``SEG_CHUNK`` slots is
+    one sum in slot order. A grouping is a tuple of levels, each summing
+    the previous level's output. ``plan`` is the kernel's work split."""
 
     perm: torch.Tensor        # (n_slots,) int32 input row of each slot
     row_start: torch.Tensor   # (n_out,) int32
     row_end: torch.Tensor     # (n_out,) int32
     n_out: int
     n_rows: int
+    plan: SegmentPlan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +158,8 @@ class SpmmLayout:
     t_row_start: torch.Tensor  # (n_src,) slot run of each source row
     t_row_end: torch.Tensor
     meta: CSRMeta
+    plan: SegmentPlan          # segment-sum split of the dst runs
+    t_plan: SegmentPlan        # and of the src runs
 
     def direction(self, transpose: bool = False) -> Direction:
         m = self.meta
@@ -139,7 +181,8 @@ class SpmmLayout:
         (``src``)."""
         dr = self.direction(transpose)
         return (SegmentRuns(dr.perm_blk.reshape(-1), dr.row_start,
-                            dr.row_end, dr.n_out, self.meta.n_edges),)
+                            dr.row_end, dr.n_out, self.meta.n_edges,
+                            self.t_plan if transpose else self.plan),)
 
 
 def stable_argsort(keys, n_keys: int) -> np.ndarray:
@@ -180,12 +223,71 @@ def group_ids(ids, n_ids: int):
 
 def map_tensors(obj, fn):
     """A copy of a layout, a ``SegmentRuns`` level or a tuple of them with
-    ``fn`` applied to every tensor."""
+    ``fn`` applied to every tensor (their ``SegmentPlan``s' too)."""
     if isinstance(obj, tuple):
         return tuple(map_tensors(o, fn) for o in obj)
-    return dataclasses.replace(obj, **{
-        f.name: fn(getattr(obj, f.name)) for f in dataclasses.fields(obj)
-        if isinstance(getattr(obj, f.name), torch.Tensor)})
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            out[f.name] = fn(v)
+        elif isinstance(v, SegmentPlan):
+            out[f.name] = map_tensors(v, fn)
+    return dataclasses.replace(obj, **out)
+
+
+def segment_plan(row_start, row_end, device="cpu") -> SegmentPlan:
+    """The segment-sum kernel's split of one level (see ``SegmentPlan``),
+    from its row pointers (numpy): chunk counts and their prefix sum
+    (``item_ptr``), then ``SEG_TILE``-wide tiles of the cost ``r +
+    row_start[r]`` (a row's write plus its run's slot positions, which
+    rises by at least one a row since the runs lie in slot order). A tile
+    starts at the first chunk at or past its cost, so it holds at most
+    ``SEG_TILE + 1`` rows and its chunks' slots lie within ``SEG_TILE + 2 *
+    SEG_CHUNK`` of its first slot (the kernel stages that much). A few
+    int32 passes over the rows: the sampled path builds one a block."""
+    rs = np.asarray(row_start).astype(np.int32, copy=False)
+    re = np.asarray(row_end).astype(np.int32, copy=False)
+    n_out = int(rs.shape[0])
+    deg = re - rs
+    if n_out and (deg.min() < 0 or (rs[1:] < re[:-1]).any()):
+        raise ValueError("segment runs must lie in slot order and not "
+                         "overlap")
+    n_ch = (deg + (SEG_CHUNK - 1)) >> _CHUNK_SHIFT
+    item_ptr = np.zeros(n_out + 1, np.int32)
+    np.cumsum(n_ch, out=item_ptr[1:])
+    end = int(re[-1]) if n_out else 0
+    n_tiles = -(-(n_out + end) // SEG_TILE) if n_out else 0
+    cost = rs + np.arange(n_out, dtype=np.int32)
+    target = np.arange(0, n_tiles * SEG_TILE, SEG_TILE, dtype=np.int32)
+    r = np.maximum(np.searchsorted(cost, target, side="right") - 1, 0)
+    k = np.clip(-((cost[r] - target) // SEG_CHUNK), 0, n_ch[r])
+    tiles = np.stack([
+        np.append(item_ptr[r] + k, item_ptr[-1]),
+        np.append(r, n_out),
+        np.append(np.minimum(rs[r] + k * SEG_CHUNK, re[r]), end)])
+    long_rows = np.flatnonzero(n_ch > 1)
+    long_part = np.zeros(len(long_rows) + 1, np.int64)
+    np.cumsum(n_ch[long_rows], out=long_part[1:])
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
+            device, non_blocking=True)
+
+    return SegmentPlan(t(item_ptr), t(tiles), t(long_rows), t(long_part),
+                       n_tiles, int(long_part[-1]))
+
+
+def segment_runs(perm, row_start, row_end, n_out: int, n_rows: int,
+                 device="cpu") -> SegmentRuns:
+    """One ``SegmentRuns`` level on ``device`` from numpy arrays, with its
+    kernel plan (copies queued without waiting for the device)."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
+            device, non_blocking=True)
+
+    return SegmentRuns(t(perm), t(row_start), t(row_end), int(n_out),
+                       int(n_rows), segment_plan(row_start, row_end, device))
 
 
 def to_device(obj, device):
@@ -308,7 +410,8 @@ def build_spmm_layout(src, dst, *, n_dst: int, n_src: int | None = None,
         t_src_blk=t(t_src_blk), t_ldst_blk=t(t_ldst_blk),
         t_perm_blk=t(t_perm_blk), t_tile_of_blk=t(t_tile_of_blk),
         t_row_start=t(t_row_start), t_row_end=t(t_row_end),
-        meta=meta)
+        meta=meta, plan=segment_plan(row_start, row_end, dev),
+        t_plan=segment_plan(t_row_start, t_row_end, dev))
 
 
 def relation_runs(rel, n_relations: int, *, chunk: int = REL_CHUNK,
@@ -326,15 +429,12 @@ def relation_runs(rel, n_relations: int, *, chunk: int = REL_CHUNK,
     counts = np.bincount(rel, minlength=n_relations)[:n_relations]
     n_rows = int(rel.shape[0])
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-
     levels = []
     while True:
         start = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
         if counts.max(initial=0) <= chunk:
-            levels.append(SegmentRuns(t(perm), t(start), t(start + counts),
-                                      n_relations, n_rows))
+            levels.append(segment_runs(perm, start, start + counts,
+                                       n_relations, n_rows, dev))
             return tuple(levels)
         # cut every run into chunks of `chunk` slots; the next level sums
         # each relation's chunks, in order
@@ -343,7 +443,7 @@ def relation_runs(rel, n_relations: int, *, chunk: int = REL_CHUNK,
         first = np.concatenate([[0], np.cumsum(n_ch)[:-1]])
         c0 = start[owner] + (np.arange(int(n_ch.sum())) - first[owner]) * chunk
         c1 = np.minimum(c0 + chunk, (start + counts)[owner])
-        levels.append(SegmentRuns(t(perm), t(c0), t(c1), len(c0), n_rows))
+        levels.append(segment_runs(perm, c0, c1, len(c0), n_rows, dev))
         perm, counts, n_rows = np.arange(len(c0)), n_ch, len(c0)
 
 

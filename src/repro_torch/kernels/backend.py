@@ -21,9 +21,11 @@ are written for Hopper (``sm_90a``): asking for them on any other card raises.
 adds one where it launches its kernel and nowhere else, so a run can show that
 its main path went through the kernels (``chip_smoke.py`` resets the counts
 before the path and reads them after). A count is one call of the wrapper's C
-entry point (``segment_sum`` calls ``spmm.cu``'s once per level of its
-grouping): ``dequant_matmul`` (partial tiles, then their fixed-order sum)
-starts two CUDA kernels per count; ``topk_score`` and ``coarse_topm`` two at
+entry point (``segment_sum`` calls ``segment_sum.cu``'s once per level of
+its grouping, which starts one CUDA kernel, or two where the level has a run
+longer than a chunk: the chunks, then their fixed-order sum);
+``dequant_matmul`` (partial tiles, then their fixed-order sum) starts two
+CUDA kernels per count; ``topk_score`` and ``coarse_topm`` two at
 k <= 128 (the scan, then the row merge; one where each query tile is one
 run) and 1 + ceil(log2(ceil(n_items / 128))) above (the scan, then merge
 rounds), as their planner (``csrc/topk_select.cuh:make_plan``) says.
@@ -55,7 +57,7 @@ __all__ = ["DeviceInfo", "probe", "resolve_device", "require_sm90",
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("quant_pack", "spmm", "topk_score", "sddmm", "dequant_matmul",
-           "coarse_topm", "dequant_unpack")
+           "coarse_topm", "dequant_unpack", "segment_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

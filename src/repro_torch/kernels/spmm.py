@@ -24,10 +24,12 @@ written straight to ``dew[perm[slot]]``, no atomics.
 
 Segment sum (port-only, no TPU counterpart): the backward of the
 attention's gathers, ``out[r] = sum_{s in r's run} y[perm[s]]`` over a
-grouping of the edges (``data.csr.SegmentRuns``, one launch a level). It is
-the SPMM kernel with ``x := y`` (per-edge rows) and ``gat := perm``: each
-output row one sum in slot order, no atomics, where ``index_add_`` adds with
-atomics on the card.
+grouping of the edges (``data.csr.SegmentRuns``, one launch a level). Its
+kernel is ``csrc/segment_sum.cu``: each run cut into chunks of
+``data.csr.SEG_CHUNK`` slots, each chunk one sum in slot order and a row's
+chunks added in chunk order (a run of at most a chunk is one sum in slot
+order), the work split by slots through the level's ``SegmentPlan``; no
+atomics, where ``index_add_`` adds with atomics on the card.
 
 ``kernels.ops`` sends CUDA tensors to the ``*_cuda`` launchers and CPU
 tensors to the ``*_plain`` versions. Each pair sums in different orders, so
@@ -52,6 +54,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _I, _P, _P, _P, _P, _P, _I, _P, _P)
 _SDDMM_ARGTYPES = (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P)
 _DQ_SDDMM_ARGTYPES = (_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P)
+_SEG_ARGTYPES = (_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P,
+                 _P)
 
 
 def spmm_plain(x: torch.Tensor, ew: torch.Tensor | None, layout, *,
@@ -131,10 +135,11 @@ def segment_sum_plain(y: torch.Tensor, levels: tuple) -> torch.Tensor:
 
 
 def segment_sum_cuda(y: torch.Tensor, levels: tuple) -> torch.Tensor:
-    """Launch ``csrc/spmm.cu`` once per level, gathering ``y``'s rows
-    through the runs' ``perm``; shapes as ``segment_sum_plain``."""
+    """Launch ``csrc/segment_sum.cu`` once per level over the level's plan
+    (two CUDA kernels where the level has a run longer than a chunk: the
+    chunks, then their fixed-order sum); shapes as ``segment_sum_plain``."""
     backend.require_sm90(y.device)
-    fn = backend.kernel_fn("spmm", "spmm_launch", _ARGTYPES)
+    fn = backend.kernel_fn("segment_sum", "segment_sum_launch", _SEG_ARGTYPES)
     shape = y.shape[1:]
     y = y.reshape(y.shape[0], -1)
     for runs in levels:
@@ -142,19 +147,30 @@ def segment_sum_cuda(y: torch.Tensor, levels: tuple) -> torch.Tensor:
         if y.shape[0] != runs.n_rows:
             raise ValueError(f"y has {y.shape[0]} rows, the grouping sums "
                              f"{runs.n_rows}")
-        for name in ("perm", "row_start", "row_end"):
-            arr = getattr(runs, name)
-            backend.check_cuda(arr, torch.int32, 1, name)
+        plan = runs.plan
+        for name, arr, ndim in (
+                ("perm", runs.perm, 1), ("row_start", runs.row_start, 1),
+                ("row_end", runs.row_end, 1), ("item_ptr", plan.item_ptr, 1),
+                ("tiles", plan.tiles, 2), ("long_rows", plan.long_rows, 1),
+                ("long_part", plan.long_part, 1)):
+            backend.check_cuda(arr, torch.int32, ndim, name)
             if arr.device != y.device:
                 raise ValueError(f"grouping is on {arr.device}, y on "
                                  f"{y.device}")
-        out = torch.empty((runs.n_out, y.shape[1]), dtype=torch.float32,
+        d = y.shape[1]
+        out = torch.empty((runs.n_out, d), dtype=torch.float32,
                           device=y.device)
+        scratch = torch.empty((plan.n_parts, d), dtype=torch.float32,
+                              device=y.device)
         with torch.cuda.device(y.device):
-            backend.launch(fn, y.data_ptr(), y.shape[1], None,
-                           runs.perm.data_ptr(), runs.perm.data_ptr(),
-                           runs.row_start.data_ptr(), runs.row_end.data_ptr(),
-                           runs.n_out, out.data_ptr(), backend.stream_of(y))
+            backend.launch(fn, y.data_ptr(), d, y.shape[0],
+                           runs.perm.data_ptr(), runs.row_start.data_ptr(),
+                           runs.row_end.data_ptr(), runs.n_out,
+                           plan.item_ptr.data_ptr(), plan.tiles.data_ptr(),
+                           plan.n_tiles, plan.long_rows.data_ptr(),
+                           plan.long_part.data_ptr(),
+                           plan.long_rows.shape[0], scratch.data_ptr(),
+                           out.data_ptr(), backend.stream_of(y))
         backend.count_launch("segment_sum")
         y = out
     return y.reshape((y.shape[0],) + shape)

@@ -53,10 +53,12 @@ takes its own card with NCCL when there are enough cards, else all share
 ``cuda:0`` and talk over gloo; ``--device cpu`` runs the ranks on the CPU
 over gloo. Every rank's loss is the same scalar; rank 0 logs, writes the
 checkpoints (the full logical state, the files a single-device run
-writes) and the sinks. A checkpoint carries the mesh and the table
-placement, so a resume onto another mesh is refused; ``--reshard-from
-DIR`` starts from such a checkpoint on the current mesh instead. The
-``[dp]`` line names the backend and the collective route.
+writes) and the sinks. A step that fails on any rank fails on every rank,
+and all roll back to the last checkpoint and replay, up to the trainer's
+``max_failures`` in a row, as on one device. A checkpoint carries the
+mesh and the table placement, so a resume onto another mesh is refused;
+``--reshard-from DIR`` starts from such a checkpoint on the current mesh
+instead. The ``[dp]`` line names the backend and the collective route.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch kgat \\
       --mesh data=2,model=2 --allreduce int8 --steps 10 --device cpu
@@ -99,11 +101,11 @@ def _measured(train_step, dev: torch.device, step_writer=None):
     ``step_writer``, the first step's activation-bytes report is published
     (``act/*`` gauges) and its total stamped onto every step line."""
 
-    def run(state, batch, i):
+    def run(state, batch, i, **kw):
         before = dict(LAUNCH_COUNTS)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        state, metrics = train_step(state, batch, i)
+        state, metrics = train_step(state, batch, i, **kw)
         metrics["launches"] = {k: v - before.get(k, 0)
                                for k, v in LAUNCH_COUNTS.items()
                                if v - before.get(k, 0)}
@@ -348,15 +350,18 @@ def dp_job(cfg, ds, schedule, steps: int, *, batch: int = 1024,
            reshard_from: str | None = None, log_every: int = 1,
            metrics_out: str | None = None,
            trace: str | None = None, verbose: bool = True,
-           run: dict | None = None) -> dict:
+           run: dict | None = None,
+           fail_at: tuple[int, int] | None = None) -> dict:
     """The description of one multi-rank training run that ``train_rank``
-    carries out on each rank (the arguments of ``train_kgnn_dp``)."""
+    carries out on each rank (the arguments of ``train_kgnn_dp``).
+    ``fail_at=(rank, step)`` injects one failure on that rank at that step
+    (tests: every rank rolls back and replays)."""
     return dict(cfg=cfg, ds=ds, schedule=schedule, steps=steps, batch=batch,
                 allreduce=allreduce,
                 ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
                 schedule_spec=schedule_spec, reshard_from=reshard_from,
-                log_every=log_every, metrics_out=metrics_out, trace=trace, verbose=verbose,
-                run=run)
+                log_every=log_every, metrics_out=metrics_out, trace=trace,
+                verbose=verbose, run=run, fail_at=fail_at)
 
 
 def train_kgnn_dp(cfg, ds, schedule, steps: int, *, mesh, device="cuda",
@@ -368,7 +373,9 @@ def train_kgnn_dp(cfg, ds, schedule, steps: int, *, mesh, device="cuda",
     all-reduce (``int8`` or ``fp32``); the replicated parameters are held
     bitwise equal across the ranks after every step.
     One process a rank (``launch.mesh.run_ranks``), each running
-    ``train_rank``; the keywords are ``dp_job``'s.
+    ``train_rank``; the keywords are ``dp_job``'s. Without ``ckpt_dir`` a
+    temporary directory made here, before the ranks start, takes the
+    checkpoints (a failed step rolls back to them) and is removed after.
 
     Returns one dict a rank: ``steps`` (per step ``loss``, ``seconds``,
     ``launches`` by kernel, ``max_memory_allocated``), ``counts`` (kernel
@@ -376,12 +383,23 @@ def train_kgnn_dp(cfg, ds, schedule, steps: int, *, mesh, device="cuda",
     memory, None on the CPU), ``shard`` (every shard's edges and halo
     rows, the caps), ``mesh`` (backend, route, device),
     ``allreduce_bytes`` (the analytic report on this rank's leaves, int8
-    and fp32) and ``allreduce_sent`` (the bytes this rank hands its
-    all-reduce calls, int8 and fp32)."""
+    and fp32), ``allreduce_sent`` (the bytes this rank hands its
+    all-reduce calls, int8 and fp32) and ``log`` (the trainer's lines on
+    this rank)."""
+    import shutil
+
     from repro_torch.launch.mesh import run_ranks
 
-    return run_ranks(train_rank, str(mesh), device=str(device),
-                     args=(dp_job(cfg, ds, schedule, steps, **kw),))
+    job = dp_job(cfg, ds, schedule, steps, **kw)
+    made = job["ckpt_dir"] is None
+    if made:
+        job["ckpt_dir"] = tempfile.mkdtemp(prefix="repro_ckpt_")
+    try:
+        return run_ranks(train_rank, str(mesh), device=str(device),
+                         args=(job,))
+    finally:
+        if made:
+            shutil.rmtree(job["ckpt_dir"], ignore_errors=True)
 
 
 def shard_setup(step, mesh, cache: dict | None = None):
@@ -405,7 +423,15 @@ def shard_setup(step, mesh, cache: dict | None = None):
 def train_rank(rt, job: dict, cache: dict | None = None) -> dict:
     """One rank of ``train_kgnn_dp``: ``job`` is a ``dp_job``, ``rt`` the
     rank's ``launch.mesh.RankRuntime``; ``cache`` keeps the shard's
-    partition and view across runs of one process."""
+    partition and view across runs of one process.
+
+    The trainer takes its default ``max_failures`` and checkpoints to
+    ``job["ckpt_dir"]`` (rank 0's, where ranks joined from ``torchrun``
+    made their own): a step that fails on any rank fails on every rank
+    (``data_parallel.make_dp_step``), and all roll back to the same
+    checkpoint and replay."""
+    import torch.distributed as dist
+
     from repro_torch.kernels.backend import reset_counts
     from repro_torch.training import data_parallel as dp
     from repro_torch.training.checkpoint import RankCheckpoints
@@ -413,8 +439,19 @@ def train_rank(rt, job: dict, cache: dict | None = None) -> dict:
     from repro_torch.training.compress import allreduce_byte_report, \
         allreduce_sent_bytes
 
+    if not job["ckpt_dir"]:
+        raise ValueError("train_rank needs a checkpoint directory "
+                         "(train_kgnn_dp makes a temporary one)")
     cfg, ds, mesh, dev = job["cfg"], job["ds"], rt.mesh, rt.device
     say = log if rt.is_root and job["verbose"] else (lambda *_, **__: None)
+    ckpt_dir = [job["ckpt_dir"]]
+    dist.broadcast_object_list(ckpt_dir, src=0)
+    lines: list[str] = []
+
+    def trainer_log(msg: str) -> None:
+        lines.append(msg)
+        say(msg)
+
     if rt.is_root and job["trace"]:
         get_tracer().enable()
     step = build_step(arch_of(cfg.model), ds=ds, cfg=cfg,
@@ -468,15 +505,24 @@ def train_rank(rt, job: dict, cache: dict | None = None) -> dict:
     trainer = Trainer(
         _measured(train_step, dev, step_writer), state, step.batches(),
         TrainerConfig(total_steps=job["steps"], log_every=job["log_every"],
-                      max_failures=1),
-        log_fn=say, ckpt_meta=meta, step_writer=step_writer,
-        items_per_step=len(ds.src))
-    if job["ckpt_dir"]:
-        trainer.ckpt = RankCheckpoints(
-            job["ckpt_dir"], is_root=rt.is_root, to_logical=to_logical,
-            to_local=to_local, logical_template=to_logical(state), meta=meta)
-        trainer.cfg.ckpt_every = job["ckpt_every"]
-        trainer.restore_if_available()
+                      ckpt_every=job["ckpt_every"]),
+        log_fn=trainer_log, ckpt_meta=meta, step_writer=step_writer,
+        items_per_step=len(ds.src), agree_failures=True)
+    trainer.ckpt = RankCheckpoints(
+        ckpt_dir[0], is_root=rt.is_root, to_logical=to_logical,
+        to_local=to_local, logical_template=to_logical(state), mesh=mesh,
+        meta=meta)
+    trainer.restore_if_available()
+    if job["fail_at"] is not None and rt.rank == job["fail_at"][0]:
+        fired = []
+
+        def inject(i):
+            if i == job["fail_at"][1] and not fired:
+                fired.append(i)
+                return True
+            return False
+
+        trainer.failure_injector = inject
     reset_counts()
     try:
         params_out, _ = trainer.run()
@@ -510,6 +556,7 @@ def train_rank(rt, job: dict, cache: dict | None = None) -> dict:
                   "halo_all": part.halo_count.tolist()},
         "mesh": {"spec": str(mesh.spec), "backend": mesh.backend,
                  "route": ROUTE, "device": str(dev)},
+        "log": lines,
         **{key: {w: report(params_out, axes, placement=sharded_over,
                            compressed=w == "int8") for w in ("int8", "fp32")}
            for key, report in (("allreduce_bytes", allreduce_byte_report),
@@ -530,8 +577,7 @@ def _run_dp(args, mesh_spec, schedule, label: str) -> None:
     res = train_kgnn_dp(
         step.cfg, step.data["dataset"], schedule, args.steps,
         mesh=mesh_spec, device=args.device, batch=args.batch or 512,
-        allreduce=args.allreduce,
-        ckpt_dir=args.ckpt or tempfile.mkdtemp(prefix="repro_ckpt_"),
+        allreduce=args.allreduce, ckpt_dir=args.ckpt,
         ckpt_every=max(args.steps // 4, 10), schedule_spec=label,
         reshard_from=args.reshard_from, log_every=max(args.steps // 8, 5),
         metrics_out=args.metrics_out, trace=args.trace, run=run)

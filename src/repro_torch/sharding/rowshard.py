@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.data.csr import SegmentRuns, stable_argsort
+from repro_torch.data.csr import segment_runs, stable_argsort
 from repro_torch.kernels import ops
 
 from .comm import TorchMesh, psum
@@ -48,11 +48,8 @@ def owned_runs(ids, owner: int, rows_per_shard: int,
     counts = np.bincount(off, minlength=rows_per_shard)
     start = np.concatenate([[0], np.cumsum(counts)[:-1]])
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-
-    return (SegmentRuns(t(pos[order]), t(start), t(start + counts),
-                        rows_per_shard, len(ids)),)
+    return (segment_runs(pos[order], start, start + counts, rows_per_shard,
+                         len(ids), device),)
 
 
 class _FetchRows(torch.autograd.Function):

@@ -166,13 +166,18 @@ def check_meta(stored: dict | None, expected: dict | None,
 
 def _place(arr: np.ndarray, t):
     """One stored leaf on its template leaf's device, dtype and
-    ``requires_grad`` flag: a fresh tensor, never the template's."""
+    ``requires_grad`` flag: a fresh tensor, never the template's, in
+    PyTorch's own allocation (an array read from the npz may sit off the
+    alignment PyTorch gives its CPU tensors, and a vectorised CPU sum over
+    it would then round in another order than over the tensor it was
+    saved from)."""
     shape = tuple(t.shape) if hasattr(t, "shape") else ()
     if arr.shape != shape:
         raise ValueError(f"checkpoint leaf of shape {arr.shape} does not "
                          f"fit the template's {shape}")
     if isinstance(t, torch.Tensor):
-        x = torch.from_numpy(arr).to(device=t.device, dtype=t.dtype)
+        x = torch.empty(shape, dtype=t.dtype, device=t.device)
+        x.copy_(torch.from_numpy(arr))
         return x.requires_grad_(t.requires_grad)
     if isinstance(t, np.ndarray):
         return arr.astype(t.dtype)
@@ -278,14 +283,19 @@ class RankCheckpoints:
     ranks and cut to the real rows: a collective every rank calls), the
     root rank writes it, and ``to_local(state)`` turns a restored logical
     state back into this rank's. Every rank reads the files on restore
-    (``logical_template`` gives their structure, devices and dtypes), so a
-    restore takes no collective. ``meta`` carries the mesh and placement
+    (``logical_template`` gives their structure, devices and dtypes). ``meta`` carries the mesh and placement
     (``training.step.step_metadata``), so a checkpoint of another mesh is
-    refused; ``launch.train --reshard-from`` restores one across meshes."""
+    refused; ``launch.train --reshard-from`` restores one across meshes.
+    Every rank calls ``restore`` at the same point (the start of a run, or
+    the rollback after a step every rank saw fail): the root finishes its
+    writes, then the ranks agree on the newest step over ``mesh`` (a max
+    all-reduce), so all restore the same one."""
 
     def __init__(self, base: str, *, is_root: bool, to_logical, to_local,
-                 logical_template, keep: int = 3, meta: dict | None = None):
+                 logical_template, mesh, keep: int = 3,
+                 meta: dict | None = None):
         self.inner = CheckpointManager(base, keep=keep, meta=meta)
+        self.mesh = mesh
         self.is_root = is_root
         self.to_logical = to_logical
         self.to_local = to_local
@@ -301,7 +311,17 @@ class RankCheckpoints:
             self.inner.wait()
 
     def restore(self, template, *, step: int | None = None):
+        from repro_torch.sharding.comm import pmax
+
         self.wait()
+        if step is None:
+            newest = latest_step(self.inner.base)
+            step = int(pmax(torch.tensor(
+                [-1 if newest is None else newest], dtype=torch.int64,
+                device=self.mesh.device), self.mesh,
+                self.mesh.spec.names).item())
+            if step < 0:
+                return None, template
         got, full = restore_checkpoint(self.inner.base,
                                        self.logical_template, step=step,
                                        expect_meta=self.inner.meta)

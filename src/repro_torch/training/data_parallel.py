@@ -39,6 +39,17 @@ shard quantizes with its own per-row scales and the scope-keyed seeds of
 the single-device step, so the step is not the single-device step's bits,
 but every estimator stays unbiased.
 
+Failures (``make_dp_step``): every rank reaches one agreement point a step,
+after the loss and the gradient all-reduce and before Adam (which updates
+in place). A rank whose own code raised up to there, or whose trainer
+hands it an injected failure, sets its flag; the flags are all-reduced by
+max, and if any is set every rank raises the same ``StepFailed``, naming
+the rank, with its state untouched. The trainers then roll back together
+(``training.checkpoint.RankCheckpoints`` agrees on the step). A rank that
+dies inside a collective, or raises between two of the step's
+collectives, leaves the others waiting in that collective until gloo's
+timeout.
+
 The per-site policies and seeds resolve through the ambient
 ``ActContext`` under the same ``<arch>/layer<l>/<site>`` scopes as the
 single-device step (no pre-resolution is needed: the body is ordinary
@@ -56,7 +67,7 @@ from repro_torch.data.csr import EdgePartition, partition_edges, \
 from repro_torch.kernels.backend import full_fp32
 from repro_torch.models.layers import param_leaves
 from repro_torch.sharding.comm import TorchMesh, all_gather, digest, \
-    gather_rows_of_ranks, psum
+    gather_rows_of_ranks, pmax, psum
 from repro_torch.sharding.mesh_spec import MeshSpec
 from repro_torch.training.compress import all_reduce_grads, \
     allreduce_byte_report, allreduce_sent_bytes, psum_seed, restructure
@@ -65,7 +76,8 @@ from repro_torch.training.step import ModelStep, ShardSpec
 __all__ = ["partition_graph", "dp_loss_and_grads", "make_dp_step",
            "dp_forward_reps", "pad_row_sharded", "unpad_row_sharded",
            "check_no_sampled_dp", "shard_view", "block_rows",
-           "gather_row_blocks", "replica_check"]
+           "gather_row_blocks", "replica_check", "StepFailed",
+           "agree_on_failure"]
 
 
 def check_no_sampled_dp(batch_or_view, *, mesh_spec: str = "data=N") -> None:
@@ -375,15 +387,38 @@ def replica_check(params: dict, mesh: TorchMesh, *,
     return bad
 
 
+class StepFailed(RuntimeError):
+    """A step failed on some rank; every rank raises this same error."""
+
+
+def agree_on_failure(err: BaseException | None, mesh: TorchMesh,
+                     step_idx: int) -> None:
+    """The ranks' agreement on one step: every rank calls this at the same
+    point with its own failure (or None); a max all-reduce of the flags
+    over the whole mesh, then, if any rank failed, every rank raises
+    ``StepFailed`` naming the highest such rank (this rank's own error as
+    its cause)."""
+    flag = torch.tensor([0 if err is None else mesh.rank + 1],
+                        dtype=torch.int64, device=mesh.device)
+    worst = int(pmax(flag, mesh, mesh.spec.names).item())
+    if worst:
+        raise StepFailed(f"step {step_idx}: rank {worst - 1} failed; every "
+                         f"rank rolls back") from err
+
+
 def make_dp_step(step: ModelStep | ShardSpec, part: EdgePartition,
                  mesh: TorchMesh, opt, *, schedule=None, root_seed: int,
                  axis: str = "data", model_axis: str | None = None,
                  mesh_spec: "MeshSpec | str | None" = None,
                  compress_grads: bool = True, view=None):
-    """``train_step(state, batch, i) -> (state, metrics)`` for the
-    ``Trainer`` on this rank, for any KG arch with a ``ShardSpec``.
+    """``train_step(state, batch, i, fail=None) -> (state, metrics)`` for
+    the ``Trainer`` on this rank, for any KG arch with a ``ShardSpec``.
 
-    The sharded loss and backward, the gradient all-reduce, then Adam on
+    The sharded loss and backward, the gradient all-reduce, the ranks'
+    agreement on failures (``agree_on_failure``: an exception this rank's
+    step raised, or ``fail``, the trainer's injected failure, which the
+    step runs through like any other so that every rank's collectives
+    match), then Adam on
     this rank's state (replicated parameters update identically on every
     rank; a row-sharded table updates block by block, and its padded rows
     stay zero). ``mesh_spec`` (a ``MeshSpec`` or its string) is validated
@@ -431,17 +466,23 @@ def make_dp_step(step: ModelStep | ShardSpec, part: EdgePartition,
                     .set(float(row["bytes"]))
                 meters.append((reg.counter(name, **labels), row["bytes"]))
 
-    def train_step(state, batch, step_idx):
-        check_no_sampled_dp(batch)
+    def train_step(state, batch, step_idx, fail=None):
         params, opt_state = state
-        if not meters:
-            init_meters(params)
-        for ctr, nbytes in meters:
-            ctr.inc(nbytes)
-        loss, grads, act = dp_loss_and_grads(
-            spec, params, part, batch, mesh=mesh, view=view, axis=axis,
-            model_axis=model_axis, schedule=schedule, root_seed=root_seed,
-            step_idx=step_idx, compress_grads=compress_grads)
+        err = fail
+        try:
+            check_no_sampled_dp(batch)
+            if not meters:
+                init_meters(params)
+            for ctr, nbytes in meters:
+                ctr.inc(nbytes)
+            loss, grads, act = dp_loss_and_grads(
+                spec, params, part, batch, mesh=mesh, view=view, axis=axis,
+                model_axis=model_axis, schedule=schedule,
+                root_seed=root_seed, step_idx=step_idx,
+                compress_grads=compress_grads)
+        except Exception as e:  # noqa: BLE001 (agreed on by every rank)
+            err = e
+        agree_on_failure(err, mesh, step_idx)
         params, opt_state = opt.update(param_leaves(grads), opt_state,
                                        params)
         bad = replica_check(params, mesh, row_sharded=sharded, axis=axis)

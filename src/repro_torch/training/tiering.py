@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.context import act_context
-from repro_torch.data.csr import SegmentRuns, group_ids
+from repro_torch.data.csr import group_ids, segment_runs
 from repro_torch.kernels import ops
 from repro_torch.kernels.backend import full_fp32, resolve_device
 from repro_torch.models.layers import param_leaves
@@ -265,12 +265,8 @@ class TieredEmbeddingStore:
         uniq, _, _, order, counts = group_ids(rows, self.n_rows)
         start = np.concatenate([[0], np.cumsum(counts)[:-1]])
 
-        def t32(a):
-            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
-                self.device, non_blocking=True)
-
-        runs = (SegmentRuns(t32(order), t32(start),
-                            t32(start + counts), len(uniq), len(rows)),)
+        runs = (segment_runs(order, start, start + counts, len(uniq),
+                             len(rows), self.device),)
         delta = ops.segment_sum((-lr) * grads.to(torch.float32), runs)
         slots = self._hot_slot[uniq]
         cold = np.nonzero(slots < 0)[0]

@@ -12,6 +12,9 @@ MESHES = ("data=4", "data=2,model=2")
 ARCHS = ("kgat", "kgin")
 ADAM_MESH = MESHES[0]               # the Adam runs against the JAX package
 ADAM_STEPS = 3
+RETRY_MESH = MESHES[1]              # the retry case: data=2 (x model=2)
+RETRY_STEPS, RETRY_EVERY = 4, 2     # checkpoints at step 2 and the end
+RETRY_FAIL = (1, 3)                 # rank 1 fails step 3: roll back to 2
 
 
 def dataset():
@@ -45,10 +48,66 @@ def _np(tree):
     return [t.detach().numpy().copy() for t in param_leaves(tree)]
 
 
-def rank_job(rt, jax_params: dict) -> dict:
+def retry_job(ckpt_dir: str) -> dict:
+    """The retry case's ``dp_job``: KGAT INT2 with the int8 all-reduce,
+    ``RETRY_STEPS`` steps, one failure on rank ``RETRY_FAIL[0]`` at step
+    ``RETRY_FAIL[1]``."""
+    from repro_torch.core.policy import parse_schedule
+    from repro_torch.launch.train import dp_job
+
+    ds = dataset()
+    return dp_job(step_of("kgat", ds).cfg, ds, parse_schedule("int2"),
+                  RETRY_STEPS, batch=32, allreduce="int8",
+                  ckpt_dir=ckpt_dir, ckpt_every=RETRY_EVERY,
+                  schedule_spec="int2", log_every=1, verbose=False,
+                  fail_at=RETRY_FAIL)
+
+
+def unfailed_losses(rt, job: dict, skip: range) -> list:
+    """The losses of ``job``'s run on ``rt``'s mesh with no failure, set up
+    as ``train_rank`` sets it up, on the batches a run that failed once
+    and rolled back took: the stream without its batches ``skip`` (those
+    of the steps rolled back and of the failed attempt; the trainer does
+    not rewind its data)."""
+    from repro_torch.launch.train import ROOT_SEED, shard_setup
+    from repro_torch.models.registry import arch_of, build_step
+    from repro_torch.training import data_parallel as dp
+    from repro_torch.training.optimizer import adam
+    from repro_torch.training.step import trainable
+
+    cfg, mesh = job["cfg"], rt.mesh
+    step = build_step(arch_of(cfg.model), ds=job["ds"], cfg=cfg,
+                      batch_size=job["batch"], device=rt.device,
+                      device_graph=False)
+    part, view, model_axis = shard_setup(step, mesh)
+    opt = adam(step.lr)
+    params = step.init(0)
+    state = (params, opt.init(params))
+    if model_axis:
+        state = dp.block_rows(dp.pad_row_sharded(
+            state, step.dp_spec, part, mesh.shape[model_axis]),
+            step.dp_spec, part, mesh)
+    state = (trainable(state[0]), state[1])
+    train = dp.make_dp_step(step, part, mesh, opt, schedule=job["schedule"],
+                            root_seed=ROOT_SEED, mesh_spec=mesh.spec,
+                            compress_grads=job["allreduce"] == "int8",
+                            view=view)
+    batches = [b for i, (_, b) in enumerate(zip(
+        range(job["steps"] + len(skip)), step.batches())) if i not in skip]
+    losses = []
+    for i, b in enumerate(batches[:job["steps"]]):
+        state, m = train(state, b, i)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def rank_job(rt, jax_params: dict, retry: dict) -> dict:
     """Every case of the parity test on this rank; rank 0 returns the
     arrays, every rank the digests of its parameters after each step of
-    the compressed runs."""
+    the compressed runs and its retry case (``retry``: a ``retry_job``)."""
+    import dataclasses
+
+    from repro_torch.launch.train import train_rank
     from repro_torch.core.context import act_context
     from repro_torch.core.policy import parse_schedule
     from repro_torch.models import kgnn
@@ -175,7 +234,19 @@ def rank_job(rt, jax_params: dict) -> dict:
     exact = grads(0, False)
     draws = np.stack([grads(seed, True) for seed in range(16)])
     out["unbiased"] = (exact, draws)
-    return out if rt.is_root else {"compressed": out["compressed"]}
+
+    # one rank fails a step of a data=2 x model=2 run through the
+    # launcher's train_rank: every rank rolls back and replays, and the run
+    # ends with the losses of a run that never failed
+    rt2 = dataclasses.replace(rt, mesh=meshes[RETRY_MESH])
+    run = train_rank(rt2, retry)
+    out["retry"] = {"losses": [h["loss"] for h in run["steps"]],
+                    "log": run["log"],
+                    "unfailed": unfailed_losses(rt2, retry, range(
+                        RETRY_FAIL[1] // RETRY_EVERY * RETRY_EVERY,
+                        RETRY_FAIL[1] + 1))}
+    return out if rt.is_root else {"compressed": out["compressed"],
+                                   "retry": out["retry"]}
 
 
 def card_job(rt, arch: str) -> dict:

@@ -20,7 +20,8 @@ import torch
 from repro_torch.configs import get
 from repro_torch.configs.smoke import reduced
 from repro_torch.core.quant import QTensor, dequantize, pack_bits, quantize
-from repro_torch.data.csr import build_spmm_layout, relation_runs
+from repro_torch.data.csr import SEG_CHUNK, build_spmm_layout, \
+    relation_runs, segment_runs
 from repro_torch.core.policy import schedule_from_cli
 from repro_torch.kernels import backend
 from repro_torch.kernels import dequant_matmul as dq
@@ -239,6 +240,123 @@ def test_segment_sum_kernel_close_and_deterministic(cuda, kind, d):
     ref = sp.segment_sum_plain(y, levels)
     assert _rel(a, ref) <= 1e-5
     assert bool((a[deg == 0] == 0).all())
+
+
+def _contract_sum(levels, y: np.ndarray) -> np.ndarray:
+    """numpy model of the segment-sum kernel's order: each run cut into
+    chunks of SEG_CHUNK slots at run-relative offsets, each chunk summed in
+    slot order with float32 adds from 0, a row's chunk sums then added in
+    chunk order from 0."""
+    c = SEG_CHUNK
+
+    def seq(rows):
+        z = np.zeros((1,) + rows.shape[1:], np.float32)
+        return np.cumsum(np.concatenate([z, rows]), axis=0,
+                         dtype=np.float32)[-1]
+
+    for runs in levels:
+        perm = runs.perm.cpu().numpy().astype(np.int64)
+        rs = runs.row_start.cpu().numpy().astype(np.int64)
+        re = runs.row_end.cpu().numpy().astype(np.int64)
+        out = np.zeros((runs.n_out,) + y.shape[1:], np.float32)
+        for r in range(runs.n_out):
+            parts = [seq(y[perm[a:min(a + c, re[r])]])
+                     for a in range(rs[r], re[r], c)]
+            if parts:
+                out[r] = parts[0] if len(parts) == 1 else seq(np.stack(parts))
+        y = out
+    return y
+
+
+def _chunk_groupings(cuda):
+    """Levels for the segment-sum kernel: runs of exactly C and C + 1
+    slots, one of 10C + 3 and one of 40C, empty and short rows, pad gaps
+    between runs (one level); a zipf layout's runs by destination and by
+    source; relations chunked into three levels."""
+    c = SEG_CHUNK
+    rng = np.random.default_rng(11)
+    lens = np.concatenate([[0, 1, c, c + 1, 0, 0, 10 * c + 3, 5, 0, 40 * c],
+                           rng.integers(0, 40, 2000), [c, 0]])
+    gaps = np.where(rng.random(len(lens)) < 0.2,
+                    rng.integers(1, 40, len(lens)), 0)
+    start = np.cumsum(np.concatenate([[0], (lens + gaps)[:-1]]))
+    n_rows = int(lens.sum())
+    perm = np.full(int(start[-1] + lens[-1]), n_rows)
+    for a, n, v in zip(start, lens, np.split(rng.permutation(n_rows),
+                                             np.cumsum(lens)[:-1])):
+        perm[a:a + n] = v
+    layout = _skewed_layout(cuda, 0)
+    rel = np.minimum(rng.zipf(1.3, layout.meta.n_edges) - 1, 9)
+    return {"chunks": (segment_runs(perm, start, start + lens, len(lens),
+                                    n_rows, cuda),),
+            "dst": layout.runs(), "src": layout.runs(transpose=True),
+            "rel": relation_runs(rel, 12, chunk=16, device=cuda)}
+
+
+def _seg_kernels_per_call(fn) -> int:
+    """The CUDA kernels one call launches, as torch.profiler sees them: the
+    most of three profiled calls (the profiler can lose an event, never
+    add one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen.append(sum(1 for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "seg_" in e.name))
+    return max(seen)
+
+
+@pytest.mark.parametrize("kind", ["chunks", "dst", "src", "rel"])
+@pytest.mark.parametrize("d", [1, 4, 64, 65])
+def test_segment_sum_kernel_is_chunk_contract(cuda, kind, d):
+    """The kernel equals, bit for bit, the numpy model of its chunk-order
+    contract (d 65: unaligned, scalar columns); the same bits twice; one
+    launch count a level. The CUDA kernels a level starts (one, two where
+    the level has a run longer than a chunk: the plan's count) bound what
+    torch.profiler sees, which can lose a kernel's event (all of a call's,
+    at times) but never add one."""
+    levels = _chunk_groupings(cuda)[kind]
+    if kind == "chunks":
+        deg = (levels[0].row_end - levels[0].row_start).cpu()
+        assert int(deg.max()) >= 10 * SEG_CHUNK and bool((deg == 0).any())
+    rng = np.random.default_rng(d)
+    y_np = rng.normal(size=(levels[0].n_rows, d)).astype(np.float32)
+    y = torch.from_numpy(y_np).to(cuda)
+    backend.reset_counts()
+    a = sp.segment_sum_cuda(y, levels)
+    assert backend.LAUNCH_COUNTS["segment_sum"] == len(levels)
+    assert torch.equal(a, sp.segment_sum_cuda(y, levels))
+    np.testing.assert_array_equal(a.cpu().numpy(), _contract_sum(levels, y_np))
+    want = sum(1 + (lv.plan.n_parts > 0) for lv in levels)
+    assert _seg_kernels_per_call(
+        lambda: sp.segment_sum_cuda(y, levels)) <= want
+
+
+@pytest.mark.parametrize("d", [1, 4, 64])
+def test_segment_sum_short_runs_equal_spmm_route(cuda, d):
+    """Where no run is longer than a chunk (the relation levels) the kernel
+    gives the bits of the route it replaced, the SPMM kernel with gat :=
+    perm and no weights, which sums each run whole in slot order."""
+    levels = _chunk_groupings(cuda)["rel"]
+    assert all(lv.plan.n_parts == 0 for lv in levels)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    y = torch.randn((levels[0].n_rows, d), generator=gen, device=cuda)
+    fn = backend.kernel_fn("spmm", "spmm_launch", sp._ARGTYPES)
+    old = y
+    for runs in levels:
+        out = torch.empty((runs.n_out, d), device=cuda)
+        backend.launch(fn, old.data_ptr(), d, None, runs.perm.data_ptr(),
+                       runs.perm.data_ptr(), runs.row_start.data_ptr(),
+                       runs.row_end.data_ptr(), runs.n_out, out.data_ptr(),
+                       backend.stream_of(old))
+        old = out
+    assert torch.equal(sp.segment_sum_cuda(y, levels), old)
 
 
 def _clone_state(state):

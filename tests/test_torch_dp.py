@@ -21,7 +21,10 @@ Tolerances, relative to the reference's max |value|:
   port's single-device step.
 The same three Adam steps run on both sides with the exact and with the
 int8 all-reduce (``test_adam_runs_follow_jax`` states its limits).
-In the same spawn: the 2D INT2 step with the int8 all-reduce keeps every
+In the same spawn, one rank fails a step of a short ``data=2,model=2`` run
+through the launcher's ``train_rank`` (``test_multi_rank_retry``): every
+rank rolls back to the same checkpoint and replays. Also: the 2D INT2 step
+with the int8 all-reduce keeps every
 replicated leaf bitwise equal across the ranks after each step (the step
 checks it and raises), two runs of it give the same bits on every rank,
 the compressed mean over 16 seeds is unbiased (its rms error a quarter of
@@ -39,7 +42,7 @@ import pytest
 
 from _subproc import forced_device_run
 from _torch_dp_ranks import ADAM_MESH, ADAM_STEPS, ARCHS, MESHES, \
-    SCHEDULES, rank_job
+    RETRY_EVERY, RETRY_FAIL, RETRY_STEPS, SCHEDULES, rank_job, retry_job
 
 _JAX_SIDE = """
     import jax, numpy as np
@@ -141,8 +144,10 @@ def sides(tmp_path_factory):
     with cf.ThreadPoolExecutor(1) as pool:
         jax_run = pool.submit(forced_device_run, textwrap.dedent(src),
                               n_devices=4, timeout=300)
+        # the retry run's checkpoint directory, made before the ranks start
+        retry = retry_job(str(tmp_path_factory.mktemp("retry_ckpt")))
         ranks = run_ranks(rank_job, MESHES[0], device="cpu",
-                          args=(params,), timeout_s=300)
+                          args=(params, retry), timeout_s=300)
         jax_run.result()
     with np.load(out) as z:
         jres = dict(z)
@@ -248,3 +253,56 @@ def test_adam_runs_follow_jax(sides):
     print(f"[adam] zero share of the int8 entity gradient: JAX {zj:.4f}, "
           f"port {zt:.4f}")
     assert abs(zj - zt) <= 0.05
+
+
+def test_multi_rank_retry(sides):
+    """Rank 1's injected failure at step 3 reaches every rank at the step's
+    agreement point: each logs the same failure (1 of the trainer's default
+    3 in a row), rolls back to the step-2 checkpoint and replays, and the
+    run's losses equal, bit for bit, a run that never failed on the
+    batches the failed run kept (those of the rolled-back step and of the
+    failed attempt skipped: the trainer does not rewind its data)."""
+    _, ranks = sides
+    rank, step = RETRY_FAIL
+    back = step // RETRY_EVERY * RETRY_EVERY
+    for r in ranks:
+        run = r["retry"]
+        failed = [m for m in run["log"] if "failed" in m]
+        assert failed == [f"[trainer] step {step} failed (1/3): StepFailed("
+                          f"'step {step}: rank {rank} failed; every rank "
+                          f"rolls back')"], run["log"]
+        assert [m for m in run["log"] if "rolled back" in m] == \
+            [f"[trainer] rolled back to step {back}"]
+        assert len(run["losses"]) == RETRY_STEPS
+        assert run["losses"] == run["unfailed"]
+        assert run["losses"] == ranks[0]["retry"]["losses"]
+
+
+def test_train_kgnn_dp_always_checkpoints(monkeypatch, tmp_path):
+    """Without ``ckpt_dir`` the multi-rank launcher makes a temporary
+    checkpoint directory before the ranks start, hands it to every rank in
+    the job, and removes it after; ``train_rank`` refuses a job without
+    one. (``test_multi_rank_retry`` holds its trainer to ``max_failures``
+    3: a retried failure logs "(1/3)".)"""
+    import os
+
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.train import dp_job, train_kgnn_dp, train_rank
+
+    seen = {}
+
+    def fake_run_ranks(fn, mesh, *, device, args):
+        seen["fn"], seen["dir"] = fn, args[0]["ckpt_dir"]
+        seen["exists"] = os.path.isdir(seen["dir"])
+        return []
+
+    monkeypatch.setattr(lmesh, "run_ranks", fake_run_ranks)
+    assert train_kgnn_dp(None, None, None, 2, mesh="data=2",
+                         device="cpu") == []
+    assert seen["fn"] is train_rank and seen["exists"]
+    assert not os.path.exists(seen["dir"])
+    train_kgnn_dp(None, None, None, 2, mesh="data=2", device="cpu",
+                  ckpt_dir=str(tmp_path))
+    assert seen["dir"] == str(tmp_path) and os.path.isdir(tmp_path)
+    with pytest.raises(ValueError, match="checkpoint directory"):
+        train_rank(None, dp_job(None, None, None, 2))
