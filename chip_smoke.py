@@ -481,12 +481,10 @@ def _topk_inputs(torch, quantize, gen, b, n_items, d, *, ties):
     return q, items, excl
 
 
-def kernels_per_call(torch, fn, reads: int = 8,
-                     names=("scan_kernel", "merge_"), require: bool = True):
+def kernels_per_call(torch, fn, reads: int = 8):
     """CUDA kernels one call of ``fn`` launches, read from torch.profiler:
     the most of ``reads`` profiled calls (the profiler can lose a device
-    event, never add one, and has lost one in each of three reads) of the
-    kernels whose names hold one of ``names``; with ``require``, fails
+    event, never add one, and has lost one in each of three reads); fails
     where it sees none of them."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -499,9 +497,10 @@ def kernels_per_call(torch, fn, reads: int = 8,
             torch.cuda.synchronize()
         counts.append(sum(1 for e in prof.events()
                           if e.device_type == torch.autograd.DeviceType.CUDA
-                          and any(n in e.name for n in names)))
-    check(max(counts) > 0 or not require, f"torch.profiler recorded no "
-          f"kernel of the call named {names}: its launches cannot be counted")
+                          and ("scan_kernel" in e.name
+                               or "merge_" in e.name)))
+    check(max(counts) > 0, "torch.profiler recorded no scan or merge kernel "
+          "of the call: its launches cannot be counted")
     return max(counts)
 
 
@@ -934,22 +933,25 @@ def spmm_route_segment_sum(torch, sp, y, levels):
 def segment_sum_report(torch, sp, y, levels, library, n_bytes, tag):
     """The segment-sum kernel on one grouping beside index_add_ and its
     earlier route (``spmm_route_segment_sum``): the longest run, the chunk
-    C, the CUDA kernels each level's launch starts (the plan's count;
-    torch.profiler, which can lose a kernel's event but never add one,
-    must see no more), and device times (20 calls behind a held stream, in
+    C, the CUDA kernels each level's launch started (counted by the C entry
+    point at each launch, ``backend.CUDA_KERNEL_COUNTS``; must equal the
+    plan's one a level, two where it has a run longer than a chunk), and
+    device times (20 calls behind a held stream, in
     turns with the earlier route) against the bound. Returns them for the
     kernels line."""
     from repro_torch.data.csr import SEG_CHUNK
+    from repro_torch.kernels import backend
 
     longest = max(int((lv.row_end - lv.row_start).max()) if lv.n_out else 0
                   for lv in levels)
-    per_level = [1 + (lv.plan.n_parts > 0) for lv in levels]
-    # the count the plan gives is the one reported; the profiler, which
-    # has missed every event of a call in eight reads, may only see fewer
-    seen = kernels_per_call(torch, lambda: sp.segment_sum_cuda(y, levels),
-                            names=("seg_",), require=False)
-    check(seen <= sum(per_level), f"{tag}: the profiler saw {seen} CUDA "
-          f"kernels a call, the plan says {per_level}")
+    plan = [1 + (lv.plan.n_parts > 0) for lv in levels]
+    per_level, x = [], y
+    for lv in levels:
+        before = backend.CUDA_KERNEL_COUNTS["segment_sum"]
+        x = sp.segment_sum_cuda(x, (lv,))
+        per_level.append(backend.CUDA_KERNEL_COUNTS["segment_sum"] - before)
+    check(per_level == plan, f"{tag}: the launches started {per_level} CUDA "
+          f"kernels a level, the plan says {plan}")
     old = spmm_route_segment_sum(torch, sp, y, levels)
     old_rel = _rel(old, sp.segment_sum_plain(y, levels))
 
@@ -967,7 +969,8 @@ def segment_sum_report(torch, sp, y, levels, library, n_bytes, tag):
     lib = device_ms(torch, library)
     bnd, by = bound_ms(n_bytes, 0)
     log(f"  {tag}: longest run {longest} slots, C {SEG_CHUNK}, CUDA kernels "
-        f"a launch {per_level} (profiler {seen} a call); device time kernel "
+        f"a launch {per_level} (counted at launch; plan {plan}); device "
+        f"time kernel "
         f"{k:.4f} ms ({k1:.4f} / {k2:.4f}), index_add_ {lib:.4f} ms, SPMM "
         f"route {rt:.4f} ms ({r1:.4f} / {r2:.4f}; rel {old_rel:.2e} to the "
         f"plain version), bound {bnd:.4f} ms ({by}; 20 calls queued behind a "
@@ -2249,18 +2252,17 @@ def check_sampled_kernels(torch, sp, dq, qp, zds, gen):
     item = next(sampled_items(zds, SAMPLED_FANOUTS, batch_size=SAMPLED_BATCH,
                               seed=0))
     sample_s = time.perf_counter() - t0
-    from repro_torch.data.csr import segment_plan
-
-    host = item.view.blocks[0].layout
-    t0 = time.perf_counter()
-    segment_plan(host.t_row_start.numpy(), host.t_row_end.numpy())
-    plan_ms = (time.perf_counter() - t0) * 1e3
+    sampler_ms, grads_ms, n_plans, n_rows = _plan_ms(item, zds.n_nodes)
     blk = item.view.blocks[0].to(DEV)
     m = blk.layout.meta
     n_real = int(blk.mask.sum())
-    log(f"[sampled-kernels] the segment-sum plan of the outermost block's "
-        f"grouping by source ({m.n_src} rows; built with the layout in the "
-        f"sampler thread) took {plan_ms:.1f} ms on the host")
+    log(f"[sampled-kernels] segment-sum plans of one batch on the host: "
+        f"{sampler_ms:.2f} ms in the sampler thread ({n_plans} groupings, "
+        f"{n_rows} rows: both directions of each block's layout and its "
+        f"relation levels; the batch took {sample_s * 1e3:.2f} ms to sample "
+        f"in all) and {grads_ms:.2f} ms in the step's scatter "
+        f"(``apply_grads``' grouping of the {len(item.input_nodes)} input "
+        f"rows)")
     log(f"[sampled-kernels] first batch sampled in {sample_s:.2f} s; "
         f"outermost block {m.n_dst} <- {m.n_src} rows, {m.n_edges} slots "
         f"({n_real} sampled, {m.n_edges - n_real} masked), "
@@ -2270,6 +2272,36 @@ def check_sampled_kernels(torch, sp, dq, qp, zds, gen):
     check(m.n_src > m.n_dst and n_real < m.n_edges
           and m.n_blocks * m.block_e > m.n_edges, "block shape")
     return check_block_kernels(torch, sp, dq, qp, blk, gen, "sampled")
+
+
+def _plan_ms(item, n_nodes):
+    """Host time of the segment-sum plans (``data.csr.segment_plan``) that
+    one sampled batch builds, each rebuilt from its row pointers: those of
+    the sampler thread (every block's layout, both directions, and its
+    relation levels) and that of the tier store's scatter-back
+    (``apply_grads``, on the step's own thread). Returns (sampler ms,
+    scatter ms, groupings, rows)."""
+    import numpy as np
+
+    from repro_torch.data.csr import group_ids, segment_plan
+
+    pairs = []
+    for b in item.view.blocks:
+        lay = b.layout
+        pairs += [(lay.row_start, lay.row_end), (lay.t_row_start,
+                                                 lay.t_row_end)]
+        pairs += [(lv.row_start, lv.row_end) for lv in b.rel_runs]
+    pairs = [(a.numpy(), b.numpy()) for a, b in pairs]
+    t0 = time.perf_counter()
+    for rs, re_ in pairs:
+        segment_plan(rs, re_)
+    sampler_ms = (time.perf_counter() - t0) * 1e3
+    counts = group_ids(np.asarray(item.input_nodes, np.int64), n_nodes)[4]
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    t0 = time.perf_counter()
+    segment_plan(start, start + counts)
+    grads_ms = (time.perf_counter() - t0) * 1e3
+    return sampler_ms, grads_ms, len(pairs), sum(len(a) for a, _ in pairs)
 
 
 def check_shard_kernels(torch, sp, dq, qp, ds, gen):

@@ -519,36 +519,39 @@ int persistent_grid(K kernel, int smem_bytes, int n_tiles, int* occupancy) {
 
 template <int L, int VEC>
 void launch_wide(const float* y, int d, int n_rows, const Level& lv,
-                 float* scratch, float* out, cudaStream_t st) {
+                 float* scratch, float* out, cudaStream_t st, int* kernels) {
   static int occupancy = 0;
   const int smem = 2 * kStageInts * 4 + kRingBufs * kRingFloats * 4;
   const int grid = persistent_grid(seg_wide_kernel<L, VEC>, smem, lv.n_tiles,
                                    &occupancy);
   seg_wide_kernel<L, VEC>
       <<<grid, kThreads, smem, st>>>(y, d, n_rows, lv, scratch, out);
+  ++*kernels;
 }
 
 template <int D, bool V4>
 void launch_narrow(const float* y, int n_rows, const Level& lv,
-                   float* scratch, float* out, cudaStream_t st) {
+                   float* scratch, float* out, cudaStream_t st,
+                   int* kernels) {
   static int occupancy = 0;
   const int smem = 2 * kStageInts * 4 + kSpanCap * D * 4;
   const int grid = persistent_grid(seg_narrow_kernel<D, V4>, smem,
                                    lv.n_tiles, &occupancy);
   seg_narrow_kernel<D, V4>
       <<<grid, kThreads, smem, st>>>(y, n_rows, lv, scratch, out);
+  ++*kernels;
 }
 
 template <int VEC>
 void wide(int lanes, const float* y, int d, int n_rows, const Level& lv,
-          float* scratch, float* out, cudaStream_t st) {
+          float* scratch, float* out, cudaStream_t st, int* kernels) {
   switch (lanes) {
-    case 1: launch_wide<1, VEC>(y, d, n_rows, lv, scratch, out, st); break;
-    case 2: launch_wide<2, VEC>(y, d, n_rows, lv, scratch, out, st); break;
-    case 4: launch_wide<4, VEC>(y, d, n_rows, lv, scratch, out, st); break;
-    case 8: launch_wide<8, VEC>(y, d, n_rows, lv, scratch, out, st); break;
-    case 16: launch_wide<16, VEC>(y, d, n_rows, lv, scratch, out, st); break;
-    default: launch_wide<32, VEC>(y, d, n_rows, lv, scratch, out, st); break;
+    case 1: launch_wide<1, VEC>(y, d, n_rows, lv, scratch, out, st, kernels); break;
+    case 2: launch_wide<2, VEC>(y, d, n_rows, lv, scratch, out, st, kernels); break;
+    case 4: launch_wide<4, VEC>(y, d, n_rows, lv, scratch, out, st, kernels); break;
+    case 8: launch_wide<8, VEC>(y, d, n_rows, lv, scratch, out, st, kernels); break;
+    case 16: launch_wide<16, VEC>(y, d, n_rows, lv, scratch, out, st, kernels); break;
+    default: launch_wide<32, VEC>(y, d, n_rows, lv, scratch, out, st, kernels); break;
   }
 }
 
@@ -559,15 +562,19 @@ void wide(int lanes, const float* y, int d, int n_rows, const Level& lv,
 // long_rows (n_long,), long_part (n_long + 1,) int32: its plan
 // (data/csr.py:segment_plan); scratch (long_part[n_long], d) fp32 for the
 // long rows' partials (unused when n_long is 0) -> out (n_out, d) fp32,
-// every row written. One CUDA kernel, two when n_long > 0. Returns
-// cudaGetLastError() after the launches.
+// every row written. One CUDA kernel, two when n_long > 0: each launch
+// adds one to *n_kernels (a host int, set to 0 first), which the wrapper
+// reports. Returns cudaGetLastError() after the launches.
 extern "C" int segment_sum_launch(const void* y, int d, int n_rows,
                                   const void* perm, const void* row_start,
                                   const void* row_end, int n_out,
                                   const void* item_ptr, const void* tiles,
                                   int n_tiles, const void* long_rows,
                                   const void* long_part, int n_long,
-                                  void* scratch, void* out, void* stream) {
+                                  void* scratch, void* out, void* stream,
+                                  void* n_kernels) {
+  auto* k = static_cast<int*>(n_kernels);
+  *k = 0;
   if (n_out > 0 && d > 0 && n_tiles > 0) {
     const auto* tl = static_cast<const int*>(tiles);
     Level lv{static_cast<const int*>(perm),
@@ -593,14 +600,14 @@ extern "C" int segment_sum_launch(const void* y, int d, int n_rows,
                       (n_long == 0 || reinterpret_cast<uintptr_t>(scratch) % 16 == 0);
     if (d <= kNarrowMaxD) {
       switch (d) {
-        case 1: launch_narrow<1, false>(yf, n_rows, lv, sf, of, st); break;
-        case 2: launch_narrow<2, false>(yf, n_rows, lv, sf, of, st); break;
-        case 3: launch_narrow<3, false>(yf, n_rows, lv, sf, of, st); break;
+        case 1: launch_narrow<1, false>(yf, n_rows, lv, sf, of, st, k); break;
+        case 2: launch_narrow<2, false>(yf, n_rows, lv, sf, of, st, k); break;
+        case 3: launch_narrow<3, false>(yf, n_rows, lv, sf, of, st, k); break;
         default:
           if (vec4)
-            launch_narrow<4, true>(yf, n_rows, lv, sf, of, st);
+            launch_narrow<4, true>(yf, n_rows, lv, sf, of, st, k);
           else
-            launch_narrow<4, false>(yf, n_rows, lv, sf, of, st);
+            launch_narrow<4, false>(yf, n_rows, lv, sf, of, st, k);
       }
     } else {
       const int vec = vec4 ? 4 : 1;
@@ -608,14 +615,16 @@ extern "C" int segment_sum_launch(const void* y, int d, int n_rows,
       int lanes = 1;
       while (lanes < 32 && lanes < cols) lanes *= 2;
       if (vec4)
-        wide<4>(lanes, yf, d, n_rows, lv, sf, of, st);
+        wide<4>(lanes, yf, d, n_rows, lv, sf, of, st, k);
       else
-        wide<1>(lanes, yf, d, n_rows, lv, sf, of, st);
+        wide<1>(lanes, yf, d, n_rows, lv, sf, of, st, k);
     }
-    if (n_long > 0)
+    if (n_long > 0) {
       seg_combine_kernel<<<n_long, kThreads, 0, st>>>(
           sf, d, static_cast<const int*>(long_rows),
           static_cast<const int*>(long_part), of);
+      ++*k;
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

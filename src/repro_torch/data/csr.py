@@ -245,17 +245,20 @@ def segment_plan(row_start, row_end, device="cpu") -> SegmentPlan:
     starts at the first chunk at or past its cost, so it holds at most
     ``SEG_TILE + 1`` rows and its chunks' slots lie within ``SEG_TILE + 2 *
     SEG_CHUNK`` of its first slot (the kernel stages that much). A few
-    int32 passes over the rows: the sampled path builds one a block."""
+    int32 passes over the rows, in place where they can be (the sampled
+    path builds one for each grouping of a batch, in the sampler thread)."""
     rs = np.asarray(row_start).astype(np.int32, copy=False)
     re = np.asarray(row_end).astype(np.int32, copy=False)
     n_out = int(rs.shape[0])
-    deg = re - rs
-    if n_out and (deg.min() < 0 or (rs[1:] < re[:-1]).any()):
+    n_ch = re - rs
+    if n_out and (n_ch.min() < 0 or (rs[1:] < re[:-1]).any()):
         raise ValueError("segment runs must lie in slot order and not "
                          "overlap")
-    n_ch = (deg + (SEG_CHUNK - 1)) >> _CHUNK_SHIFT
-    item_ptr = np.zeros(n_out + 1, np.int32)
-    np.cumsum(n_ch, out=item_ptr[1:])
+    n_ch += SEG_CHUNK - 1
+    n_ch >>= _CHUNK_SHIFT
+    item_ptr = torch.zeros(n_out + 1, dtype=torch.int32)
+    torch.cumsum(torch.from_numpy(n_ch), 0, out=item_ptr[1:])
+    ip = item_ptr.numpy()
     end = int(re[-1]) if n_out else 0
     n_tiles = -(-(n_out + end) // SEG_TILE) if n_out else 0
     cost = rs + np.arange(n_out, dtype=np.int32)
@@ -263,7 +266,7 @@ def segment_plan(row_start, row_end, device="cpu") -> SegmentPlan:
     r = np.maximum(np.searchsorted(cost, target, side="right") - 1, 0)
     k = np.clip(-((cost[r] - target) // SEG_CHUNK), 0, n_ch[r])
     tiles = np.stack([
-        np.append(item_ptr[r] + k, item_ptr[-1]),
+        np.append(ip[r] + k, ip[-1]),
         np.append(r, n_out),
         np.append(np.minimum(rs[r] + k * SEG_CHUNK, re[r]), end)])
     long_rows = np.flatnonzero(n_ch > 1)
@@ -274,8 +277,9 @@ def segment_plan(row_start, row_end, device="cpu") -> SegmentPlan:
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
             device, non_blocking=True)
 
-    return SegmentPlan(t(item_ptr), t(tiles), t(long_rows), t(long_part),
-                       n_tiles, int(long_part[-1]))
+    return SegmentPlan(item_ptr.to(device, non_blocking=True), t(tiles),
+                       t(long_rows), t(long_part), n_tiles,
+                       int(long_part[-1]))
 
 
 def segment_runs(perm, row_start, row_end, n_out: int, n_rows: int,

@@ -23,7 +23,9 @@ its main path went through the kernels (``chip_smoke.py`` resets the counts
 before the path and reads them after). A count is one call of the wrapper's C
 entry point (``segment_sum`` calls ``segment_sum.cu``'s once per level of
 its grouping, which starts one CUDA kernel, or two where the level has a run
-longer than a chunk: the chunks, then their fixed-order sum);
+longer than a chunk: the chunks, then their fixed-order sum; the entry point
+counts the CUDA kernels it starts, one at each launch, and the wrapper adds
+them to ``CUDA_KERNEL_COUNTS``);
 ``dequant_matmul`` (partial tiles, then their fixed-order sum) starts two
 CUDA kernels per count; ``topk_score`` and ``coarse_topm`` two at
 k <= 128 (the scan, then the row merge; one where each query tile is one
@@ -50,7 +52,7 @@ import torch
 __all__ = ["DeviceInfo", "probe", "resolve_device", "require_sm90",
            "full_fp32", "build", "build_log",
            "lib_path", "kernel_fn", "launch", "stream_of", "check_cuda",
-           "LAUNCH_COUNTS",
+           "LAUNCH_COUNTS", "CUDA_KERNEL_COUNTS",
            "count_launch", "reset_counts", "SOURCES", "CSRC", "BUILD_DIR",
            "NVCC_FLAGS"]
 
@@ -62,20 +64,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
+CUDA_KERNEL_COUNTS: collections.Counter = collections.Counter()
 _COUNT_LOCK = threading.Lock()
 _BUILD_LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[tuple[str, str], object] = {}
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, kernels: int | None = None) -> None:
+    """One launch of ``name``'s kernel; ``kernels``, where the C entry point
+    reports how many CUDA kernels it started, adds to
+    ``CUDA_KERNEL_COUNTS``."""
     with _COUNT_LOCK:
         LAUNCH_COUNTS[name] += 1
+        if kernels is not None:
+            CUDA_KERNEL_COUNTS[name] += kernels
 
 
 def reset_counts() -> None:
     with _COUNT_LOCK:
         LAUNCH_COUNTS.clear()
+        CUDA_KERNEL_COUNTS.clear()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -55,7 +55,7 @@ _ARGTYPES = (_P, _I, _P, _P, _P, _P, _P, _I, _P, _P)
 _SDDMM_ARGTYPES = (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P)
 _DQ_SDDMM_ARGTYPES = (_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P)
 _SEG_ARGTYPES = (_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P,
-                 _P)
+                 _P, _P)
 
 
 def spmm_plain(x: torch.Tensor, ew: torch.Tensor | None, layout, *,
@@ -137,7 +137,9 @@ def segment_sum_plain(y: torch.Tensor, levels: tuple) -> torch.Tensor:
 def segment_sum_cuda(y: torch.Tensor, levels: tuple) -> torch.Tensor:
     """Launch ``csrc/segment_sum.cu`` once per level over the level's plan
     (two CUDA kernels where the level has a run longer than a chunk: the
-    chunks, then their fixed-order sum); shapes as ``segment_sum_plain``."""
+    chunks, then their fixed-order sum; the entry point reports how many it
+    started, added to ``backend.CUDA_KERNEL_COUNTS``); shapes as
+    ``segment_sum_plain``."""
     backend.require_sm90(y.device)
     fn = backend.kernel_fn("segment_sum", "segment_sum_launch", _SEG_ARGTYPES)
     shape = y.shape[1:]
@@ -162,6 +164,7 @@ def segment_sum_cuda(y: torch.Tensor, levels: tuple) -> torch.Tensor:
                           device=y.device)
         scratch = torch.empty((plan.n_parts, d), dtype=torch.float32,
                               device=y.device)
+        started = ctypes.c_int(0)
         with torch.cuda.device(y.device):
             backend.launch(fn, y.data_ptr(), d, y.shape[0],
                            runs.perm.data_ptr(), runs.row_start.data_ptr(),
@@ -170,8 +173,9 @@ def segment_sum_cuda(y: torch.Tensor, levels: tuple) -> torch.Tensor:
                            plan.n_tiles, plan.long_rows.data_ptr(),
                            plan.long_part.data_ptr(),
                            plan.long_rows.shape[0], scratch.data_ptr(),
-                           out.data_ptr(), backend.stream_of(y))
-        backend.count_launch("segment_sum")
+                           out.data_ptr(), backend.stream_of(y),
+                           ctypes.byref(started))
+        backend.count_launch("segment_sum", kernels=started.value)
         y = out
     return y.reshape((y.shape[0],) + shape)
 

@@ -101,11 +101,11 @@ def _measured(train_step, dev: torch.device, step_writer=None):
     ``step_writer``, the first step's activation-bytes report is published
     (``act/*`` gauges) and its total stamped onto every step line."""
 
-    def run(state, batch, i, **kw):
+    def run(state, batch, i):
         before = dict(LAUNCH_COUNTS)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        state, metrics = train_step(state, batch, i, **kw)
+        state, metrics = train_step(state, batch, i)
         metrics["launches"] = {k: v - before.get(k, 0)
                                for k, v in LAUNCH_COUNTS.items()
                                if v - before.get(k, 0)}
@@ -118,6 +118,22 @@ def _measured(train_step, dev: torch.device, step_writer=None):
             step_writer.extras["act_total_bytes"] = \
                 metrics["act"]["total_bytes"]
         return state, metrics
+
+    return run
+
+
+def _failing_once(train_step, at: int):
+    """``train_step`` (``data_parallel.make_dp_step``'s) handed an injected
+    failure at step ``at``, once: the step carries it to the ranks'
+    agreement point, so this rank still takes part in every collective."""
+    fired = []
+
+    def run(state, batch, i):
+        fail = None
+        if i == at and not fired:
+            fired.append(i)
+            fail = RuntimeError(f"injected failure at step {i}")
+        return train_step(state, batch, i, fail=fail)
 
     return run
 
@@ -497,6 +513,8 @@ def train_rank(rt, job: dict, cache: dict | None = None) -> dict:
         step, part, mesh, opt, schedule=job["schedule"], root_seed=ROOT_SEED,
         mesh_spec=mesh.spec, compress_grads=job["allreduce"] == "int8",
         view=view)
+    if job["fail_at"] is not None and rt.rank == job["fail_at"][0]:
+        train_step = _failing_once(train_step, job["fail_at"][1])
     step_writer = (StepLogWriter(os.path.join(job["metrics_out"],
                                               "steps.jsonl"))
                    if rt.is_root and job["metrics_out"] else None)
@@ -507,22 +525,12 @@ def train_rank(rt, job: dict, cache: dict | None = None) -> dict:
         TrainerConfig(total_steps=job["steps"], log_every=job["log_every"],
                       ckpt_every=job["ckpt_every"]),
         log_fn=trainer_log, ckpt_meta=meta, step_writer=step_writer,
-        items_per_step=len(ds.src), agree_failures=True)
+        items_per_step=len(ds.src))
     trainer.ckpt = RankCheckpoints(
         ckpt_dir[0], is_root=rt.is_root, to_logical=to_logical,
         to_local=to_local, logical_template=to_logical(state), mesh=mesh,
         meta=meta)
     trainer.restore_if_available()
-    if job["fail_at"] is not None and rt.rank == job["fail_at"][0]:
-        fired = []
-
-        def inject(i):
-            if i == job["fail_at"][1] and not fired:
-                fired.append(i)
-                return True
-            return False
-
-        trainer.failure_injector = inject
     reset_counts()
     try:
         params_out, _ = trainer.run()

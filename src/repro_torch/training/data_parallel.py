@@ -41,13 +41,19 @@ but every estimator stays unbiased.
 
 Failures (``make_dp_step``): every rank reaches one agreement point a step,
 after the loss and the gradient all-reduce and before Adam (which updates
-in place). A rank whose own code raised up to there, or whose trainer
-hands it an injected failure, sets its flag; the flags are all-reduced by
+in place). A rank whose own code raised up to there, or whose step was
+handed an injected failure (``train_step(..., fail=err)``), sets its flag; the flags are all-reduced by
 max, and if any is set every rank raises the same ``StepFailed``, naming
 the rank, with its state untouched. The trainers then roll back together
-(``training.checkpoint.RankCheckpoints`` agrees on the step). A rank that
-dies inside a collective, or raises between two of the step's
-collectives, leaves the others waiting in that collective until gloo's
+(``training.checkpoint.RankCheckpoints`` agrees on the step). This holds
+for an injected failure, which the step carries through all its
+collectives, and for a rank's own exception raised before the step's first
+collective. It does not hold for an exception raised after that: the
+failing rank then calls the flags' all-reduce while the others are in one
+of the step's own collectives, and since every collective takes the one
+``allreduce`` route the two calls may pair, so what follows is undefined
+(an error, a mismatched buffer, or a wait until gloo's timeout). A rank
+that dies inside a collective leaves the others waiting in it until gloo's
 timeout.
 
 The per-site policies and seeds resolve through the ambient
@@ -416,9 +422,9 @@ def make_dp_step(step: ModelStep | ShardSpec, part: EdgePartition,
 
     The sharded loss and backward, the gradient all-reduce, the ranks'
     agreement on failures (``agree_on_failure``: an exception this rank's
-    step raised, or ``fail``, the trainer's injected failure, which the
-    step runs through like any other so that every rank's collectives
-    match), then Adam on
+    step raised, or ``fail``, an injected failure, which the step runs
+    through like any other so that every rank's collectives match), then
+    Adam on
     this rank's state (replicated parameters update identically on every
     rank; a row-sharded table updates block by block, and its padded rows
     stay zero). ``mesh_spec`` (a ``MeshSpec`` or its string) is validated
@@ -480,7 +486,8 @@ def make_dp_step(step: ModelStep | ShardSpec, part: EdgePartition,
                 model_axis=model_axis, schedule=schedule,
                 root_seed=root_seed, step_idx=step_idx,
                 compress_grads=compress_grads)
-        except Exception as e:  # noqa: BLE001 (agreed on by every rank)
+        except Exception as e:  # noqa: BLE001 (recoverable only before
+            # the step's first collective: see the module's note)
             err = e
         agree_on_failure(err, mesh, step_idx)
         params, opt_state = opt.update(param_leaves(grads), opt_state,

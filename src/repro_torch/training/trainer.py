@@ -125,20 +125,14 @@ class Trainer:
     state); ``ckpt_meta`` (``training.step.step_metadata``) rides in every
     checkpoint manifest and is enforced on restore. ``failure_injector``
     (``fn(step) -> bool``) raises an injected failure before a step, for
-    tests. With ``agree_failures`` (a multi-rank step that agrees on
-    failures across the ranks, ``data_parallel.make_dp_step``) the injected
-    failure is handed to the step as ``train_step(..., fail=err)`` instead:
-    raised here on one rank alone, it would leave the others waiting in the
-    step's collectives.
+    tests.
     """
 
     def __init__(self, train_step: Callable, state, data_iter: Iterator,
                  cfg: TrainerConfig, *, log_fn: Callable | None = None,
                  ckpt_meta: dict | None = None, step_writer=None,
-                 items_per_step: int | None = None,
-                 agree_failures: bool = False):
+                 items_per_step: int | None = None):
         self.train_step = train_step
-        self.agree_failures = agree_failures
         self.state = state
         self.cfg = cfg
         self.data_iter = data_iter
@@ -198,18 +192,14 @@ class Trainer:
                 with step_span("train/step", self.step):
                     with span("train/step/data"):
                         batch = data.next()
-                    fail = None
                     if self.failure_injector is not None and \
                             self.failure_injector(self.step):
-                        fail = RuntimeError(
+                        raise RuntimeError(
                             f"injected failure at step {self.step}")
-                        if not self.agree_failures:
-                            raise fail
-                    kw = {"fail": fail} if self.agree_failures else {}
                     t0 = time.perf_counter()
                     with span("train/step/update"):
                         self.state, metrics = self.train_step(
-                            self.state, batch, self.step, **kw)
+                            self.state, batch, self.step)
                         record = {k: _scalar(v) for k, v in metrics.items()}
                     dt = time.perf_counter() - t0
                 self._step_ema = dt if self._step_ema is None else \

@@ -293,34 +293,14 @@ def _chunk_groupings(cuda):
             "rel": relation_runs(rel, 12, chunk=16, device=cuda)}
 
 
-def _seg_kernels_per_call(fn) -> int:
-    """The CUDA kernels one call launches, as torch.profiler sees them: the
-    most of three profiled calls (the profiler can lose an event, never
-    add one)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    seen = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        seen.append(sum(1 for e in prof.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and "seg_" in e.name))
-    return max(seen)
-
-
 @pytest.mark.parametrize("kind", ["chunks", "dst", "src", "rel"])
 @pytest.mark.parametrize("d", [1, 4, 64, 65])
 def test_segment_sum_kernel_is_chunk_contract(cuda, kind, d):
     """The kernel equals, bit for bit, the numpy model of its chunk-order
     contract (d 65: unaligned, scalar columns); the same bits twice; one
-    launch count a level. The CUDA kernels a level starts (one, two where
-    the level has a run longer than a chunk: the plan's count) bound what
-    torch.profiler sees, which can lose a kernel's event (all of a call's,
-    at times) but never add one."""
+    launch count a level, and the CUDA kernels each level started, as the
+    entry point counts them at launch: one, two where the level has a run
+    longer than a chunk."""
     levels = _chunk_groupings(cuda)[kind]
     if kind == "chunks":
         deg = (levels[0].row_end - levels[0].row_start).cpu()
@@ -331,11 +311,16 @@ def test_segment_sum_kernel_is_chunk_contract(cuda, kind, d):
     backend.reset_counts()
     a = sp.segment_sum_cuda(y, levels)
     assert backend.LAUNCH_COUNTS["segment_sum"] == len(levels)
+    assert backend.CUDA_KERNEL_COUNTS["segment_sum"] == sum(
+        1 + (lv.plan.n_parts > 0) for lv in levels)
     assert torch.equal(a, sp.segment_sum_cuda(y, levels))
     np.testing.assert_array_equal(a.cpu().numpy(), _contract_sum(levels, y_np))
-    want = sum(1 + (lv.plan.n_parts > 0) for lv in levels)
-    assert _seg_kernels_per_call(
-        lambda: sp.segment_sum_cuda(y, levels)) <= want
+    x = y
+    for lv in levels:
+        backend.reset_counts()
+        x = sp.segment_sum_cuda(x, (lv,))
+        assert backend.CUDA_KERNEL_COUNTS["segment_sum"] == \
+            1 + (lv.plan.n_parts > 0)
 
 
 @pytest.mark.parametrize("d", [1, 4, 64])

@@ -306,3 +306,24 @@ def test_train_kgnn_dp_always_checkpoints(monkeypatch, tmp_path):
     assert seen["dir"] == str(tmp_path) and os.path.isdir(tmp_path)
     with pytest.raises(ValueError, match="checkpoint directory"):
         train_rank(None, dp_job(None, None, None, 2))
+
+
+def test_failing_once_hands_one_failure_to_the_step():
+    """``dp_job(fail_at=...)``'s rank wraps its step so that the injected
+    failure reaches the step itself (which carries it to the ranks'
+    agreement point) at that step once, and ``None`` at every other call,
+    the replay of the failed step included."""
+    from repro_torch.launch.train import _failing_once
+
+    calls = []
+
+    def step(state, batch, i, fail=None):
+        calls.append((i, None if fail is None else str(fail)))
+        return state, {}
+
+    run = _failing_once(step, 3)
+    for i in (0, 1, 2, 3, 3, 4):
+        run(None, None, i)
+    assert calls == [(0, None), (1, None), (2, None),
+                     (3, "injected failure at step 3"), (3, None), (4, None)]
+

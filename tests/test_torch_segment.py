@@ -299,3 +299,19 @@ def test_segment_plan_refuses_overlapping_runs():
         segment_plan(np.array([0, 3]), np.array([5, 6]))
     p = segment_plan(np.zeros(0, np.int64), np.zeros(0, np.int64))
     assert p.n_tiles == 0 and p.item_ptr.tolist() == [0]
+
+
+def test_cuda_kernel_counts_add_and_reset():
+    """A wrapper whose C entry point reports the CUDA kernels it started
+    adds them to ``CUDA_KERNEL_COUNTS`` beside its one launch count;
+    ``reset_counts`` clears both."""
+    from repro_torch.kernels import backend
+
+    backend.reset_counts()
+    backend.count_launch("segment_sum", kernels=2)
+    backend.count_launch("segment_sum", kernels=1)
+    backend.count_launch("spmm")
+    assert backend.LAUNCH_COUNTS == {"segment_sum": 2, "spmm": 1}
+    assert backend.CUDA_KERNEL_COUNTS == {"segment_sum": 3}
+    backend.reset_counts()
+    assert not backend.LAUNCH_COUNTS and not backend.CUDA_KERNEL_COUNTS
