@@ -109,7 +109,7 @@ their plain versions.
    two-stage responses for 256 of the burst's users on both shard tables
    with the re-rank's fused row gather against the select-then-unpack
    route, bit-identical, beside the recall ratio and the refresh check.
-8. Drives the training path at full width through ``train_kgnn``: the same
+8. Drives the training path at full width through ``train_model``: the same
    config and graph, BPR batch 1024, Adam, seed-0 parameters, a few steps
    each under FP32, INT8, INT4 and INT2 (stochastic rounding). Launch
    counts are reset just before and read just after each schedule's run;
@@ -228,10 +228,42 @@ their plain versions.
     INT2 step on every rank (rank 0's wall, device busy time, idle share,
     kernels and the host time in the collectives printed; fails on an
     index_add_ scatter kernel).
-14. Prints the kernels JSON line (launches per path: serve, serve_tier2,
+14. The GCN (gcn-cora, ``build_step("gcn-cora", shape=...)`` through
+    ``launch.train.train_model``; Adam 1e-2, seed-0 parameters, root seed
+    1). The ogbn-products-sized graph and its layout and the Reddit-sized
+    graph and its CSR are made on the host beside the build
+    ([data-gcn]); each ``cora_like`` with the ``avg_deg`` nearest the
+    shape's edge count (no edge cut). [gcn]: ``full_graph_sm`` (2,708
+    nodes, d 1,433 -> 16 -> 7) and [gcn-products]: ``ogb_products``
+    (2,449,029 nodes, d 100 -> 16 -> 47): each kernel at the step's
+    shapes against its plain version (quant_pack codes bit-identical, the
+    SPMM both directions and the dequant-matmul within 1e-5 relative, all
+    bit-identical twice, timed), FP32 and INT2 runs of 8 and 3 steps
+    (counts reset just before and read just after each; losses finite and
+    falling; exactly ``path_kernels("gcn", ...)`` launched, the same every
+    step; median step, the run's wall time a step, peak memory, ACT bytes
+    against FP32), two steps from one state bit-identical, and one
+    step's gradients against the plain versions' step (FP32 within 1e-5
+    of max |grad|, INT2 within 1e-2 of the SR noise, as in 10).
+    [gcn-sampled]: ``minibatch_lg`` (232,965 nodes, the reference's
+    sharded cell's d 602 and 41 classes, batch 1,024, fanouts 15,10):
+    the first batch's host time and blocks, the SPMM (d 602), quant-pack
+    and dequant-matmul on its outermost block and the SPMM both ways on
+    the inner one against their plain versions, FP32 and INT2 4 steps (as
+    above, the loss not required to fall; the sampler's host time a batch
+    printed), two steps on one batch bit-identical. [gcn-molecule]: 128
+    graphs of 30 nodes and 64 edges plus self loops (d 32, 2 classes):
+    the readout's segment sum against its plain version, one INT2 forward
+    and backward timed, then profiled with the counts reset just before
+    and read just after: the path's kernels and the segment sum launched,
+    no index_add_ kernel.
+15. Prints the kernels JSON line (launches per path: serve, serve_tier2,
     train_<schedule>, train_<model>_<schedule>, train_sampled_<model>_
-    <schedule>, train_dp_<mesh>_<schedule>_<all-reduce>), the card's line,
-    then last the ok line.
+    <schedule>, train_dp_<mesh>_<schedule>_<all-reduce>, train_gcn_
+    <schedule>, train_gcn_products_<schedule>, train_gcn_sampled_
+    <schedule>, train_gcn_molecule; ``gcn_shape``: each kernel's checks
+    and times at the GCN shapes), the card's line, then last the ok
+    line.
 
 Exits non-zero, printing no result, without CUDA, outside a checkout of the
 repository, or when any check fails.
@@ -278,6 +310,9 @@ SAMPLED_RUNS = (("kgat", "fp32", 8, 0.1), ("kgat", "int2", 8, 0.1),
                 ("kgcn", "int2", 4, 0.1), ("kgin", "int2", 4, 0.1),
                 ("rgcn", "int2", 4, 0.1), ("kgat", "int2", 4, 0.0))
 GRAD_FP64_RATIO = 4.0
+# the GCN (gcn-cora) on its four shapes: (tag, shape, steps per schedule)
+GCN_FULL = (("gcn", "full_graph_sm", 8), ("gcn-products", "ogb_products", 3))
+GCN_SAMPLED_STEPS = 4
 # several ranks sharing the one card (training.data_parallel, gloo)
 DP_MESHES = ("data=2", "data=2,model=2")
 DP_RUNS = (("fp32", "int8"), ("int2", "int8"), ("fp32", "fp32"))
@@ -396,16 +431,22 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def _spmm_library(torch, g, ew, transpose):
-    """cuSPARSE's operand: the graph's coalesced CSR (A, or Aᵀ for the
-    transpose direction) with the edge weights as values."""
-    m = g.layout.meta
-    src, dst = g.src.long(), g.dst.long()
+def _spmm_library(torch, layout, ew, transpose):
+    """cuSPARSE's operand: the layout's edges as a coalesced CSR (A, or Aᵀ
+    for the transpose direction) with the edge weights (ones where ``ew``
+    is None) as values."""
+    m = layout.meta
+    perm = layout.perm_blk.reshape(-1)
+    real = perm < m.n_edges
+    src = layout.src_blk.reshape(-1)[real].long()
+    dst = layout.dstg_blk.reshape(-1)[real].long()
+    val = (torch.ones(src.shape[0], device=src.device) if ew is None
+           else ew[perm[real].long()])
     idx, shape = ((torch.stack([src, dst]), (m.n_src, m.n_dst)) if transpose
                   else (torch.stack([dst, src]), (m.n_dst, m.n_src)))
     with warnings.catch_warnings():      # CSR support is marked beta
         warnings.simplefilter("ignore", UserWarning)
-        return torch.sparse_coo_tensor(idx, ew, shape).coalesce() \
+        return torch.sparse_coo_tensor(idx, val, shape).coalesce() \
             .to_sparse_csr()
 
 
@@ -436,7 +477,7 @@ def check_spmm(torch, sp, g, x, gen):
             f"runs {'bit-identical' if same else 'DIFFER'}")
         check(rel <= TOL, f"spmm {label} rel error {rel} > {TOL}")
         check(same, f"spmm {label} is not deterministic across runs")
-        a = _spmm_library(torch, g, ew, tr)
+        a = _spmm_library(torch, g.layout, ew, tr)
         lib_err = _rel(torch.sparse.mm(a, xin), ref)
         check(lib_err <= TOL, f"library sparse.mm disagrees ({lib_err})")
         ms = time_ms(lambda: sp.spmm_cuda(xin, ew, g.layout, transpose=tr),
@@ -1599,64 +1640,89 @@ def check_rerank(torch, ds, res, recall_ratio):
 # -- the training path -------------------------------------------------------
 
 
-def train_quietly(train_kgnn, name, *args, **kw):
-    """``train_kgnn`` with its trainer's lines kept, not printed; fails if
-    a step failed (a rollback would hide it)."""
+def train_quietly(train, name, *args, **kw):
+    """``train`` (``train_kgnn`` or ``train_model``) with its trainer's
+    lines kept, not printed; fails if a step failed (a rollback would hide
+    it)."""
     lines = []
-    res = train_kgnn(*args, log=lines.append, **kw)
+    res = train(*args, log=lines.append, **kw)
     failed = [x for x in lines if "failed" in x]
     check(not failed, f"{name}: a training step failed: {failed}")
     return res
 
 
-def run_training(torch, cfg, ds, g):
-    """Train at full width under each schedule from the same seed-0
-    parameters; the launch counts of each run are its own."""
+def train_run(torch, tag, name, step, label, steps, *, exact=False,
+              falls=False):
+    """``train_model`` on ``step`` under schedule ``label`` for ``steps``
+    steps from its seed-0 parameters, the launch counts reset just before
+    and read just after: losses finite (and falling, ``falls``), every
+    kernel of the model's path launched (``exact``: those and no other),
+    the same launches every step. Prints and returns the median step, the
+    peak allocated memory, the ACT residual bytes (and their FP32 price)
+    and the launches."""
     from repro_torch.core.policy import parse_schedule
     from repro_torch.kernels import backend
-    from repro_torch.launch.train import train_kgnn
-    from repro_torch.models import kgnn
+    from repro_torch.launch.train import train_model
     from repro_torch.models.registry import path_kernels
 
-    runs = {}
-    for label in SCHEDULES:
-        params = kgnn.init_params(cfg, seed=0, device=DEV)
-        torch.cuda.synchronize()
-        backend.reset_counts()
-        res = train_quietly(train_kgnn, label, cfg, ds, params,
-                            parse_schedule(label), TRAIN_STEPS,
-                            batch=TRAIN_BATCH, device=DEV, graph=g)
-        counts = dict(backend.LAUNCH_COUNTS)
-        steps = res["steps"]
-        del res, params
-        losses = [r["loss"] for r in steps]
-        act = steps[0]["act"]
-        per_step = steps[-1]["launches"]
-        runs[label] = dict(
-            counts=counts, losses=losses, per_step=per_step,
-            step_ms=statistics.median(r["seconds"] for r in steps) * 1e3,
-            first_ms=steps[0]["seconds"] * 1e3,
-            peak=max(r["max_memory_allocated"] for r in steps),
-            act_bytes=act["total_bytes"], act_fp32=act["total_fp32_bytes"])
-        r = runs[label]
-        log(f"[train] {label}: losses {[f'{v:.6f}' for v in losses]}")
-        log(f"[train] {label}: step {r['step_ms']:.2f} ms median of "
-            f"{len(steps)} (first {r['first_ms']:.2f} ms), "
-            f"max_memory_allocated {r['peak']} B ({r['peak'] / 2**30:.2f} "
-            f"GiB), ACT residual bytes {r['act_bytes']} "
-            f"({r['act_bytes'] / 1e6:.1f} MB; FP32 {r['act_fp32'] / 1e6:.1f} "
-            f"MB, {r['act_fp32'] / r['act_bytes']:.2f}x)")
-        log(f"[train] {label}: launches per step "
-            f"{json.dumps(per_step, sort_keys=True)}; run total "
-            f"{json.dumps(counts, sort_keys=True)}")
-        check(all(math.isfinite(v) for v in losses),
-              f"{label}: non-finite loss")
-        for name in path_kernels("kgat", label != "fp32"):
-            check(counts.get(name, 0) > 0,
-                  f"kernel {name} never launched on the {label} training "
-                  f"path")
-        check(all(s_["launches"] == per_step for s_ in steps),
-              f"{label}: launches differ between steps")
+    params = step.init(0)
+    torch.cuda.synchronize()
+    backend.reset_counts()
+    t0 = time.perf_counter()
+    res = train_quietly(train_model, f"{tag} {name}", step, params,
+                        parse_schedule(label), steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(backend.LAUNCH_COUNTS)
+    hist = res["steps"]
+    del res, params
+    losses = [r["loss"] for r in hist]
+    act = hist[0]["act"]
+    per_step = hist[-1]["launches"]
+    r = dict(counts=counts, losses=losses, per_step=per_step,
+             step_ms=statistics.median(x["seconds"] for x in hist) * 1e3,
+             first_ms=hist[0]["seconds"] * 1e3, run_ms=wall * 1e3 / len(hist),
+             peak=max(x["max_memory_allocated"] or 0 for x in hist),
+             act_bytes=act["total_bytes"], act_fp32=act["total_fp32_bytes"])
+    log(f"[{tag}] {name}: losses {[f'{v:.6f}' for v in losses]}")
+    log(f"[{tag}] {name}: step {r['step_ms']:.2f} ms median of {len(hist)} "
+        f"(first {r['first_ms']:.2f} ms; the run's wall time a step, data "
+        f"waits and set-up included, {r['run_ms']:.2f} ms), "
+        f"max_memory_allocated {r['peak']} B ({r['peak'] / 2**20:.1f} MiB), "
+        f"ACT residual bytes {r['act_bytes']} ({r['act_bytes'] / 1e6:.1f} "
+        f"MB; FP32-priced {r['act_fp32'] / 1e6:.1f} MB, "
+        f"{r['act_fp32'] / r['act_bytes']:.2f}x)")
+    log(f"[{tag}] {name}: launches per step "
+        f"{json.dumps(per_step, sort_keys=True)}; run total "
+        f"{json.dumps(counts, sort_keys=True)}")
+    check(all(math.isfinite(v) for v in losses),
+          f"[{tag}] {name}: non-finite loss")
+    check(not falls or losses[-1] < losses[0],
+          f"[{tag}] {name}: the loss did not fall: {losses}")
+    model = "gcn" if step.family == "gnn" else step.cfg.model
+    want = set(path_kernels(model, label != "fp32"))
+    check(set(per_step) == want if exact else want <= set(counts),
+          f"[{tag}] {name}: launched {sorted(counts)}, the path has "
+          f"{sorted(want)}")
+    check(all(x["launches"] == per_step for x in hist),
+          f"[{tag}] {name}: launches differ between steps")
+    return r
+
+
+def _kg_step(cfg, ds, g):
+    """The full-width BPR step of KG ``cfg.model`` on the built CKG ``g``."""
+    from repro_torch.models.registry import arch_of, build_step
+
+    return build_step(arch_of(cfg.model), ds=ds, cfg=cfg,
+                      batch_size=TRAIN_BATCH, device=DEV, graph=g)
+
+
+def run_training(torch, cfg, ds, g):
+    """Train KGAT at full width under each schedule (``train_run``); exact
+    ACT bytes: 5 sites a layer, each one (nodes, d) residual."""
+    step = _kg_step(cfg, ds, g)
+    runs = {label: train_run(torch, "train", label, step, label, TRAIN_STEPS)
+            for label in SCHEDULES}
     n_sites = 5 * cfg.n_layers
     want = n_sites * cfg.n_nodes * cfg.dim * 4
     check(all(r["act_fp32"] == want for r in runs.values())
@@ -1736,104 +1802,70 @@ def _clone_state(torch, state):
     return c(state)
 
 
-def check_determinism(torch, cases, ds, g):
-    """Two full-width steps from one state (parameters and Adam moments
-    after a first step) on one batch, for each ``(cfg, schedule label)`` of
-    ``cases``, without ``torch.use_deterministic_algorithms``: the loss,
-    every parameter and every moment bit-identical."""
+def check_two_steps(torch, tag, name, step, label):
+    """Two steps of ``step`` under schedule ``label`` from one state
+    (parameters and Adam moments after a first step) on one batch, without
+    ``torch.use_deterministic_algorithms``: the loss, every parameter and
+    every moment bit-identical."""
     from repro_torch.core.policy import parse_schedule
     from repro_torch.launch.train import ROOT_SEED
     from repro_torch.models.layers import param_leaves
-    from repro_torch.models.registry import arch_of, build_step
     from repro_torch.training.optimizer import adam
     from repro_torch.training.step import make_train_step
 
     check(not torch.are_deterministic_algorithms_enabled(),
           "deterministic algorithms are on")
+    opt = adam(step.lr)
+    batches = step.batches()
+    train = make_train_step(step, opt, schedule=parse_schedule(label),
+                            root_seed=ROOT_SEED)
+    params = step.init(0)
+    state, _ = train((params, opt.init(params)), next(batches), 0)
+    batch = next(batches)
+    (p1, o1), m1 = train(_clone_state(torch, state), batch, 1)
+    (p2, o2), m2 = train(_clone_state(torch, state), batch, 1)
+    leaves = list(zip(param_leaves(p1) + o1["mu"] + o1["nu"],
+                      param_leaves(p2) + o2["mu"] + o2["nu"]))
+    n_same = sum(bool(torch.equal(a, b)) for a, b in leaves)
+    same_loss = bool(torch.equal(m1["loss"], m2["loss"]))
+    worst = max(float((a - b).abs().max()) for a, b in leaves)
+    log(f"[{tag}] {name}: two steps from one state: loss "
+        f"{float(m1['loss']):.9f} / {float(m2['loss']):.9f} "
+        f"({'bit-identical' if same_loss else 'DIFFER'}), {n_same} of "
+        f"{len(leaves)} parameter and moment tensors bit-identical (max "
+        f"|diff| {worst:.3e})")
+    check(same_loss and n_same == len(leaves),
+          f"[{tag}] {name}: two steps from one state differ")
+
+
+def check_determinism(torch, cases, ds, g):
+    """``check_two_steps`` at full width for each ``(cfg, schedule label)``
+    of ``cases``."""
     for cfg, label in cases:
-        step = build_step(arch_of(cfg.model), ds=ds, cfg=cfg,
-                          batch_size=TRAIN_BATCH, device=DEV, graph=g)
-        opt = adam(step.lr)
-        batches = step.batches()
-        train = make_train_step(step, opt, schedule=parse_schedule(label),
-                                root_seed=ROOT_SEED)
-        params = step.init(0)
-        state, _ = train((params, opt.init(params)), next(batches), 0)
-        batch = next(batches)
-        (p1, o1), m1 = train(_clone_state(torch, state), batch, 1)
-        (p2, o2), m2 = train(_clone_state(torch, state), batch, 1)
-        leaves = list(zip(param_leaves(p1) + o1["mu"] + o1["nu"],
-                          param_leaves(p2) + o2["mu"] + o2["nu"]))
-        n_same = sum(bool(torch.equal(a, b)) for a, b in leaves)
-        same_loss = bool(torch.equal(m1["loss"], m2["loss"]))
-        worst = max(float((a - b).abs().max()) for a, b in leaves)
-        name = label if cfg.model == "kgat" else f"{cfg.model} {label}"
-        log(f"[determinism] {name}: two full-width steps from one state: "
-            f"loss {float(m1['loss']):.9f} / {float(m2['loss']):.9f} "
-            f"({'bit-identical' if same_loss else 'DIFFER'}), "
-            f"{n_same} of {len(leaves)} parameter and moment tensors "
-            f"bit-identical (max |diff| {worst:.3e})")
-        check(same_loss and n_same == len(leaves),
-              f"{name}: two steps from one state differ")
-        del state, p1, o1, p2, o2, leaves
+        check_two_steps(torch, "determinism", label if cfg.model == "kgat"
+                        else f"{cfg.model} {label}", _kg_step(cfg, ds, g),
+                        label)
 
 
 def run_training_kg(torch, ds, g):
     """KGCN, KGIN (the paper's configs) and R-GCN (KGAT's config, 4 bases,
     readout sum) at full width on the same graph, each under FP32 and
-    INT2 from seed-0 parameters; the launch counts of each run are its
-    own. Exact ACT bytes: every site of ``model_sites`` saves one (nodes,
-    d) residual a layer."""
-    from repro_torch.core.policy import parse_schedule
-    from repro_torch.kernels import backend
-    from repro_torch.launch.train import train_kgnn
+    INT2 (``train_run``). Exact ACT bytes: every site of ``model_sites``
+    saves one (nodes, d) residual a layer."""
     from repro_torch.models import kgnn
-    from repro_torch.models.registry import model_config, path_kernels
+    from repro_torch.models.registry import model_config
 
     runs = {}
     for model in KG_MODELS:
         cfg = model_config(model)
+        step = _kg_step(cfg, ds, g)
         n_sites = len(kgnn.model_sites(cfg)) * cfg.n_layers
         want = {"fp32": n_sites * cfg.n_nodes * cfg.dim * 4,
                 "int2": n_sites * cfg.n_nodes * (cfg.dim * 2 // 8 + 8)}
         for label in KG_SCHEDULES:
-            params = kgnn.init_params(cfg, seed=0, device=DEV)
-            torch.cuda.synchronize()
-            backend.reset_counts()
-            res = train_quietly(train_kgnn, f"{model} {label}", cfg, ds,
-                                params, parse_schedule(label), KG_STEPS,
-                                batch=TRAIN_BATCH, device=DEV, graph=g)
-            counts = dict(backend.LAUNCH_COUNTS)
-            steps = res["steps"]
-            del res, params
-            losses = [r["loss"] for r in steps]
-            act = steps[0]["act"]
-            per_step = steps[-1]["launches"]
-            r = runs[f"{model}_{label}"] = dict(
-                counts=counts, losses=losses, per_step=per_step,
-                step_ms=statistics.median(x["seconds"] for x in steps) * 1e3,
-                first_ms=steps[0]["seconds"] * 1e3,
-                peak=max(x["max_memory_allocated"] for x in steps),
-                act_bytes=act["total_bytes"], act_fp32=act["total_fp32_bytes"])
             name = f"{model} {label}"
-            log(f"[train-kg] {name}: losses "
-                f"{[f'{v:.6f}' for v in losses]}")
-            log(f"[train-kg] {name}: step {r['step_ms']:.2f} ms median of "
-                f"{len(steps)} (first {r['first_ms']:.2f} ms), "
-                f"max_memory_allocated {r['peak']} B "
-                f"({r['peak'] / 2**30:.2f} GiB), ACT residual bytes "
-                f"{r['act_bytes']} ({r['act_bytes'] / 1e6:.1f} MB; FP32 "
-                f"{r['act_fp32'] / 1e6:.1f} MB, "
-                f"{r['act_fp32'] / r['act_bytes']:.2f}x)")
-            log(f"[train-kg] {name}: launches per step "
-                f"{json.dumps(per_step, sort_keys=True)}")
-            check(all(math.isfinite(v) for v in losses),
-                  f"{name}: non-finite loss")
-            for k in path_kernels(model, label != "fp32"):
-                check(counts.get(k, 0) > 0,
-                      f"kernel {k} never launched on the {name} path")
-            check(all(x["launches"] == per_step for x in steps),
-                  f"{name}: launches differ between steps")
+            r = runs[f"{model}_{label}"] = train_run(
+                torch, "train-kg", name, step, label, KG_STEPS)
             check(r["act_fp32"] == want["fp32"] and r["act_bytes"]
                   == want[label], f"{name}: ACT bytes {r['act_bytes']} / "
                   f"{r['act_fp32']}, want {want[label]} / {want['fp32']} "
@@ -2334,16 +2366,115 @@ def check_shard_kernels(torch, sp, dq, qp, ds, gen):
     return check_block_kernels(torch, sp, dq, qp, blk, gen, "shard")
 
 
+def _rows_read(layout, transpose=False):
+    """The distinct table rows the layout's slots gather (pad slots
+    excluded): the rows an SPMM in that direction must read."""
+    dr = layout.direction(transpose)
+    real = dr.perm_blk.reshape(-1) < layout.meta.n_edges
+    return int(dr.gat_blk.reshape(-1)[real].unique().numel())
+
+
+def spmm_case(torch, sp, layout, xin, ew, transpose, where=""):
+    """The SPMM of ``xin`` over ``layout`` (weighted by ``ew``, or not) as a
+    ``run_case`` case, with ``torch.sparse.mm`` as its library call. Bytes:
+    the distinct rows the slots read, a source index (and a weight) a
+    slot, the row pointers, the output once; a multiply-add (an add
+    unweighted) a slot and column."""
+    m = layout.meta
+    n_out = m.n_src if transpose else m.n_dst
+    d = xin.shape[1]
+    a = _spmm_library(torch, layout, ew, transpose)
+    per_slot = 4 if ew is None else 8
+    return (f"{where}spmm d={d}{' transpose' if transpose else ''}"
+            f"{' unweighted' if ew is None else ''}", "spmm",
+            lambda: sp.spmm_cuda(xin, ew, layout, transpose=transpose),
+            lambda: sp.spmm_plain(xin, ew, layout, transpose=transpose),
+            lambda: torch.sparse.mm(a, xin),
+            _rows_read(layout, transpose) * d * 4 + m.n_edges * per_slot
+            + (n_out + 1) * 4 + n_out * d * 4,
+            (1 if ew is None else 2) * m.n_edges * d)
+
+
+def quant_case(qp, x, seed, where=""):
+    """INT2 SR quant-pack of ``x`` as a ``run_case`` case (no single
+    library call)."""
+    rows, d = x.shape
+    return (f"{where}quant_pack INT2 sr {rows}x{d}", "quant_pack",
+            lambda: qp.quant_pack_cuda(x, seed, bits=2, stochastic=True),
+            lambda: qp.quant_pack_plain(x, seed, bits=2, stochastic=True),
+            None, rows * d * 4 + rows * (-(-d // 4) + 8), 7 * rows * d)
+
+
+def dequant_matmul_case(torch, dq, q, g, where=""):
+    """``dequant(q)ᵀ @ g`` as a ``run_case`` case, with the dequantized
+    table's fp32 product as its library call."""
+    from repro_torch.core.quant import dequantize
+
+    rows, dim, n = q.rows, q.dim, g.shape[1]
+    return (f"{where}dequant_matmul INT{q.bits} R={rows} {dim}x{n}",
+            "dequant_matmul", lambda: dq.dequant_matmul_cuda(q, g),
+            lambda: dq.dequant_matmul_plain(q, g),
+            lambda: dequantize(q).T @ g,
+            rows * (q.packed.shape[1] + 8) + rows * n * 4 + dim * n * 4,
+            3 * 2 * rows * dim * n)
+
+
+def run_case(torch, tag, case, *, shape="", pick=None, iters=20):
+    """One kernel case ``(label, name, kernel, plain, library, bytes,
+    operations)``: the quant-pack's codes, scale and zero bit-identical to
+    its plain version, any other kernel within ``TOL`` relative of it and
+    the library call (``pick`` maps its result onto the kernel's) within
+    ``LIB_SUM_TOL``; the same bits twice; kernel, plain version and
+    library call timed (CUDA events) beside the bound. Returns the record
+    of the kernels line (``shape`` prefixes its label)."""
+    label, name, kernel, plain, library, n_bytes, n_ops = case
+    got, again, ref = kernel(), kernel(), plain()
+    if name == "quant_pack":
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = all(torch.equal(a, b) for a, b in zip(got, ref))
+        rel = err = 0.0 if ok else math.inf
+        what = (f"codes, scale and zero {'bit-identical' if ok else 'DIFFER'}"
+                f" to the plain version")
+    else:
+        same = bool(torch.equal(got, again))
+        rel, err = _rel(got, ref), float((got - ref).abs().max())
+        ok = rel <= TOL
+        what = f"rel {rel:.3e} (max abs {err:.3e})"
+    lib_rel = None
+    if library is not None:
+        lib_out = library()
+        lib_rel = _rel(lib_out if pick is None else pick(lib_out), ref)
+        what += f"; library rel {lib_rel:.3e}"
+        del lib_out
+    log(f"[{tag}] {label}: {what}, two runs "
+        f"{'bit-identical' if same else 'DIFFER'}")
+    check(ok and same, f"{tag} {label}: {what}, deterministic {same}")
+    check(lib_rel is None or lib_rel <= LIB_SUM_TOL,
+          f"{tag} {label}: library call disagrees ({lib_rel})")
+    del got, again, ref
+    ms = time_ms(kernel, iters)
+    plain_ms = time_ms(plain, max(iters // 4, 3))
+    lib_ms = time_ms(library, iters) if library is not None else None
+    peak = BF16_FLOPS if name == "dequant_matmul" else FP32_FLOPS
+    bnd, by = bound_ms(n_bytes, n_ops, peak)
+    log(f"[{tag}]   time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+        f"{bnd:.4f} ms ({by}; {n_bytes / 1e6:.3f} MB, {n_ops / 1e9:.3f} G "
+        f"ops)")
+    return dict(shape=f"{shape}{label}", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                library_ms=lib_ms)
+
+
 def check_block_kernels(torch, sp, dq, qp, blk, gen, tag):
     """Each training kernel on one bipartite block (a sampled hop or a
     rank's shard: masked slots, sources != destinations): the SPMM (d 64,
     its transpose, d 1), the fp32 SDDMM (d 64), the packed SDDMM (INT2),
     the dequant-matmul (INT2, the block's destination rows), the segment
-    sum (by relation d 64, by source d 64, by destination d 1) within
-    1e-5 relative of their plain versions, and the quant-pack (INT2 SR,
-    the source rows) bit-identical; each bit-identical across two runs and
-    timed beside its bound and library call. Returns the timings by kernel
-    name (``<tag>_shape`` in the kernels line)."""
+    sum (by relation d 64, by source d 64, by destination d 1) and the
+    quant-pack (INT2 SR, the source rows), each through ``run_case``.
+    Returns the records by kernel name (``<tag>_shape`` in the kernels
+    line)."""
     from repro_torch.core.quant import dequantize, quantize
 
     m = blk.layout.meta
@@ -2358,18 +2489,6 @@ def check_block_kernels(torch, sp, dq, qp, blk, gen, tag):
     sddmm_lib, pos = _sddmm_library(torch, blk)
     dp = q.packed.shape[1]
     E = m.n_edges
-
-    def spmm_case(xin, tr):
-        a = _spmm_library(torch, blk, ew, tr)
-        n_out = m.n_src if tr else m.n_dst
-        d = xin.shape[1]
-        return (f"spmm d={d}{' transpose' if tr else ''}", "spmm",
-                lambda: sp.spmm_cuda(xin, ew, blk.layout, transpose=tr),
-                lambda: sp.spmm_plain(xin, ew, blk.layout, transpose=tr),
-                lambda: torch.sparse.mm(a, xin),
-                xin.shape[0] * d * 4 + E * 8 + (n_out + 1) * 4
-                + n_out * d * 4, 2 * E * d)
-
     seg_inputs = {}
 
     def seg_case(kind, levels, rows, d):
@@ -2386,7 +2505,9 @@ def check_block_kernels(torch, sp, dq, qp, blk, gen, tag):
                 E * (d + 1) * 4 + n_out * (d + 2) * 4, E * d)
 
     cases = [
-        spmm_case(x, False), spmm_case(g, True), spmm_case(ones, False),
+        spmm_case(torch, sp, blk.layout, x, ew, False),
+        spmm_case(torch, sp, blk.layout, g, ew, True),
+        spmm_case(torch, sp, blk.layout, ones, ew, False),
         ("sddmm d=64", "sddmm", lambda: sp.sddmm_cuda(x, g, blk.layout),
          lambda: sp.sddmm_plain(x, g, blk.layout),
          lambda: sddmm_lib(x, g), (m.n_src + m.n_dst) * 64 * 4 + E * 12,
@@ -2397,72 +2518,31 @@ def check_block_kernels(torch, sp, dq, qp, blk, gen, tag):
          lambda: sddmm_lib(dequantize(q), g),
          m.n_src * (dp + 8) + m.n_dst * 64 * 4 + E * 12,
          2 * E * 64 + 2 * m.n_src * 64),
-        (f"dequant_matmul INT2 R={m.n_dst} 64x64", "dequant_matmul",
-         lambda: dq.dequant_matmul_cuda(qd, g),
-         lambda: dq.dequant_matmul_plain(qd, g),
-         lambda: dequantize(qd).T @ g,
-         m.n_dst * (dp + 8) + m.n_dst * 64 * 4 + 64 * 64 * 4,
-         3 * 2 * m.n_dst * 64 * 64),
+        dequant_matmul_case(torch, dq, qd, g),
         seg_case("rel", blk.rel_runs, y, 64),
         seg_case("src", blk.layout.runs(transpose=True), y, 64),
         seg_case("dst", blk.layout.runs(), y, 1),
-        ("quant_pack INT2 d=64", "quant_pack",
-         lambda: qp.quant_pack_cuda(x, 0x5C, bits=2, stochastic=True),
-         lambda: qp.quant_pack_plain(x, 0x5C, bits=2, stochastic=True),
-         None, m.n_src * 64 * 4 + m.n_src * (dp + 8), 6 * m.n_src * 64),
+        quant_case(qp, x, 0x5C),
     ]
     out = {}
-    for label, name, kernel, plain, library, n_bytes, n_ops in cases:
-        got = kernel()
-        if name == "quant_pack":
-            again, ref = kernel(), plain()
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            exact = all(torch.equal(a, b) for a, b in zip(got, ref))
-            rel = err = 0.0 if exact else float("inf")
-            log(f"[{tag}-kernels] {label}: codes, scale and zero "
-                f"{'bit-identical' if exact else 'DIFFER'} to the plain "
-                f"version; two runs {'bit-identical' if same else 'DIFFER'}")
-            check(exact and same, f"{tag} {label}: bit-identical {exact}, "
-                  f"deterministic {same}")
-        else:
-            same = torch.equal(got, kernel())
-            ref = plain()
-            lib_out = library()
-            if name in ("sddmm", "dequant_sddmm"):
-                lib_out = lib_out.values()[pos]
-            rel, err = _rel(got, ref), float((got - ref).abs().max())
-            lib_rel = _rel(lib_out, ref)
-            log(f"[{tag}-kernels] {label}: rel {rel:.3e} (max abs "
-                f"{err:.3e}), two runs "
-                f"{'bit-identical' if same else 'DIFFER'}; library rel "
-                f"{lib_rel:.3e}")
-            check(rel <= TOL and same, f"{tag} {label}: rel {rel}, "
-                  f"deterministic {same}")
-            check(lib_rel <= LIB_SUM_TOL, f"{tag} {label}: library call "
-                  f"disagrees ({lib_rel})")
-        ms = time_ms(kernel, 20)
-        plain_ms = time_ms(plain, 5)
-        lib_ms = time_ms(library, 20) if library is not None else None
-        peak = BF16_FLOPS if name == "dequant_matmul" else FP32_FLOPS
-        bnd, by = bound_ms(n_bytes, n_ops, peak)
-        log(f"[{tag}-kernels]   time: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library "
-            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-            f"{bnd:.4f} ms ({by})")
-        extra = {}
+    for case in cases:
+        label, name, library, n_bytes = case[0], case[1], case[4], case[5]
+        pick = ((lambda v: v.values()[pos])
+                if name in ("sddmm", "dequant_sddmm") else None)
+        rec = run_case(torch, f"{tag}-kernels", case, pick=pick,
+                       shape=f"{tag} block E={E} n_dst={m.n_dst} "
+                             f"n_src={m.n_src} ")
         if name == "segment_sum":
             yy, levels = seg_inputs[label]
-            extra = segment_sum_report(torch, sp, yy, levels, library,
-                                       n_bytes, f"[{tag}-kernels] {label}")
+            rec.update(segment_sum_report(torch, sp, yy, levels, library,
+                                          n_bytes,
+                                          f"[{tag}-kernels] {label}"))
             if tag == "sampled" and label == "segment_sum by src d=64":
-                check(extra["device_ms"] <= extra["library_device_ms"],
-                      f"sampled {label}: kernel {extra['device_ms']} ms "
+                check(rec["device_ms"] <= rec["library_device_ms"],
+                      f"sampled {label}: kernel {rec['device_ms']} ms "
                       f"slower than index_add_'s "
-                      f"{extra['library_device_ms']} ms (device time)")
-        out.setdefault(name, []).append(dict(
-            shape=f"{tag} block E={E} n_dst={m.n_dst} n_src={m.n_src} "
-                  f"{label}", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bnd, bound_by=by, library_ms=lib_ms, **extra))
+                      f"{rec['library_device_ms']} ms (device time)")
+        out.setdefault(name, []).append(rec)
     return out
 
 
@@ -3179,6 +3259,336 @@ def run_dp(torch, cfg, ds, ref, single):
     return paths
 
 
+# -- the GCN (gcn-cora) ---------------------------------------------------------
+
+
+def gcn_host_graph(shape: str):
+    """A GCN shape's graph, made on the host beside the kernel build:
+    ``gnn_data`` at the shape's widths, and for a full graph its layout
+    (on the host; the phase moves it to the card), for the sampled graph
+    its CSR. Returns the pieces and the seconds each took."""
+    from repro_torch.data.csr import build_spmm_layout
+    from repro_torch.data.sampler import build_csr
+    from repro_torch.models.registry import gnn_config, gnn_data
+
+    t0 = time.perf_counter()
+    cfg = gnn_config(shape)
+    data = gnn_data(shape, cfg)
+    t1 = time.perf_counter()
+    n = len(data[0])
+    extra = ({"csr": build_csr(data[1], data[2], n)} if shape == "minibatch_lg"
+             else {"layout": build_spmm_layout(data[1], data[2], n_dst=n,
+                                               device="cpu")})
+    return dict(cfg=cfg, data=data, gen_s=t1 - t0,
+                index_s=time.perf_counter() - t1, **extra)
+
+
+def _gcn_shape_line(tag, shape, cfg, data):
+    from repro_torch.configs import get
+
+    p = get("gcn-cora").shape(shape).p()
+    log(f"[{tag}] {shape}: {len(data[0])} nodes, {len(data[1])} edges with "
+        f"self loops (the shape's {p['n_edges']}; no edge cut), d_in "
+        f"{cfg.d_in}, d_hidden {cfg.d_hidden}, {cfg.n_classes} classes, "
+        f"{cfg.n_layers} layers")
+
+
+def check_gcn_kernels(torch, tag, cfg, x, layout, gen, shapes):
+    """Every kernel of the full-graph GCN step at the shapes the step gives
+    it, through ``run_case``: quant_pack on each dense site's input (INT2
+    SR), the dequant-matmul at each layer's ∇W (INT2), the unweighted SPMM
+    at each layer's aggregation width in both directions. Records under
+    ``shapes`` by kernel name."""
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import dequant_matmul as dq
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.kernels import spmm as sp
+
+    n = x.shape[0]
+    dims = [cfg.d_in, cfg.d_hidden, cfg.n_classes]
+    log(f"[{tag}-kernels] kernels vs plain and library at the step's shapes")
+    for l in range(cfg.n_layers):
+        d_a, d_b = dims[l], dims[l + 1]
+        d_agg = d_b if cfg.transform_first and d_a > d_b else d_a
+        h = x if l == 0 else torch.randn((n, d_a), generator=gen,
+                                         device=DEV).relu_()
+        g = torch.randn((n, d_b), generator=gen, device=DEV) * 1e-2
+        q = quantize(h, 0x6C + l, bits=2, stochastic=True)
+        xa = torch.randn((n, d_agg), generator=gen, device=DEV)
+        where = f"layer {l} "
+        for case in (lambda: quant_case(qp, h, 0x6C + l, where),
+                     lambda: dequant_matmul_case(torch, dq, q, g, where),
+                     lambda: spmm_case(torch, sp, layout, xa, None, False,
+                                       where),
+                     lambda: spmm_case(torch, sp, layout, xa, None, True,
+                                       where)):
+            c = case()               # one library operand alive at a time
+            shapes.setdefault(c[1], []).append(run_case(
+                torch, f"{tag}-kernels", c, shape=f"{tag} ", iters=10))
+            del c
+        del h, q, g, xa
+
+
+def gcn_train_runs(torch, tag, step, steps, *, falls=True):
+    """``train_run`` on the GCN ``step`` under FP32 and INT2, exactly the
+    GCN path's kernels launched; INT2's ACT bytes below FP32's at the same
+    FP32 price."""
+    runs = {label: train_run(torch, tag, label, step, label, steps,
+                             exact=True, falls=falls)
+            for label in ("fp32", "int2")}
+    check(runs["int2"]["act_bytes"] < runs["fp32"]["act_bytes"]
+          and runs["int2"]["act_fp32"] == runs["fp32"]["act_fp32"],
+          f"[{tag}] ACT bytes INT2 vs FP32")
+    log(f"[{tag}] ACT bytes INT2 / FP32: {runs['int2']['act_bytes']} / "
+        f"{runs['fp32']['act_bytes']} = 1 / "
+        f"{runs['fp32']['act_bytes'] / runs['int2']['act_bytes']:.2f}; peak "
+        f"FP32 - INT2 {runs['fp32']['peak'] - runs['int2']['peak']} B")
+    return runs
+
+
+def check_gcn_grads(torch, tag, step, batch):
+    """One step's gradients with the kernels against the same step with
+    every kernel's plain version (same seeds, parameters and batch; the
+    plain steps under torch.use_deterministic_algorithms: the plain SPMM
+    adds with index_add_). FP32: within 1e-5 of each weight's max |grad|.
+    INT2: within 1e-2 of the weight's SR quantization noise (max |INT2 -
+    FP32| of the kernels' steps): a code can flip where the two SPMMs'
+    summation orders move a quantization input across an SR threshold."""
+    from repro_torch.kernels import dequant_matmul as dq
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.kernels import spmm as sp
+
+    params = step.init(0)
+    got = {(label, "kernels"): _grads(torch, step, params, batch, label)
+           for label in ("fp32", "int2")}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            for label in ("fp32", "int2"):
+                with plain_versions(ops, spmm=sp.spmm_plain,
+                                    quant_pack=qp.quant_pack_plain,
+                                    dequant_matmul=dq.dequant_matmul_plain):
+                    got[label, "plain"] = _grads(torch, step, params, batch,
+                                                 label)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for label in ("fp32", "int2"):
+        (lk, gk), (lp, gp) = got[label, "kernels"], got[label, "plain"]
+        check(abs(lk - lp) <= TOL * abs(lp),
+              f"[{tag}] {label} loss with kernels {lk} vs plain {lp}")
+        for i in range(len(gk)):
+            diff = float((gk[i] - gp[i]).abs().max())
+            rel = diff / float(gp[i].abs().max())
+            if label == "fp32":
+                ok, note = rel <= TOL, f"limit {TOL}"
+            else:
+                noise = float((gk[i] - got["fp32", "kernels"][1][i])
+                              .abs().max())
+                share = diff / noise if noise else (0.0 if diff == 0
+                                                    else math.inf)
+                ok = share <= GRAD_NOISE_SHARE
+                note = (f"share of SR noise {share:.3e} (limit "
+                        f"{GRAD_NOISE_SHARE})")
+            log(f"[{tag}] grads {label} w[{i}]: max |kernels - plain| "
+                f"{diff:.3e}, rel {rel:.3e}; {note}")
+            check(ok, f"[{tag}] {label} gradient of w[{i}] out of tolerance")
+        log(f"[{tag}] grads {label}: loss kernels {lk:.8f} plain {lp:.8f}")
+
+
+def run_gcn_full(torch, tag, shape, steps, gen, shapes, host=None):
+    """[gcn] / [gcn-products]: a full-graph shape of gcn-cora at full
+    width: its kernels, FP32 and INT2 training, two steps bit-identical,
+    one step's gradients against the plain versions."""
+    from repro_torch.data.csr import to_device
+    from repro_torch.models.registry import build_step, gnn_config, \
+        gnn_data
+
+    t0 = time.perf_counter()
+    if host is None:
+        cfg = gnn_config(shape)
+        host = dict(cfg=cfg, data=gnn_data(shape, cfg), layout=None)
+    cfg, data = host["cfg"], host["data"]
+    _gcn_shape_line(tag, shape, cfg, data)
+    layout = host["layout"]
+    step = build_step("gcn-cora", device=DEV, shape=shape, cfg=cfg,
+                      data=data, layout=None if layout is None
+                      else to_device(layout, DEV))
+    torch.cuda.synchronize()
+    m = step.data["layout"].meta
+    deg = step.data["layout"].in_degree()
+    log(f"[{tag}] set-up: layout {m.n_blocks} blocks x {m.block_e} slots, "
+        f"in-degree max {int(deg.max())} mean {float(deg.float().mean()):.2f}"
+        + (f"; host: graph {host['gen_s']:.1f} s, layout "
+           f"{host['index_s']:.1f} s (beside the build)" if "gen_s" in host
+           else "") + f"; this phase's set-up {time.perf_counter() - t0:.1f}"
+        " s")
+    check_gcn_kernels(torch, tag, cfg, step.data["features"],
+                      step.data["layout"], gen, shapes)
+    torch.cuda.empty_cache()
+    runs = gcn_train_runs(torch, tag, step, steps)
+    for label in ("fp32", "int2"):
+        check_two_steps(torch, tag, label, step, label)
+    check_gcn_grads(torch, tag, step, {})
+    del step
+    torch.cuda.empty_cache()
+    return runs
+
+
+def run_gcn_sampled(torch, host, gen, shapes):
+    """[gcn-sampled]: minibatch_lg, fanout blocks sampled on the host a
+    batch at a time: the kernels on the first batch's blocks against their
+    plain versions and library calls, FP32 and INT2 training, two steps
+    bit-identical."""
+    import dataclasses
+
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import dequant_matmul as dq
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.kernels import spmm as sp
+    from repro_torch.models.registry import build_step
+
+    tag, cfg, data = "gcn-sampled", host["cfg"], host["data"]
+    _gcn_shape_line(tag, "minibatch_lg", cfg, data)
+    log(f"[{tag}] host: graph {host['gen_s']:.1f} s, CSR "
+        f"{host['index_s']:.1f} s (beside the build)")
+    step = build_step("gcn-cora", device=DEV, shape="minibatch_lg", cfg=cfg,
+                      data=data, csr=host["csr"])
+    host_s = []
+    sample = step.batches
+
+    def batches():
+        it = sample()
+        while True:
+            t = time.perf_counter()
+            b = next(it)
+            host_s.append(time.perf_counter() - t)
+            yield b
+
+    step = dataclasses.replace(step, batches=batches)
+    first = next(batches())
+    lay = first["layouts"]
+    log(f"[{tag}] first batch: blocks "
+        + ", ".join(f"{m.meta.n_src} -> {m.meta.n_dst} ({m.meta.n_edges} "
+                    f"edges, {_rows_read(m)} sources read)" for m in lay)
+        + f"; host {host_s[-1] * 1e3:.1f} ms (sampling and layouts)")
+    x = step.data["features"].index_select(0, first["input_nodes"])
+    n0, n1 = lay[0].meta.n_dst, lay[1].meta.n_dst
+    h = sp.spmm_cuda(x, None, lay[0]) / lay[0].in_degree().float()[:, None]
+    q = quantize(h, 0x5B, bits=2, stochastic=True)
+    g = torch.randn((n0, cfg.d_hidden), generator=gen, device=DEV) * 1e-2
+    h1 = torch.randn((n0, cfg.d_hidden), generator=gen, device=DEV)
+    g1 = torch.randn((n1, cfg.d_hidden), generator=gen, device=DEV)
+    log(f"[{tag}-kernels] kernels vs plain and library on the first "
+        f"batch's blocks")
+    for case in (
+            lambda: spmm_case(torch, sp, lay[0], x, None, False, "block 0 "),
+            lambda: quant_case(qp, h, 0x5B, "block 0 "),
+            lambda: dequant_matmul_case(torch, dq, q, g, "block 0 "),
+            lambda: spmm_case(torch, sp, lay[1], h1, None, False, "block 1 "),
+            lambda: spmm_case(torch, sp, lay[1], g1, None, True, "block 1 ")):
+        c = case()
+        shapes.setdefault(c[1], []).append(run_case(
+            torch, f"{tag}-kernels", c, shape=f"{tag} ", iters=10))
+        del c
+    del x, h, q, g, h1, g1
+    host_s.clear()
+    runs = gcn_train_runs(torch, tag, step, GCN_SAMPLED_STEPS, falls=False)
+    log(f"[{tag}] host time a batch (sampling and layouts, in the "
+        f"trainer's prefetch thread): median "
+        f"{statistics.median(host_s) * 1e3:.1f} ms of {len(host_s)} batches")
+    for label in ("fp32", "int2"):
+        check_two_steps(torch, tag, label, step, label)
+    del step, first
+    torch.cuda.empty_cache()
+    return runs
+
+
+def run_gcn_molecule(torch, gen, shapes):
+    """[gcn-molecule]: 128 graphs of 30 nodes and 64 edges (plus self
+    loops), d 32, 2 classes: the readout's segment sum against its plain
+    version and index_add_ (``run_case``); one forward and backward (INT2)
+    with the counts reset just before and read just after; no index_add_
+    in the profile of that forward and backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import backend
+    from repro_torch.kernels import spmm as sp
+    from repro_torch.models.registry import build_step, path_kernels
+
+    tag = "gcn-molecule"
+    step = build_step("gcn-cora", device=DEV, shape="molecule")
+    levels = step.data["runs"]
+    n, c = step.data["features"].shape[0], step.cfg.n_classes
+    n_out = levels[-1].n_out
+    ids = step.data["graph_ids"].long()
+    log(f"[{tag}] {len(step.data['labels'])} graphs, {n} nodes, "
+        f"{step.data['n_edges']} edges with self loops, d_in "
+        f"{step.cfg.d_in}, {c} classes")
+    y = torch.randn((n, c), generator=gen, device=DEV)
+    shapes.setdefault("segment_sum", []).append(run_case(
+        torch, f"{tag}-kernels",
+        (f"readout segment_sum {n} -> {n_out} rows d={c}", "segment_sum",
+         lambda: sp.segment_sum_cuda(y, levels),
+         lambda: sp.segment_sum_plain(y, levels),
+         lambda: torch.zeros((n_out, c), device=DEV).index_add_(0, ids, y),
+         n * (c + 1) * 4 + n_out * (c + 2) * 4, n * c), shape=f"{tag} "))
+    params = step.init(0)
+    _grads(torch, step, params, {}, "int2")          # warm
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _grads(torch, step, params, {}, "int2")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    log(f"[{tag}] int2 forward and backward: wall "
+        f"{statistics.median(walls) * 1e3:.2f} ms median of 5")
+    backend.reset_counts()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss, grads = _grads(torch, step, params, {}, "int2")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(backend.LAUNCH_COUNTS)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    scatter = [e.key for e in kernels
+               if "indexFunc" in e.key or "index_add" in e.key]
+    log(f"[{tag}] int2 forward and backward: loss {loss:.6f}, wall "
+        f"{wall * 1e3:.2f} ms (profiled), device busy {busy:.3f} ms; "
+        f"launches {json.dumps(counts, sort_keys=True)}; index_add_ "
+        f"scatter kernels: {scatter if scatter else 'none'}")
+    check(busy > 0, f"[{tag}] the profiler saw no device time")
+    check(math.isfinite(loss) and all(bool(torch.isfinite(g).all())
+                                      for g in grads),
+          f"[{tag}] non-finite loss or gradient")
+    check(not scatter, f"[{tag}] the readout scatters with index_add_")
+    want = set(path_kernels("gcn", True)) | {"segment_sum"}
+    check(set(counts) == want, f"[{tag}] launched {sorted(counts)}, the "
+          f"batched path has {sorted(want)}")
+    return {"gcn_molecule": {"counts": counts, "per_step": counts}}
+
+
+def run_gcn(torch, host, gen):
+    """The GCN phases ([gcn], [gcn-products], [gcn-sampled],
+    [gcn-molecule]); returns the runs by path key and the kernels' checks
+    at the GCN shapes by kernel name."""
+    shapes, runs = {}, {}
+    for tag, shape, steps in GCN_FULL:
+        got = run_gcn_full(torch, tag, shape, steps, gen, shapes,
+                           host.pop(shape, None))
+        key = tag.replace("-", "_")
+        runs.update({f"{key}_{label}": r for label, r in got.items()})
+    got = run_gcn_sampled(torch, host.pop("minibatch_lg"), gen, shapes)
+    runs.update({f"gcn_sampled_{label}": r for label, r in got.items()})
+    runs.update(run_gcn_molecule(torch, gen, shapes))
+    return runs, shapes
+
+
 def main() -> int:
     try:
         import torch
@@ -3231,10 +3641,12 @@ def main() -> int:
         zds = gen_zipf_kg_dataset(**AMAZON_BOOK_ZIPF)
         return zds, int(np.bincount(zds.dst).max()), time.perf_counter() - t
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         t0 = time.perf_counter()
         build = pool.submit(backend.build)
         zipf = pool.submit(zipf_graph)
+        gcn_graphs = {shape: pool.submit(gcn_host_graph, shape)
+                      for shape in ("ogb_products", "minibatch_lg")}
         cfg = get("kgat").model_cfg
         ds = gen_kg_dataset(**DATASET)
         log(f"[data] CKG: {ds.n_nodes} nodes, {len(ds.src)} edges, "
@@ -3245,6 +3657,12 @@ def main() -> int:
               and ds.n_users == cfg.n_users, "dataset does not fit the config")
         logs = build.result()
         zds, max_deg, zipf_s = zipf.result()
+        gcn_host = {k: f.result() for k, f in gcn_graphs.items()}
+    log(f"[data-gcn] " + "; ".join(
+        f"{k}: {len(h['data'][0])} nodes, {len(h['data'][1])} edges, graph "
+        f"{h['gen_s']:.1f} s, {'CSR' if 'csr' in h else 'layout'} "
+        f"{h['index_s']:.1f} s" for k, h in gcn_host.items())
+        + f" (beside the build; all data {time.perf_counter() - t0:.1f} s)")
     log(f"[data-zipf] zipf CKG (a 1.1) of the same size: {zds.n_nodes} "
         f"nodes, {len(zds.src)} edges, {zds.n_relations} relations, max "
         f"in-degree {max_deg}, {len(zds.train_pos)} train pairs "
@@ -3332,9 +3750,12 @@ def main() -> int:
     check_sampled_reduced(torch)
     torch.cuda.empty_cache()
     runs_dp = run_dp(torch, cfg, ds, dp_ref, runs)
+    torch.cuda.empty_cache()
+    runs_gcn, gcn_shapes = run_gcn(torch, gcn_host, gen)
     # launches: the sum over the main-path runs (serving, then training
     # KGAT under each schedule and KGCN, KGIN, R-GCN under FP32 and INT2,
-    # then the sampled runs), each counted from 0 just before it
+    # then the sampled, multi-rank and GCN runs), each counted from 0 just
+    # before it
     for e in entries:
         by_path = {"serve": counts.get(e["name"], 0),
                    "serve_tier2": counts_t2.get(e["name"], 0)}
@@ -3346,6 +3767,8 @@ def main() -> int:
                         for key, r in runs_s.items()})
         by_path.update({key: c.get(e["name"], 0) for key, c in runs_dp.items()
                         if not key.endswith("_per_step")})
+        by_path.update({f"train_{key}": r["counts"].get(e["name"], 0)
+                        for key, r in runs_gcn.items()})
         e["launches_by_path"] = by_path
         e["launches_per_train_step"] = {
             label: r["per_step"].get(e["name"], 0)
@@ -3356,6 +3779,11 @@ def main() -> int:
         e["launches_per_train_step"].update({
             key[:-len("_per_step")]: c.get(e["name"], 0)
             for key, c in runs_dp.items() if key.endswith("_per_step")})
+        e["launches_per_train_step"].update({
+            f"train_{key}": r["per_step"].get(e["name"], 0)
+            for key, r in runs_gcn.items()})
+        if e["name"] in gcn_shapes:
+            e["gcn_shape"] = gcn_shapes[e["name"]]
         e["launches"] = sum(by_path.values())
         check(e["launches"] > 0, f"kernel {e['name']} never launched")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3363,7 +3791,7 @@ def main() -> int:
             "launches_by_path", "launches_per_train_step")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     optional = ("also_replaces", "other_shape", "sampled_shape",
-                "shard_shape",
+                "shard_shape", "gcn_shape",
                 "library_call",
                 "kernels_per_call", "device_ms", "library_device_ms",
                 "device_ms_by_kernel", "spmm_route_device_ms",

@@ -1,17 +1,18 @@
-"""Architecture + shape specs (port of ``repro/configs/base.py``)."""
+"""Architecture + shape specs (port of ``repro/configs/base.py``): the specs
+and the GNN family's shapes, ``GNN_SHAPES``, with the reference's numbers."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
-__all__ = ["ShapeSpec", "ArchSpec"]
+__all__ = ["ShapeSpec", "ArchSpec", "GNN_SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str        # e.g. kgnn_train
+    kind: str        # kgnn_train | full_graph | minibatch | batched_graphs
     params: tuple    # sorted (key, value) pairs, hashable
 
     def p(self) -> dict:
@@ -21,7 +22,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str      # kgnn
+    family: str      # kgnn | gnn
     model_cfg: Any
     shapes: tuple
     source: str = ""
@@ -36,3 +37,14 @@ class ArchSpec:
 
 def _s(name, kind, **kw) -> ShapeSpec:
     return ShapeSpec(name, kind, tuple(sorted(kw.items())))
+
+
+GNN_SHAPES = (
+    _s("full_graph_sm", "full_graph", n_nodes=2708, n_edges=10556,
+       d_feat=1433, n_classes=7),
+    _s("minibatch_lg", "minibatch", n_nodes=232965, n_edges=114615892,
+       batch_nodes=1024, fanouts=(15, 10)),
+    _s("ogb_products", "full_graph", n_nodes=2449029, n_edges=61859140,
+       d_feat=100, n_classes=47),
+    _s("molecule", "batched_graphs", n_nodes=30, n_edges=64, batch=128),
+)

@@ -239,14 +239,18 @@ def act_nonlin(x, *, fn: str, seed=None, policy: ACTPolicy | None = None,
 class _Spmm(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, ew, layout, policy, seed):
-        _save(fctx, x, seed, policy, *(() if ew is None else (ew,)))
         fctx.layout = layout
+        fctx.weighted = ew is not None
+        if fctx.weighted:        # x is read by ∇ew only
+            _save(fctx, x, seed, policy, ew)
         return ops.spmm(x, ew, layout)
 
     @staticmethod
     def backward(fctx, g):
-        res, rest = _load(fctx)
-        ew = rest[0] if rest else None
+        if not fctx.weighted:    # linear in x: index-only residuals
+            return (ops.spmm(g, None, fctx.layout, transpose=True), None,
+                    None, None, None)
+        res, (ew,) = _load(fctx)
         dx = dew = None
         if fctx.needs_input_grad[0]:
             # ∇x: the same kernel on the layout's src-sorted direction

@@ -1,5 +1,6 @@
-"""Synthetic KG recommendation datasets and BPR sampler (port of
-``repro/data/synthetic.py:31-197``).
+"""Synthetic KG recommendation datasets and BPR sampler, and the GCN's
+node-classification graphs (port of ``repro/data/synthetic.py:31-197`` and
+``:241`` ``cora_like``).
 
 ``gen_kg_dataset``, ``gen_zipf_kg_dataset`` and ``bpr_batches`` make the
 same numpy calls in the same order as the JAX package's, so the same
@@ -9,6 +10,11 @@ items to attributes that share latent directions. The CKG node space is
 ``[users | items | attrs]``; relation 0 is ``interact`` (both directions),
 KG relations are shifted by 1 with distinct inverses, and self loops take
 the last relation id.
+
+``cora_like`` is the reference's homophilous graph with class-Gaussian
+features, the same numpy calls in the same order; ``cora_like_avg_deg``
+picks the ``avg_deg`` that brings its edge count nearest a shape's, and
+``molecule_batch`` draws the batched small graphs of the ``molecule`` shape.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import dataclasses
 import numpy as np
 
 __all__ = ["KGDataset", "gen_kg_dataset", "gen_zipf_kg_dataset",
-           "bpr_batches"]
+           "bpr_batches", "cora_like", "cora_like_avg_deg", "molecule_batch"]
 
 
 @dataclasses.dataclass
@@ -194,3 +200,63 @@ def bpr_batches(ds: KGDataset, batch_size: int, *, seed=0):
                 neg[i] = rng.integers(0, ds.n_items)
         yield {"user": users.astype(np.int32), "pos": pos.astype(np.int32),
                "neg": neg.astype(np.int32)}
+
+
+def cora_like(*, n_nodes=500, d_feat=64, n_classes=7, avg_deg=4, seed=0):
+    """Homophilous graph with class-Gaussian features (+ self loops):
+    ``(feats (n, d_feat) float32, src, dst (E,) int32, labels (n,)
+    int32)``, every undirected edge in both directions."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_classes, n_nodes)
+    centers = rng.normal(size=(n_classes, d_feat)) * 2.0
+    feats = centers[labels] + rng.normal(size=(n_nodes, d_feat))
+    n_edges = n_nodes * avg_deg // 2
+    src = rng.integers(0, n_nodes, 4 * n_edges)
+    dst = rng.integers(0, n_nodes, 4 * n_edges)
+    same = labels[src] == labels[dst]
+    keep = same | (rng.random(4 * n_edges) < 0.15)  # mostly homophilous
+    src, dst = src[keep][:n_edges], dst[keep][:n_edges]
+    src_all = np.concatenate([src, dst, np.arange(n_nodes)])
+    dst_all = np.concatenate([dst, src, np.arange(n_nodes)])
+    return (feats.astype(np.float32), src_all.astype(np.int32),
+            dst_all.astype(np.int32), labels.astype(np.int32))
+
+
+def cora_like_avg_deg(n_nodes: int, n_edges: int, n_classes: int) -> int:
+    """The ``avg_deg`` whose expected ``cora_like`` edge count, self loops
+    included, comes nearest ``n_edges``. Of the ``4 * n_nodes * avg_deg //
+    2`` candidate pairs a share ``1 / C + 0.15 (1 - 1 / C)`` survives (C
+    classes), at most ``n_nodes * avg_deg // 2`` are kept, and each kept
+    pair gives two edges."""
+    share = 1.0 / n_classes + 0.15 * (1.0 - 1.0 / n_classes)
+
+    def expected(avg):
+        cap = n_nodes * avg // 2
+        return 2 * min(cap, 4 * cap * share) + n_nodes
+
+    guess = max(1, round((n_edges - n_nodes) / (n_nodes * min(1.0,
+                                                              4 * share))))
+    return min(range(max(1, guess - 2), guess + 3),
+               key=lambda a: abs(expected(a) - n_edges))
+
+
+def molecule_batch(*, n_graphs=128, n_nodes=30, n_edges=64, d_feat=32,
+                   n_classes=2, seed=0):
+    """``n_graphs`` small graphs of ``n_nodes`` nodes, each with
+    ``n_edges`` random directed edges and a self loop a node, laid out
+    block-diagonally: ``(feats (B*n, d_feat) float32, src, dst
+    (B*(e+n),) int32, graph_ids (B*n,) int32, labels (B,) int32)``. The
+    edge draws are the reference's batched-graph test's
+    (``tests/test_arch_smoke.py``); the self loops make the ``molecule``
+    cell's ``B * (e + n)`` edges."""
+    rng = np.random.default_rng(seed)
+    B, n, e = n_graphs, n_nodes, n_edges
+    src = np.concatenate([rng.integers(0, n, e) + i * n for i in range(B)])
+    dst = np.concatenate([rng.integers(0, n, e) + i * n for i in range(B)])
+    loops = np.arange(B * n)
+    feats = rng.normal(size=(B * n, d_feat)).astype(np.float32)
+    labels = rng.integers(0, n_classes, B)
+    return (feats, np.concatenate([src, loops]).astype(np.int32),
+            np.concatenate([dst, loops]).astype(np.int32),
+            np.repeat(np.arange(B), n).astype(np.int32),
+            labels.astype(np.int32))

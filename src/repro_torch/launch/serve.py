@@ -263,6 +263,10 @@ def main(argv=None) -> None:
                          "snapshot (serve/latency_ms, queue depth, ...) "
                          "under DIR")
     args = ap.parse_args(argv)
+    family = get(args.arch).family
+    if family != "kgnn":
+        raise SystemExit(f"{family} has no serve path "
+                         "(GNNs are training workloads)")
     dev = resolve_device(args.device)
     reset_registry()   # the summary holds this run's series alone
     if args.trace:
@@ -278,8 +282,7 @@ def main(argv=None) -> None:
                    item_shards=args.item_shards, cache=args.cache,
                    max_pending=args.max_pending,
                    refresh_steps=args.refresh_steps)
-        run = {"kind": "serve", "arch": args.arch,
-               "family": get(args.arch).family,
+        run = {"kind": "serve", "arch": args.arch, "family": family,
                "requests": args.requests, "bits": args.bits}
         if args.trace:
             obs_log(f"[serve] trace written to "

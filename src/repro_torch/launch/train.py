@@ -17,6 +17,18 @@ takes a ``PolicySchedule`` spec (preset, uniform bit-width, or ordered
 default; without a card it raises) every kernel of the path is a
 hand-written CUDA kernel; ``--device cpu`` runs their plain versions.
 
+``--arch gcn-cora`` trains the GCN's full-graph node classification
+(``models.registry``: the reference's mean cross-entropy, Adam at lr
+1e-2): on ``cuda`` the full config (1,433 features, 16 hidden, 7 classes,
+2 layers) on the ``full_graph_sm`` shape (2,708 nodes), on ``cpu`` the
+reduced config on 300 nodes, as the reference's step. ``--bits``,
+``--schedule``, ``--steps``, ``--ckpt``, ``--metrics-out``, ``--trace``
+and ``--device`` work as for the KG archs; ``--mesh`` and ``--sample`` exit
+with the reference's reasons.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
+      --bits 2 --steps 8
+
 The loop is the fault-tolerant ``Trainer``: a checkpoint every
 ``max(steps // 4, 10)`` steps and at the end under ``--ckpt`` (default: a
 fresh temporary directory), restore of the latest one at start (a second
@@ -65,7 +77,8 @@ instead. The ``[dp]`` line names the backend and the collective route.
 
 ``train_kgnn`` is the same path as a function, so that a caller can drive
 it at any size and for any KG model, R-GCN included (``chip_smoke.py`` runs
-it at full width); ``train_kgnn_dp`` is the multi-rank one.
+it at full width); ``train_model`` trains any ``ModelStep`` (the GCN's
+shapes); ``train_kgnn_dp`` is the multi-rank one.
 """
 
 from __future__ import annotations
@@ -81,7 +94,7 @@ from repro_torch.core.memory import publish_activation_report
 from repro_torch.core.policy import schedule_from_cli, schedule_label
 from repro_torch.kernels.backend import LAUNCH_COUNTS, resolve_device
 from repro_torch.models.registry import arch_of, archs, build_step, \
-    model_config
+    family_of, model_config
 from repro_torch.obs import StepLogWriter, get_tracer, log, \
     reset_registry, write_summary
 from repro_torch.training.optimizer import adam
@@ -89,7 +102,7 @@ from repro_torch.training.step import make_train_step, step_metadata, \
     trainable
 from repro_torch.training.trainer import Trainer, TrainerConfig
 
-__all__ = ["train_kgnn", "train_kgnn_dp", "dp_job", "train_rank",
+__all__ = ["train_kgnn", "train_model", "train_kgnn_dp", "dp_job", "train_rank",
            "shard_setup", "main"]
 
 ROOT_SEED = 1     # the reference launcher's root key is PRNGKey(1)
@@ -139,13 +152,27 @@ def _failing_once(train_step, at: int):
 
 
 def train_kgnn(cfg, ds, params, schedule, steps: int, *, batch: int = 1024,
-               device="cuda", graph=None, log_every: int = 1, log=None,
-               ckpt_dir: str | None = None, ckpt_every: int = 10,
-               schedule_spec: str | None = None, step_writer=None,
-               opt_state=None) -> dict:
+               device="cuda", graph=None, **kw) -> dict:
     """Train ``cfg.model`` (kgat, kgcn, kgin or rgcn) up to step ``steps``
     from a copy of ``params`` (the caller's stay as they were) under
-    ``schedule``.
+    ``schedule``: ``train_model`` on the model's BPR step over ``ds``
+    (``graph`` reuses a CKG already built on ``device``); the keywords
+    are ``train_model``'s."""
+    dev = resolve_device(device)
+    # R-GCN's checkpoints say arch "kgat", model "rgcn"
+    step = build_step(arch_of(cfg.model), ds=ds, cfg=cfg, batch_size=batch,
+                      device=dev, graph=graph)
+    return train_model(step, params, schedule, steps, **kw)
+
+
+def train_model(step, params, schedule, steps: int, *, log_every: int = 1,
+                log=None, ckpt_dir: str | None = None, ckpt_every: int = 10,
+                schedule_spec: str | None = None, step_writer=None,
+                opt_state=None) -> dict:
+    """Train ``step`` (a ``ModelStep``: a KG model's, or ``gcn-cora``'s on
+    any of its shapes) up to step ``steps`` from a copy of ``params`` under
+    ``schedule``, Adam at ``step.lr``, rounding seeds from ``ROOT_SEED``;
+    the throughput series counts ``step.data["n_edges"]`` edges a step.
 
     With ``ckpt_dir`` the run restores the latest checkpoint there first
     (refusing one of another arch, model or ``schedule_spec``), saves every
@@ -156,13 +183,9 @@ def train_kgnn(cfg, ds, params, schedule, steps: int, *, batch: int = 1024,
     Returns ``steps``: one record per step run (``step``, ``loss``,
     ``seconds``, ``launches`` by kernel, ``max_memory_allocated`` on the
     card, and ``act``, the activation-bytes report of its saved residuals),
-    and ``params``, the trained parameters. ``graph`` reuses a CKG already
-    built on ``device``.
+    and ``params``, the trained parameters.
     """
-    dev = resolve_device(device)
-    # R-GCN's checkpoints say arch "kgat", model "rgcn"
-    step = build_step(arch_of(cfg.model), ds=ds, cfg=cfg, batch_size=batch, device=dev,
-                      graph=graph)
+    dev = step.data["device"]
     opt = adam(step.lr)
     p = trainable(params)
     train_step = _measured(make_train_step(step, opt, schedule=schedule,
@@ -174,8 +197,7 @@ def train_kgnn(cfg, ds, params, schedule, steps: int, *, batch: int = 1024,
         TrainerConfig(total_steps=steps, log_every=log_every,
                       ckpt_dir=ckpt_dir, ckpt_every=ckpt_every),
         log_fn=log, ckpt_meta=step_metadata(step, schedule_spec),
-        step_writer=step_writer,
-        items_per_step=int(step.data["graph"].src.shape[0]),
+        step_writer=step_writer, items_per_step=step.data["n_edges"],
     ).restore_if_available()
     params_out, _ = trainer.run()
     return {"steps": trainer.history, "params": params_out}
@@ -259,7 +281,8 @@ def _run_sampled(args, dev, schedule, label: str) -> None:
     from repro_torch.configs.kgnn_paper import AMAZON_BOOK_ZIPF
     from repro_torch.data.minibatch import parse_fanouts
     from repro_torch.data.synthetic import gen_zipf_kg_dataset
-    from repro_torch.training.tiering import run_sampled_training
+    from repro_torch.training.tiering import run_sampled_training, \
+        sampled_unsupported
 
     if args.ckpt:
         raise SystemExit("error: --sample takes no checkpoints (--ckpt)")
@@ -268,6 +291,9 @@ def _run_sampled(args, dev, schedule, label: str) -> None:
     except ValueError as e:
         raise SystemExit(f"error: {e}") from None
     batch = args.batch or 256
+    family = family_of(args.arch)
+    if family != "kgnn":
+        raise SystemExit(f"error: {sampled_unsupported(args.arch, family)}")
     # the card trains at the paper's size, the CPU's plain versions small
     if dev.type == "cuda":
         ds = gen_zipf_kg_dataset(**AMAZON_BOOK_ZIPF)
@@ -299,7 +325,9 @@ def _run_sampled(args, dev, schedule, label: str) -> None:
 
 
 def _run(args, dev, schedule, label: str) -> dict:
-    step = build_step(args.arch, batch_size=args.batch or 512, device=dev)
+    step = (build_step(args.arch, device=dev)
+            if family_of(args.arch) == "gnn" else
+            build_step(args.arch, batch_size=args.batch or 512, device=dev))
     run = {"kind": "train", "arch": args.arch, "family": step.family,
            "schedule": label, "steps": args.steps, "mesh": args.mesh,
            "sample": None}
@@ -318,9 +346,8 @@ def _run(args, dev, schedule, label: str) -> dict:
         log(f"[train] resharded checkpoint from {args.reshard_from} onto "
             f"1 device")
     try:
-        res = train_kgnn(
-            step.cfg, step.data["dataset"], params, schedule, args.steps,
-            batch=args.batch or 512, device=dev, graph=step.data["graph"],
+        res = train_model(
+            step, params, schedule, args.steps,
             log_every=max(args.steps // 8, 5),
             ckpt_dir=args.ckpt or tempfile.mkdtemp(prefix="repro_ckpt_"),
             ckpt_every=max(args.steps // 4, 10), schedule_spec=label,
@@ -574,11 +601,14 @@ def train_rank(rt, job: dict, cache: dict | None = None) -> dict:
 
 def _run_dp(args, mesh_spec, schedule, label: str) -> None:
     """--mesh: the launcher's default step on the mesh's ranks."""
-    step = build_step(args.arch, batch_size=args.batch or 512, device="cpu",
-                      device_graph=False)
+    family = family_of(args.arch)
+    step = (build_step(args.arch, device="cpu") if family != "kgnn" else
+            build_step(args.arch, batch_size=args.batch or 512, device="cpu",
+                       device_graph=False))
     if step.dp_spec is None:
         raise SystemExit(f"--mesh: data parallelism is not implemented for "
-                         f"--arch {args.arch}: {step.dp_unsupported}")
+                         f"--arch {args.arch} ({family}): "
+                         f"{step.dp_unsupported}")
     run = {"kind": "train", "arch": args.arch, "family": step.family,
            "schedule": label, "steps": args.steps, "mesh": str(mesh_spec),
            "sample": None}

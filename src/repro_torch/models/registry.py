@@ -1,21 +1,27 @@
 """Model-step registry: ``--arch <id>`` -> one ``ModelStep`` (port of
-``repro/models/registry.py``, KG family).
+``repro/models/registry.py``, the KG and GNN families).
 
-``build_step`` binds the KG layer functions (``models.kgnn``) to a dataset
-and a config, with the reference's defaults: the small synthetic CKG, batch
-512, data seed 2, lr 3e-3, dim 32, 3 layers, readout concat for kgat and
-sum otherwise. A ``cfg`` may name another KG model than the arch's: R-GCN
-has no arch id of its own, as in the reference, and trains as kgat's step
-with its own config (``arch_of``, ``model_config``). The reference's other
-archs raise ``NotImplementedError`` naming the slice of the port that
-brings them (ROADMAP Queue 1).
+``build_step`` binds the layer functions (``models.kgnn``, ``models.gnn``)
+to a dataset and a config. KG steps take the reference's defaults: the
+small synthetic CKG, batch 512, data seed 2, lr 3e-3, dim 32, 3 layers,
+readout concat for kgat and sum otherwise. A ``cfg`` may name another KG
+model than the arch's: R-GCN has no arch id of its own, as in the
+reference, and trains as kgat's step with its own config (``arch_of``,
+``model_config``). ``gcn-cora`` trains node classification under the
+reference's full-graph mean cross-entropy at lr 1e-2: on the CPU the
+reduced config on ``cora_like(n_nodes=300)``, as the reference's step; on
+the card the full config on the ``full_graph_sm`` shape, or any of
+``GNN_SHAPES`` (``gnn_config``, ``gnn_data``). The reference's other archs
+raise ``NotImplementedError`` naming the slice of the port that brings
+them (ROADMAP Queue 1).
 
 KG steps carry a ``ShardSpec`` (``kg_dp_spec``: edges split by destination
 over the ``data`` ranks, the entity table row-sharded over the ``model``
 ranks of a 2D mesh), so every KG model trains on several ranks
-(``training.data_parallel``).
+(``training.data_parallel``); the GCN step carries the reference's
+``dp_unsupported`` reason instead.
 
-``PATH_KERNELS`` lists the CUDA kernels a training step of each KG model
+``PATH_KERNELS`` lists the CUDA kernels a training step of each model
 launches, for the checks that the path really went through them.
 """
 
@@ -24,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, get
@@ -31,20 +38,21 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.training.step import ROW_SHARDED, ModelStep, ShardSpec, \
     enter_or_null, trainable
 
-__all__ = ["build_step", "archs", "arch_of", "model_config", "path_kernels",
-           "kg_dp_spec", "NOT_PORTED", "PATH_KERNELS"]
+__all__ = ["build_step", "family_of", "archs", "arch_of", "model_config", "path_kernels",
+           "kg_dp_spec", "gnn_config", "gnn_data", "NOT_PORTED",
+           "PATH_KERNELS", "GNN_DP_UNSUPPORTED"]
 
 # the reference's archs that the port does not carry yet, and where they land
 NOT_PORTED = {
-    "gcn-cora": "slice 6 (the non-KG arch families)",
-    **{a: "slice 6 (the non-KG arch families)" for a in (
+    **{a: "slice 6b (the recsys family)" for a in (
+        "wide-deep", "dlrm-mlperf", "xdeepfm", "fm")},
+    **{a: "slice 6c (the LM families)" for a in (
         "mistral-large-123b", "codeqwen1.5-7b", "stablelm-12b",
-        "moonshot-v1-16b-a3b", "grok-1-314b", "wide-deep", "dlrm-mlperf",
-        "xdeepfm", "fm")},
+        "moonshot-v1-16b-a3b", "grok-1-314b")},
 }
 
 
-# the kernels of a KG model's training step: (at FP32, added at INT-b)
+# the kernels of a model's training step: (at FP32, added at INT-b)
 PATH_KERNELS = {
     "kgat": (("spmm", "sddmm", "segment_sum"),
              ("quant_pack", "dequant_sddmm", "dequant_matmul")),
@@ -53,6 +61,7 @@ PATH_KERNELS = {
     "kgin": (("segment_sum",), ("quant_pack",)),
     "rgcn": (("spmm", "sddmm", "segment_sum"),
              ("quant_pack", "dequant_matmul")),
+    "gcn": (("spmm",), ("quant_pack", "dequant_matmul")),
 }
 
 # the reference's defaults (repro/models/registry.py)
@@ -60,6 +69,14 @@ DATA_SEED = 2
 LR = 3e-3
 DIM = 32
 N_LAYERS = 3
+GNN_LR = 1e-2
+GNN_CPU_NODES = 300       # the reference's CPU step: cora_like(n_nodes=300)
+
+GNN_DP_UNSUPPORTED = (
+    "gcn-cora trains full-graph from dense node features; the "
+    "edge-sharded DP path covers the KG entity-embedding steps "
+    "(sharded GCN lives in gnn.gcn_forward_spmd via "
+    "launch.partition)")
 
 
 def kg_dp_spec(cfg, graph=None) -> ShardSpec:
@@ -79,24 +96,34 @@ def kg_dp_spec(cfg, graph=None) -> ShardSpec:
         placement=(("entity", ROW_SHARDED),))
 
 
-def build_step(arch: str, *, ds=None, cfg=None, batch_size: int = 512,
-               device="cuda", graph=None, n_layers: int = N_LAYERS,
-               device_graph: bool = True) -> ModelStep:
-    """The ``ModelStep`` of ``arch`` on ``device``. ``ds``/``cfg`` bring
-    other sizes (``n_layers`` sizes the default config); ``graph``
-    reuses a CKG already built on the device. With ``device_graph=False``
-    no CKG or layout is built on the device (the sampled path,
-    ``training.tiering``, builds per-batch blocks instead) and ``loss``
-    raises."""
-    from repro_torch.data.synthetic import bpr_batches, gen_kg_dataset
-    from repro_torch.models import kgnn
+def build_step(arch: str, *, device="cuda", **kw) -> ModelStep:
+    """The ``ModelStep`` of ``arch`` on ``device``; the keywords are the
+    family's (``_kgnn_step``, ``_gnn_step``)."""
+    make = _gnn_step if family_of(arch) == "gnn" else _kgnn_step
+    return make(get(arch), resolve_device(device), **kw)
 
+
+def family_of(arch: str) -> str:
+    """The family of a ported ``arch``; the reference's other archs raise
+    ``NotImplementedError`` naming the slice that brings them."""
     if arch in NOT_PORTED:
         raise NotImplementedError(
             f"--arch {arch} is not ported yet; it comes with "
             f"{NOT_PORTED[arch]} (ROADMAP Queue 1)")
-    spec = get(arch)
-    dev = resolve_device(device)
+    return get(arch).family
+
+
+def _kgnn_step(spec, dev, *, ds=None, cfg=None, batch_size: int = 512,
+               graph=None, n_layers: int = N_LAYERS,
+               device_graph: bool = True) -> ModelStep:
+    """A KG model's BPR step. ``ds``/``cfg`` bring other sizes
+    (``n_layers`` sizes the default config); ``graph`` reuses a CKG
+    already built on the device. With ``device_graph=False`` no CKG or
+    layout is built on the device (the sampled path, ``training.tiering``,
+    builds per-batch blocks instead) and ``loss`` raises."""
+    from repro_torch.data.synthetic import bpr_batches, gen_kg_dataset
+    from repro_torch.models import kgnn
+
     if ds is None:
         ds = gen_kg_dataset(n_users=120, n_items=200, n_attrs=80, seed=0)
     if cfg is None:
@@ -124,8 +151,157 @@ def build_step(arch: str, *, ds=None, cfg=None, batch_size: int = 512,
 
     return ModelStep(arch=spec.name, family=spec.family, cfg=cfg, init=init,
                      loss=loss, batches=batches, lr=LR,
-                     data={"graph": g, "dataset": ds, "device": dev},
+                     data={"graph": g, "dataset": ds, "device": dev,
+                           "n_edges": len(ds.src)},
                      dp_spec=kg_dp_spec(cfg, ds))
+
+
+# -- gnn family: gcn-cora node classification ----------------------------------
+
+
+def gnn_config(shape: str):
+    """The GCN config that trains on ``GNN_SHAPES``' ``shape``: the arch's
+    own on ``full_graph_sm`` (Cora's 1,433 features, 7 classes),
+    ogbn-products' 100 features and 47 classes on ``ogb_products``, and
+    the reference's sharded cells' widths elsewhere
+    (``repro/launch/partition.py``: Reddit-scale 602 features and 41
+    classes on ``minibatch_lg``, 32 features and 2 classes on
+    ``molecule``)."""
+    spec = get("gcn-cora")
+    cfg, p = spec.model_cfg, spec.shape(shape).p()
+    if shape == "minibatch_lg":
+        return dataclasses.replace(cfg, d_in=602, n_classes=41)
+    if shape == "molecule":
+        return dataclasses.replace(cfg, d_in=32, n_classes=2)
+    return dataclasses.replace(cfg, d_in=p["d_feat"],
+                               n_classes=p["n_classes"])
+
+
+def gnn_data(shape: str, cfg):
+    """Host arrays of ``shape`` at ``cfg``'s widths, from seed 0: a
+    ``cora_like`` graph ``(feats, src, dst, labels)`` with the ``avg_deg``
+    whose edge count comes nearest the shape's, or for ``molecule`` a
+    ``molecule_batch`` ``(feats, src, dst, graph_ids, labels)``."""
+    from repro_torch.data.synthetic import cora_like, cora_like_avg_deg, \
+        molecule_batch
+
+    p = get("gcn-cora").shape(shape).p()
+    if shape == "molecule":
+        return molecule_batch(n_graphs=p["batch"], n_nodes=p["n_nodes"],
+                              n_edges=p["n_edges"], d_feat=cfg.d_in,
+                              n_classes=cfg.n_classes)
+    avg = cora_like_avg_deg(p["n_nodes"], p["n_edges"], cfg.n_classes)
+    return cora_like(n_nodes=p["n_nodes"], d_feat=cfg.d_in,
+                     n_classes=cfg.n_classes, avg_deg=avg)
+
+
+def _gnn_step(spec, dev, *, shape: str | None = None, cfg=None, data=None,
+              layout=None, csr=None) -> ModelStep:
+    """``gcn-cora``'s step on one of ``GNN_SHAPES`` (default: on the CPU
+    the reference's step, the reduced config on ``cora_like(n_nodes=
+    300)``; on the card ``full_graph_sm`` at full width). ``cfg`` and
+    ``data`` (``gnn_data``'s arrays) bring other sizes; ``layout`` reuses
+    a full graph's layout already on ``dev``. ``minibatch_lg`` samples a
+    fresh batch of seeds and its blocks each step, from ``DATA_SEED``
+    (``csr``: ``data.sampler.build_csr``'s of the graph, when the caller
+    has it)."""
+    from repro_torch.configs.smoke import reduced
+    from repro_torch.data.csr import build_spmm_layout
+    from repro_torch.data.sampler import build_csr
+    from repro_torch.data.synthetic import cora_like
+    from repro_torch.models import gnn
+
+    if shape is None and dev.type == "cpu":
+        cfg = cfg or reduced(spec).model_cfg
+        if data is None:
+            data = cora_like(n_nodes=GNN_CPU_NODES, d_feat=cfg.d_in)
+        shape = "full_graph_sm"
+    shape = shape or "full_graph_sm"
+    kind = spec.shape(shape).kind
+    cfg = cfg or gnn_config(shape)
+    if data is None:
+        data = gnn_data(shape, cfg)
+    feats, src, dst = data[:3]
+    labels = data[-1]
+    x = torch.from_numpy(feats).to(dev)
+    y = torch.from_numpy(labels).to(dev)
+    n_nodes = x.shape[0]
+    # n_edges: the edges a step aggregates over
+    out = {"features": x, "labels": y, "device": dev, "shape": shape,
+           "n_edges": len(src)}
+
+    def init(seed: int = 0):
+        return trainable(gnn.init_params(cfg, seed=seed, device=dev))
+
+    if kind == "minibatch":
+        p = spec.shape(shape).p()
+        loss, batches = _sampled_gcn(
+            cfg, x, y, csr or build_csr(src, dst, n_nodes), dev,
+            p["batch_nodes"], p["fanouts"])
+        rows, out["n_edges"] = p["batch_nodes"], 0
+        for f in p["fanouts"]:          # block h: n_dst * (f + 1) edges
+            rows *= f + 1
+            out["n_edges"] += rows
+    else:
+        if layout is None:
+            layout = build_spmm_layout(src, dst, n_dst=n_nodes, device=dev)
+        out["layout"] = layout
+        if kind == "batched_graphs":
+            gid = data[3]
+            n_graphs = len(labels)
+            ids = torch.from_numpy(gid).to(dev)
+            runs = gnn.readout_runs(gid, n_graphs, dev)
+            out.update(graph_ids=ids, runs=runs)
+
+            def logits(params):
+                return gnn.gcn_forward_batched(params, x, layout, ids, runs,
+                                               cfg=cfg)
+        else:
+            def logits(params):
+                return gnn.gcn_forward(params, x, layout, cfg=cfg)
+
+        def loss(params, batch, *, ctx=None):
+            with enter_or_null(ctx):
+                return gnn.node_xent(logits(params), y)
+
+        def batches():
+            while True:
+                yield {}
+
+    return ModelStep(arch=spec.name, family=spec.family, cfg=cfg, init=init,
+                     loss=loss, batches=batches, lr=GNN_LR, data=out,
+                     dp_spec=None, dp_unsupported=GNN_DP_UNSUPPORTED)
+
+
+def _sampled_gcn(cfg, x, y, csr, dev, batch_nodes, fanouts):
+    """(loss, batches) of the sampled GCN step: each batch draws
+    ``batch_nodes`` seeds and samples their blocks on the host
+    (``data.sampler``), with the blocks' layouts. The loss gathers the outermost src set's features
+    on the card and runs ``gcn_forward_blocks``."""
+    from repro_torch.data.sampler import block_layouts, sample_blocks
+    from repro_torch.models import gnn
+
+    n_nodes = x.shape[0]
+    indptr, indices = csr
+
+    def loss(params, batch, *, ctx=None):
+        h = x.index_select(0, batch["input_nodes"])
+        with enter_or_null(ctx):
+            logits = gnn.gcn_forward_blocks(params, h, batch["layouts"],
+                                            cfg=cfg)
+        return gnn.node_xent(logits, y.index_select(0, batch["seeds"]))
+
+    def batches():
+        rng = np.random.default_rng(DATA_SEED)
+        while True:
+            seeds = rng.integers(0, n_nodes, batch_nodes)
+            blocks, inp = sample_blocks(indptr, indices, seeds,
+                                        list(fanouts), rng=rng)
+            yield {"layouts": block_layouts(blocks, dev),
+                   "input_nodes": torch.from_numpy(inp).to(dev),
+                   "seeds": torch.from_numpy(seeds).to(dev)}
+
+    return loss, batches
 
 
 def arch_of(model: str) -> str:
@@ -146,8 +322,8 @@ def model_config(model: str, spec=get):
 
 
 def path_kernels(model: str, packed: bool) -> tuple[str, ...]:
-    """The kernels a training step of KG ``model`` launches, with INT-b
-    sites (``packed``) or at FP32."""
+    """The kernels a training step of ``model`` (a KG model, or ``gcn``)
+    launches, with INT-b sites (``packed``) or at FP32."""
     fp32, more = PATH_KERNELS[model]
     return fp32 + (more if packed else ())
 

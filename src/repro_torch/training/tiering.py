@@ -53,8 +53,8 @@ from repro_torch.training.optimizer import adam
 from repro_torch.training.step import trainable
 
 __all__ = ["TieredEmbeddingStore", "make_sampled_train_step",
-           "run_sampled_training", "SampledTrainReport", "node_in_degree",
-           "PHASES"]
+           "run_sampled_training", "sampled_unsupported",
+           "SampledTrainReport", "node_in_degree", "PHASES"]
 
 PHASES = ("dispatch", "gather", "scatter", "patch")   # train/step/<phase>
 
@@ -354,6 +354,15 @@ class SampledTrainReport:
     act: dict = dataclasses.field(default_factory=dict)   # step 0's report
 
 
+def sampled_unsupported(arch: str, family: str) -> str:
+    """Why ``arch`` of ``family`` has no sampled path (the reference's
+    refusal): only the KG family binds a KG dataset to sample from."""
+    return (f"sampled minibatch training (--sample) is defined for the "
+            f"kgnn family with a bound KG dataset; arch {arch!r} "
+            f"(family {family!r}) has none. Train it full-batch instead "
+            f"(drop --sample).")
+
+
 def run_sampled_training(step, *, fanouts: tuple[int, ...], steps: int = 50,
                          batch_size: int = 256, hot_frac: float = 0.1,
                          refresh_every: int = 16, schedule=None,
@@ -380,10 +389,7 @@ def run_sampled_training(step, *, fanouts: tuple[int, ...], steps: int = 50,
     from repro_torch.models import kgnn
 
     if step.family != "kgnn" or "dataset" not in step.data:
-        raise ValueError(
-            f"sampled minibatch training (--sample) is defined for the "
-            f"kgnn family with a bound KG dataset; arch {step.arch!r} "
-            f"(family {step.family!r}) has none")
+        raise ValueError(sampled_unsupported(step.arch, step.family))
     cfg = step.cfg
     if cfg.n_layers != len(fanouts):
         raise ValueError(

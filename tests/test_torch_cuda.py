@@ -1176,3 +1176,92 @@ def test_two_rank_step_on_card_follows_single_device(cuda, arch):
         assert np.isfinite(r["losses"]).all()
         for k in path_kernels(arch, True):
             assert r["counts"].get(k, 0) > 0, k
+
+
+# -- the GCN (gcn-cora) shapes ------------------------------------------------
+
+
+def _cora_layout(cuda):
+    """The ``full_graph_sm`` graph's edges (2,708 nodes, self loops)."""
+    from repro_torch.data.synthetic import cora_like
+
+    _, src, dst, _ = cora_like(n_nodes=2708, d_feat=1, avg_deg=3)
+    return build_spmm_layout(src, dst, n_dst=2708, device=cuda)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("d", [7, 16])
+def test_spmm_kernel_gcn_widths(cuda, transpose, d):
+    """The GCN's unweighted aggregation at its widths (d 16 and 7, lanes 4
+    with float4 columns and 8 scalar ones), both directions."""
+    layout = _cora_layout(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn((2708, d), generator=gen, device=cuda)
+    a = sp.spmm_cuda(x, None, layout, transpose=transpose)
+    assert torch.equal(a, sp.spmm_cuda(x, None, layout, transpose=transpose))
+    assert _rel(a, sp.spmm_plain(x, None, layout, transpose=transpose)) \
+        <= 1e-5
+
+
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("rows,d", [(2708, 1433), (4099, 100)])
+def test_quant_pack_kernel_gcn_widths(cuda, bits, stochastic, rows, d):
+    """The GCN's input residuals: Cora's 1,433 features (dp 359 at INT2,
+    an odd row stride) and ogbn-products' 100 (dp 25), codes bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + bits)
+    x = torch.randn((rows, d), generator=gen, device=cuda)
+    got = qp.quant_pack_cuda(x, 7, bits=bits, stochastic=stochastic)
+    ref = qp.quant_pack_plain(x, 7, bits=bits, stochastic=stochastic)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("bits", [2, 8])
+@pytest.mark.parametrize("rows,dim,n", [(2708, 1433, 16), (2708, 16, 7),
+                                        (70000, 100, 47)])
+def test_dequant_matmul_kernel_gcn_shapes(cuda, bits, rows, dim, n):
+    """∇W of the GCN's layers: 23 feature tiles (the last 25 wide) at dim
+    1,433, 4-byte g copies at n 7 and 47, a 25-byte pack at dim 100."""
+    gen = torch.Generator(device=cuda).manual_seed(dim + n)
+    x = torch.randn((rows, dim), generator=gen, device=cuda)
+    g = torch.randn((rows, n), generator=gen, device=cuda)
+    q = quantize(x, 5, bits=bits, stochastic=True)
+    a = dq.dequant_matmul_cuda(q, g)
+    assert torch.equal(a, dq.dequant_matmul_cuda(q, g))
+    assert _rel(a, dq.dequant_matmul_plain(q, g)) <= 1e-5
+
+
+@pytest.mark.parametrize("bits", [0, 2])
+def test_reduced_gcn_step_launches_its_kernels_and_repeats(cuda, bits):
+    """A reduced gcn-cora step (the CPU step's config and graph) on the
+    card launches exactly ``path_kernels("gcn", ...)``, follows the CPU's
+    plain versions over 3 steps, and two steps from one state give the
+    same bits."""
+    from repro_torch.launch.train import train_model
+    from repro_torch.models.registry import GNN_CPU_NODES
+    from repro_torch.data.synthetic import cora_like
+
+    cfg = reduced(get("gcn-cora")).model_cfg
+    data = cora_like(n_nodes=GNN_CPU_NODES, d_feat=cfg.d_in)
+    sched = schedule_from_cli(None, bits)
+    runs = {}
+    for dev in ("cpu", cuda):
+        step = build_step("gcn-cora", device=dev, cfg=cfg, data=data)
+        runs[str(dev)] = train_model(step, step.init(0), sched, 3,
+                                     log=lambda _: None)
+    launches = runs[str(cuda)]["steps"][0]["launches"]
+    assert set(launches) == set(path_kernels("gcn", bool(bits))), launches
+    losses = [[r["loss"] for r in run["steps"]] for run in runs.values()]
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+
+    opt = adam(step.lr)
+    params = step.init(0)
+    train = make_train_step(step, opt, schedule=sched, root_seed=1)
+    state, _ = train((params, opt.init(params)), {}, 0)
+    (p1, o1), m1 = train(_clone_state(state), {}, 1)
+    (p2, o2), m2 = train(_clone_state(state), {}, 1)
+    assert torch.equal(m1["loss"], m2["loss"])
+    for a, b in zip(param_leaves(p1) + o1["mu"] + o1["nu"],
+                    param_leaves(p2) + o2["mu"] + o2["nu"]):
+        assert torch.equal(a, b)
