@@ -8,12 +8,27 @@ their plain versions.
 2. Builds the kernels of the serving and training paths from
    src/repro_torch/csrc for sm_90a (one nvcc per source, started together,
    while the full-width datasets are generated) and prints ptxas's
-   register/spill report; fails if the dequant-matmul, dequant-unpack or
-   segment-sum kernels spill.
+   register/spill report; fails if the quant-pack, dequant-matmul,
+   dequant-unpack or segment-sum kernels spill.
 3. For each kernel, at the shapes its path gives it, compares the kernel
    with its plain PyTorch version on the same inputs on the card:
-     quant_pack  codes, scale and zero bit-identical (70,679x256 and
-                 24,915x256, bits 8 and 4, nearest and SR, odd widths);
+     quant_pack  codes, scale and zero bit-identical to the plain version
+                 and across two calls (70,679x256 and 24,915x256, bits 8
+                 and 4, nearest and SR; KGAT's 184,166x64 INT2 SR site;
+                 odd widths and padded packs; ``x[1:]`` of a table at an
+                 odd width, its base 4 bytes off 16; a row wider than a
+                 stage, 12,288, and one wider than the ring, 40,000; a
+                 small table, 2,708x16), each with the plan its launch
+                 follows (route, rows a tile, shared memory, grid); the
+                 SASS instructions an element of every kernel's codes and
+                 min/max loops (cuobjdump -sass), and for every timed
+                 quant-pack case the instructions the SMs issue an element
+                 in the bound's time beside them; timed at the serving
+                 store's 70,679x256 INT8 and the KGAT site with the device
+                 time (held stream); every timed quant-pack case here and
+                 in 12-14 rotates its calls over three copies of its input
+                 where the input fits the 50 MB L2, and reports its device
+                 time;
      spmm        <= 1e-5 relative (max |diff| / max |plain|) on the
                  full-width KGAT graph at the main path's three shapes (d 64,
                  d 64 in the transpose direction, d 1: the edge softmax's
@@ -265,6 +280,14 @@ their plain versions.
     and times at the GCN shapes), the card's line, then last the ok
     line.
 
+    python3 chip_smoke.py --quant-pack-against DIR
+
+builds DIR's src/repro_torch/csrc/quant_pack.cu (another tree, e.g. the
+parent commit unpacked with ``git archive``) beside this tree's and, at every
+shape this script times the quant-pack at, holds the two to the same bits
+and prints their device times in turns (other, this, this, other); nothing
+else runs.
+
 Exits non-zero, printing no result, without CUDA, outside a checkout of the
 repository, or when any check fails.
 """
@@ -272,6 +295,8 @@ repository, or when any check fails.
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import json
 import math
 import re
@@ -288,6 +313,9 @@ FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core rate
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
 TOL = 1e-5
+L2_BYTES = 50e6                # H100 L2: an input this small is rotated
+ROTATION = 3                   # distinct inputs the timed calls cycle over
+INSTR_RATE = 4 * 132 * 1.98e9 * 32   # H100 thread-instructions a second
 LIB_SUM_TOL = 1e-4             # index_add_'s atomic fp32 sums vs float64
 DEV = "cuda"
 # the paper's Amazon-Book-sized CKG (KGAT config: configs/kgnn_paper.py)
@@ -385,46 +413,207 @@ def bound_ms(n_bytes: float, n_ops: float,
 
 
 def check_quant_pack(torch, qp, gen):
+    """Codes, scale and zero bit-identical to the plain version at the
+    store's tables (INT8, INT4, nearest and SR, an odd width), KGAT's INT2
+    site (184,166x64), padded packs, a misaligned base (``x[1:]`` of a
+    table at an odd width), a row wider than a stage and one wider than
+    the ring, a small table (both on the warp-a-row route), two calls
+    bit-identical. Timed at the
+    serving store's 70,679x256 INT8 (the kernels line's shape) and KGAT's
+    184,166x64 INT2 SR site: events and device time (held stream), inputs
+    rotated where they fit the L2, the plan, and the SASS instructions an
+    element of the route beside the bound's budget."""
     log("[quant_pack] kernel vs plain (codes, scale, zero bit-identical)")
+    n_kg = DATASET["n_users"] + DATASET["n_items"] + DATASET["n_attrs"]
     cases = [(r, 256, b, s) for r in QUANT_ROWS for b in (8, 4)
              for s in (False, True)]
     cases += [(QUANT_ROWS[1], 255, 4, True), (4096, 37, 2, False),
-              (4096, 37, 1, True)]
+              (4096, 37, 1, True), (n_kg, 64, 2, True), (n_kg, 64, 8, False),
+              ("slice", 601, 2, True), (64, 12288, 2, True),
+              (5, 40000, 4, False), (2708, 16, 2, True)]
     xs = {}
     for rows, d, bits, sr in cases:
-        x = xs.get((rows, d))
-        if x is None:
-            x = xs[(rows, d)] = torch.randn((rows, d), generator=gen,
-                                            device=DEV) * 0.3
+        if rows == "slice":       # a row slice at an odd width: 4-byte base
+            x = (torch.randn((16385, d), generator=gen, device=DEV)
+                 * 0.3)[1:]
+        else:
+            x = xs.get((rows, d))
+            if x is None:
+                x = xs[(rows, d)] = torch.randn(
+                    (rows, d), generator=gen, device=DEV) * 0.3
         seed = 0x5EED + bits
         got = qp.quant_pack_cuda(x, seed, bits=bits, stochastic=sr)
+        again = qp.quant_pack_cuda(x, seed, bits=bits, stochastic=sr)
         ref = qp.quant_pack_plain(x, seed, bits=bits, stochastic=sr)
         same = all(torch.equal(g, r) for g, r in zip(got, ref))
-        log(f"  {rows}x{d} bits={bits} {'sr' if sr else 'nearest'}: "
-            f"{'bit-identical' if same else 'MISMATCH'}")
-        check(same, f"quant_pack {rows}x{d} bits={bits} sr={sr} differs")
-    # timing: the main path's largest call (user table, INT8, nearest)
-    rows, d, bits = QUANT_ROWS[0], 256, 8
-    x = xs[(rows, d)]
-    got = qp.quant_pack_cuda(x, 1, bits=bits, stochastic=False)
-    ref = qp.quant_pack_plain(x, 1, bits=bits, stochastic=False)
-    err = max(float((g.float() - r.float()).abs().max())
-              for g, r in zip(got, ref))
-    check(err == 0.0, f"quant_pack timed case differs by {err}")
-    ms = time_ms(lambda: qp.quant_pack_cuda(x, 1, bits=bits,
-                                            stochastic=False), 50)
-    plain = time_ms(lambda: qp.quant_pack_plain(x, 1, bits=bits,
-                                                stochastic=False), 10)
-    n_bytes = rows * d * 4 + rows * d * bits // 8 + 8 * rows
-    bnd, by = bound_ms(n_bytes, 7 * rows * d)
-    log(f"  time {rows}x{d} int8: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {bnd:.4f} ms ({by})")
-    return dict(name="quant_pack", route="cuda",
-                source="src/repro_torch/csrc/quant_pack.cu",
-                replaces="src/repro/kernels/quant_pack.py:39",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                bound_by=by, library_ms=None,
-                shape=f"{rows}x{d} bits 8 nearest")
+        twice = all(torch.equal(g, a) for g, a in zip(got, again))
+        plan = qp.quant_pack_plan(x.shape[0], d, bits=bits, stochastic=sr)
+        log(f"  {x.shape[0]}x{d} bits={bits} {'sr' if sr else 'nearest'}"
+            f"{' (x[1:], base 4 bytes off 16)' if rows == 'slice' else ''}:"
+            f" {'bit-identical' if same else 'MISMATCH'}, two calls "
+            f"{'bit-identical' if twice else 'DIFFER'}; {_plan_str(plan)}")
+        check(same and twice, f"quant_pack {x.shape[0]}x{d} bits={bits} "
+              f"sr={sr}: plain {same}, twice {twice}")
+        del got, again, ref
+    sass = quant_pack_sass()
+    for key, v in sass.items():
+        log(f"  SASS {key}: {_sass_str(v)}")
+    entries = []
+    for rows, d, bits, sr in ((QUANT_ROWS[0], 256, 8, False),
+                              (n_kg, 64, 2, True)):
+        label, _, kernel, plain, _, n_bytes, n_ops = quant_case(
+            qp, xs[(rows, d)], 1, bits=bits, stochastic=sr)
+        got, ref = kernel(), plain()
+        err = max(float((g.float() - r.float()).abs().max())
+                  for g, r in zip(got, ref))
+        check(err == 0.0, f"quant_pack timed case {label} differs by {err}")
+        del got, ref
+        ms = time_ms(kernel, 50)
+        plain_ms = time_ms(plain, 10)
+        dev = device_ms(torch, kernel)
+        bnd, by = bound_ms(n_bytes, n_ops)
+        log(f"  time {label}: kernel {ms:.4f} ms (events), device "
+            f"{dev:.4f} ms (held stream), plain {plain_ms:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}; {bnd / dev:.0%} of it)")
+        entries.append(dict(
+            name="quant_pack", route="cuda",
+            source="src/repro_torch/csrc/quant_pack.cu",
+            replaces="src/repro/kernels/quant_pack.py:39",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+            bound_by=by, library_ms=None, device_ms=dev,
+            shape=f"{rows}x{d} bits {bits} {'sr' if sr else 'nearest'}"))
+    entries[0]["sass_per_element"] = sass
+    return _with_other_shape(*entries)
+
+
+def _plan_str(plan):
+    if plan["route"] == "rows":
+        return f"route rows (a warp a row), grid {plan['grid']}"
+    return (f"route tiles, {plan['rows_a_tile']} rows a tile, "
+            f"{plan['stages']} stage buffers of {plan['stage_floats']} "
+            f"floats, {plan['smem']} B shared, {plan['tiles']} tiles, grid "
+            f"{plan['grid']}, {plan['lanes_a_row']} lanes a row")
+
+
+def _sass_str(v):
+    if not v:
+        return "not counted"
+    return "; ".join(
+        f"{name} " + ", ".join(f"{n} instructions for {e} elements "
+                               f"({n / e:.1f} an element)" for n, e in loops)
+        for name, loops in v.items() if loops)
+
+
+def _budget_str(v, bnd_ms, elements):
+    """The SASS count an element of a route (its codes and min/max loops,
+    the fewest and the most over their variants) beside the instructions
+    an element the SMs can issue in the bound's time."""
+    budget = INSTR_RATE * bnd_ms * 1e-3 / elements
+    if not v or not all(v.values()):
+        return f"SASS not counted, budget {budget:.1f} an element"
+    lo = sum(min(n / e for n, e in loops) for loops in v.values())
+    hi = sum(max(n / e for n, e in loops) for loops in v.values())
+    return (f"SASS {lo:.1f}-{hi:.1f} instructions an element (codes and "
+            f"min/max loops) against the {budget:.1f} the SMs issue in the "
+            f"bound's time")
+
+
+def _sass_loops(text):
+    """Per function of a ``cuobjdump -sass`` listing, its instructions
+    (address, text) and its loops (first, last address of each backward
+    branch's range)."""
+    funcs, cur, labels, pending = {}, None, {}, []
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs[m.group(1)] = {"ins": [], "labels": {}}
+            labels, pending = cur["labels"], []
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                labels[lab] = addr
+            pending = []
+            cur["ins"].append((addr, m.group(2)))
+    out = {}
+    for name, f in funcs.items():
+        loops = []
+        for addr, ins in f["ins"]:
+            if "BRA" not in ins:
+                continue
+            m = re.search(r"\(?(\.L_x_\d+)\)?", ins)
+            tgt = (f["labels"].get(m.group(1)) if m else None)
+            if tgt is None:
+                m = re.search(r"BRA\S*\s+(?:\S+\s+)?(0x[0-9a-f]+)", ins)
+                tgt = int(m.group(1), 16) if m else None
+            if tgt is not None and tgt <= addr:
+                loops.append((tgt, addr))
+        out[name] = (f["ins"], loops)
+    return out
+
+
+def _inner_loops(ins, loops, count):
+    """(instructions, elements) of each loop with elements (``count`` of
+    its body) that holds no smaller loop with elements."""
+    found = []
+    for lo, hi in sorted(set(loops)):
+        body = [t for a, t in ins if lo <= a <= hi]
+        n = count(body)
+        if n:
+            found.append((lo, hi, len(body), n))
+    return [(size, n) for lo, hi, size, n in found
+            if not any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                       for a, b, _, _ in found)]
+
+
+def _codes(body):          # one F2I a code
+    return sum(1 for t in body if re.match(r"(@\S+\s+)?F2I", t))
+
+
+def _minmax_reads(body):   # elements read by a loop with FMNMX and no F2I
+    if _codes(body) or not any("FMNMX" in t for t in body):
+        return 0
+    return sum(4 if ".128" in t else 2 if ".64" in t else 1
+               for t in body if re.match(r"(@\S+\s+)?LD[SG]", t))
+
+
+@functools.lru_cache(maxsize=None)
+def quant_pack_sass():
+    """Static SASS instructions an element of each quant-pack kernel (the
+    tile route and the warp-a-row route, per bit-width and rounding), from
+    ``cuobjdump -sass`` of the built library: its codes loops (the
+    innermost loops with F2I, one a code: a variant each for rows of whole
+    words, for pads and for packs under 4 bytes) and its min/max loops (the
+    innermost with FMNMX and no F2I, elements counted by their loads),
+    instructions over elements. Cached: the library does not change within
+    a run."""
+    from repro_torch.kernels import backend
+
+    tool = Path(backend._nvcc()).with_name("cuobjdump")
+    try:
+        text = subprocess.run(
+            [str(tool), "-sass", str(backend.lib_path("quant_pack"))],
+            capture_output=True, text=True, check=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError) as err:
+        log(f"  SASS: cuobjdump failed ({err})")
+        return {}
+    out = {}
+    for name, (ins, loops) in _sass_loops(text).items():
+        m = re.search(r"quant_(tile|rows)_kernelILi(\d)ELb([01])E", name)
+        if not m:
+            continue
+        key = (f"{m.group(1).replace('tile', 'tiles')} INT{m.group(2)} "
+               f"{'sr' if m.group(3) == '1' else 'nearest'}")
+        out[key] = {"codes": _inner_loops(ins, loops, _codes),
+                    "min/max": _inner_loops(ins, loops, _minmax_reads)}
+    return out
 
 
 def _rel(a, b):
@@ -2395,14 +2584,39 @@ def spmm_case(torch, sp, layout, xin, ew, transpose, where=""):
             (1 if ew is None else 2) * m.n_edges * d)
 
 
-def quant_case(qp, x, seed, where=""):
-    """INT2 SR quant-pack of ``x`` as a ``run_case`` case (no single
-    library call)."""
+def rotation(x, copies: int = ROTATION):
+    """``x`` and, where it fits the L2, copies in distinct memory, so that
+    timed calls cycling over them never read a warm L2."""
+    if x.numel() * x.element_size() > L2_BYTES:
+        return [x]
+    return [x] + [x.clone() for _ in range(copies - 1)]
+
+
+def quant_case(qp, x, seed, where="", *, bits=2, stochastic=True):
+    """The quant-pack of ``x`` (INT2 SR unless asked) as a ``run_case``
+    case (no single library call); each kernel call takes the next input
+    of ``rotation(x)``. Logs the launch's plan."""
     rows, d = x.shape
-    return (f"{where}quant_pack INT2 sr {rows}x{d}", "quant_pack",
-            lambda: qp.quant_pack_cuda(x, seed, bits=2, stochastic=True),
-            lambda: qp.quant_pack_plain(x, seed, bits=2, stochastic=True),
-            None, rows * d * 4 + rows * (-(-d // 4) + 8), 7 * rows * d)
+    xs = rotation(x)
+    turn = itertools.count()
+    dp = -(-d // (8 // bits))
+    n_bytes, n_ops = rows * d * 4 + rows * (dp + 8), 7 * rows * d
+    plan = qp.quant_pack_plan(rows, d, bits=bits, stochastic=stochastic)
+    rnd = "sr" if stochastic else "nearest"
+    log(f"  quant_pack {rows}x{d} INT{bits} {rnd}: {_plan_str(plan)}; timed "
+        f"calls rotate over {len(xs)} input(s); "
+        + _budget_str(quant_pack_sass().get(f"{plan['route']} INT{bits} {rnd}"),
+                      bound_ms(n_bytes, n_ops)[0], rows * d))
+
+    def kernel():
+        return qp.quant_pack_cuda(xs[next(turn) % len(xs)], seed, bits=bits,
+                                  stochastic=stochastic)
+
+    return (f"{where}quant_pack INT{bits} {rnd} {rows}x{d}", "quant_pack",
+            kernel,
+            lambda: qp.quant_pack_plain(x, seed, bits=bits,
+                                        stochastic=stochastic),
+            None, n_bytes, n_ops)
 
 
 def dequant_matmul_case(torch, dq, q, g, where=""):
@@ -2461,9 +2675,14 @@ def run_case(torch, tag, case, *, shape="", pick=None, iters=20):
         f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
         f"{bnd:.4f} ms ({by}; {n_bytes / 1e6:.3f} MB, {n_ops / 1e9:.3f} G "
         f"ops)")
-    return dict(shape=f"{shape}{label}", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                library_ms=lib_ms)
+    rec = dict(shape=f"{shape}{label}", max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+               library_ms=lib_ms)
+    if name == "quant_pack":
+        rec["device_ms"] = dev = device_ms(torch, kernel)
+        log(f"[{tag}]   device {dev:.4f} ms (held stream): {bnd / dev:.0%} "
+            f"of the bound")
+    return rec
 
 
 def check_block_kernels(torch, sp, dq, qp, blk, gen, tag):
@@ -3589,6 +3808,76 @@ def run_gcn(torch, host, gen):
     return runs, shapes
 
 
+# quant_pack in turns against another tree's kernel: (label, rows, d, bits,
+# SR) of every shape this script times the quant-pack at
+QUANT_TURN_SHAPES = (
+    ("serving store, user table", 70679, 256, 8, False),
+    ("KGAT INT2 site", 184166, 64, 2, True),
+    ("data=2 shard's sources", 184160, 64, 2, True),
+    ("sampled KG block's sources", 811008, 64, 2, True),
+    ("Cora layer 0", 2708, 1433, 2, True),
+    ("Cora layer 1", 2708, 16, 2, True),
+    ("ogbn-products layer 0", 2449029, 100, 2, True),
+    ("ogbn-products layer 1", 2449029, 16, 2, True),
+    ("sampled GCN block 0", 16384, 602, 2, True),
+)
+
+
+def quant_pack_turns(torch, other: Path) -> None:
+    """``--quant-pack-against DIR``: build ``DIR``'s
+    ``src/repro_torch/csrc/quant_pack.cu`` (another tree, e.g. the parent
+    commit's ``git archive``) beside this tree's, and at every shape of
+    ``QUANT_TURN_SHAPES`` hold the two to the same bits and take their
+    device times (held stream, inputs rotated where they fit the L2) in
+    turns: other, this, this, other."""
+    import ctypes
+
+    from repro_torch.kernels import backend
+    from repro_torch.kernels import quant_pack as qp
+
+    src = other / "src" / "repro_torch" / "csrc"
+    check((src / "quant_pack.cu").is_file(), f"no quant_pack.cu under {src}")
+    out = backend.BUILD_DIR / "against" / "quant_pack.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([backend._nvcc(), *backend.NVCC_FLAGS, "-o", str(out),
+                    str(src / "quant_pack.cu")], check=True, timeout=600,
+                   capture_output=True)
+    theirs = ctypes.CDLL(str(out)).quant_pack_launch
+    theirs.argtypes, theirs.restype = list(qp._ARGTYPES), ctypes.c_int
+    ours = backend.kernel_fn("quant_pack", "quant_pack_launch", qp._ARGTYPES)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    log(f"[quant_pack-turns] this tree against {other}: device ms (held "
+        f"stream), other / this / this / other")
+    for label, rows, d, bits, sr in QUANT_TURN_SHAPES:
+        xs = rotation(torch.randn((rows, d), generator=gen, device=DEV) * 0.3)
+        dp = -(-d // (8 // bits))
+
+        def call(fn, turn=itertools.count()):
+            x = xs[next(turn) % len(xs)]
+            res = (torch.empty((rows, dp), dtype=torch.uint8, device=DEV),
+                   torch.empty((rows, 1), device=DEV),
+                   torch.empty((rows, 1), device=DEV))
+            backend.launch(fn, x.data_ptr(), rows, d, bits, int(sr), 0x5EED,
+                           *(t.data_ptr() for t in res),
+                           backend.stream_of(x))
+            return res
+
+        a, b = call(theirs), call(ours)
+        same = all(torch.equal(u, v) for u, v in zip(a, b))
+        check(same, f"quant_pack {label}: the two trees' bits differ")
+        del a, b
+        t = [device_ms(torch, lambda f=f: call(f))
+             for f in (theirs, ours, ours, theirs)]
+        bnd, _ = bound_ms(rows * d * 4 + rows * (dp + 8), 7 * rows * d)
+        other_ms, this_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        log(f"  {label} {rows}x{d} INT{bits} {'sr' if sr else 'nearest'}: "
+            f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms; other "
+            f"{other_ms:.4f}, this {this_ms:.4f} ({other_ms / this_ms:.2f}x)"
+            f"; bound {bnd:.4f} ms: this {bnd / this_ms:.0%}, other "
+            f"{bnd / other_ms:.0%}; bits identical")
+        del xs
+
+
 def main() -> int:
     try:
         import torch
@@ -3612,6 +3901,11 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"[card] {smi}")
+    if sys.argv[1:2] == ["--quant-pack-against"] and len(sys.argv) == 3:
+        quant_pack_turns(torch, Path(sys.argv[2]).resolve())
+        print(smi)
+        return 0
+    check(len(sys.argv) == 1, f"unknown arguments {sys.argv[1:]}")
 
     from repro_torch.configs import get
     from repro_torch.data.synthetic import gen_kg_dataset
@@ -3682,7 +3976,8 @@ def main() -> int:
                                           or "Compiling" in line)
                     or "spill" in line):
                 log(f"  {name}: {line.strip()}")
-    for name in ("dequant_matmul", "dequant_unpack", "segment_sum"):
+    for name in ("quant_pack", "dequant_matmul", "dequant_unpack",
+                 "segment_sum"):
         spills = [ln for ln in logs[name].splitlines() if "spill" in ln]
         check(bool(spills), f"{name}.cu: no ptxas spill report")
         check(all("0 bytes spill stores, 0 bytes spill loads" in ln
@@ -3791,7 +4086,7 @@ def main() -> int:
             "launches_by_path", "launches_per_train_step")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     optional = ("also_replaces", "other_shape", "sampled_shape",
-                "shard_shape", "gcn_shape",
+                "shard_shape", "gcn_shape", "sass_per_element",
                 "library_call",
                 "kernels_per_call", "device_ms", "library_device_ms",
                 "device_ms_by_kernel", "spmm_route_device_ms",

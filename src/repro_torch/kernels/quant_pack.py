@@ -42,12 +42,15 @@ from repro_torch.core.quant import QTensor, dequantize, pack_bits
 from . import backend
 from .hashrng import hash_uniform
 
-__all__ = ["quant_pack_plain", "quant_pack_cuda", "dequant_unpack_plain",
-           "dequant_unpack_cuda"]
+__all__ = ["quant_pack_plain", "quant_pack_cuda", "quant_pack_plan",
+           "dequant_unpack_plain", "dequant_unpack_cuda"]
 
 _EPS = 1e-12
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _I, _I, _I, _I, ctypes.c_uint, _P, _P, _P, _P)
+_PLAN_ARGTYPES = (_I, _I, _I, _I, _P)
+_PLAN_KEYS = ("route", "rows_a_tile", "stages", "stage_floats", "smem",
+              "tiles", "lanes_a_row", "grid")
 _DQ_ARGTYPES = (_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P)
 
 
@@ -83,7 +86,8 @@ def _recip(bits: int) -> float:
 
 def quant_pack_cuda(x: torch.Tensor, seed: int, *, bits: int,
                     stochastic: bool = True):
-    """Launch ``csrc/quant_pack.cu`` on a contiguous fp32 CUDA table."""
+    """Launch ``csrc/quant_pack.cu`` on a contiguous fp32 CUDA table (at
+    any base: a row slice of a larger table needs no copy)."""
     backend.check_cuda(x, torch.float32, 2, "x")
     backend.require_sm90(x.device)
     if bits not in (1, 2, 4, 8):
@@ -100,6 +104,23 @@ def quant_pack_cuda(x: torch.Tensor, seed: int, *, bits: int,
                        scale.data_ptr(), zero.data_ptr(), backend.stream_of(x))
     backend.count_launch("quant_pack")
     return packed, scale, zero
+
+
+def quant_pack_plan(rows: int, d: int, *, bits: int,
+                    stochastic: bool = True) -> dict:
+    """The plan ``csrc/quant_pack.cu`` follows for a (rows, d) table on the
+    current card: ``route`` "tiles" (rows a tile, stage buffers, floats a
+    buffer, dynamic shared memory, tiles, lanes a row in the min/max) or
+    "rows" (a block a row, for rows wider than two stage buffers), and the
+    grid its launch takes."""
+    if bits not in (1, 2, 4, 8):
+        raise ValueError(f"unsupported bit-width {bits}")
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    fn = backend.kernel_fn("quant_pack", "quant_pack_plan", _PLAN_ARGTYPES)
+    backend.launch(fn, rows, d, bits, int(stochastic), ctypes.addressof(out))
+    plan = dict(zip(_PLAN_KEYS, out))
+    plan["route"] = ("tiles", "rows")[plan["route"]]
+    return plan
 
 
 def dequant_unpack_plain(packed: torch.Tensor, scale: torch.Tensor,

@@ -56,17 +56,46 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+QP_WIDTHS = [1, 3, 5, 16, 31, 32, 33, 37, 64, 100, 129, 602, 1433, 12288,
+             40000]
+
+
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("stochastic", [False, True])
-@pytest.mark.parametrize("d", [64, 37])
-def test_quant_pack_kernel_bit_identical(cuda, bits, stochastic, d):
+@pytest.mark.parametrize("d", QP_WIDTHS)
+@pytest.mark.parametrize("rows", ["301", "1", "7", "tile-1", "tile+1",
+                                  "slice"])
+def test_quant_pack_kernel_bit_identical(cuda, bits, stochastic, d, rows):
+    """Codes, scale and zero bit-identical to the plain version, and two
+    calls bit-identical, at the widths on the edges of the kernel's routes
+    (lanes a row 1-32, packs of 1-4 bytes a word, rows of whole words or
+    not, a row wider than a stage: 12,288, and wider than the ring: 40,000,
+    a warp a row) at 301, 1 and 7 rows (small tables take the warp-a-row
+    route), at a multiple of a tile's rows - 1 and + 1 (the tile route, its
+    last tile of T - 1 rows or of one), and on a misaligned base of that
+    size (``x[1:]`` of a table: at an odd width its base sits 4 bytes off
+    16). A constant row (R = 0) in every table of more than 5 rows."""
+    big = qp.quant_pack_plan(1 << 22, d, bits=bits, stochastic=stochastic)
+    n = {"301": 301, "1": 1, "7": 7}.get(rows)
+    if n is None:
+        t = big["rows_a_tile"] if big["route"] == "tiles" else 1
+        n = t * 1024 + (-1 if rows == "tile-1" else 1)
+        plan = qp.quant_pack_plan(n, d, bits=bits, stochastic=stochastic)
+        assert plan["route"] == big["route"]
+        assert plan["rows_a_tile"] == big["rows_a_tile"]
     gen = torch.Generator(device=cuda).manual_seed(bits * 7 + d)
-    x = torch.randn((301, d), generator=gen, device=cuda)
-    x[5] = 0.5                                            # R == 0
+    x = torch.randn((n + (rows == "slice"), d), generator=gen, device=cuda)
+    if rows == "slice":
+        x = x[1:]
+        assert x.is_contiguous()
+    if n > 5:
+        x[5] = 0.5                                        # R == 0
     got = qp.quant_pack_cuda(x, 99, bits=bits, stochastic=stochastic)
+    again = qp.quant_pack_cuda(x, 99, bits=bits, stochastic=stochastic)
     ref = qp.quant_pack_plain(x, 99, bits=bits, stochastic=stochastic)
-    for g, r in zip(got, ref):
+    for g, a, r in zip(got, again, ref):
         assert torch.equal(g, r)
+        assert torch.equal(g, a)
 
 
 def _layout(cuda, n_src, n_dst, n_edges, seed):

@@ -59,7 +59,7 @@ def test_pack_unpack_layout_matches_jax(bits):
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 @pytest.mark.parametrize("stochastic", [False, True])
-@pytest.mark.parametrize("d", [32, 37])
+@pytest.mark.parametrize("d", [32, 37, 16, 100, 602])
 def test_quant_pack_bit_identical_to_ref(bits, stochastic, d):
     """The oracle runs compiled, as every JAX caller runs it: XLA turns its
     ``R / B`` into ``R * fl(1/B)``, and so does the port (an eager run of
