@@ -272,13 +272,48 @@ their plain versions.
     and backward timed, then profiled with the counts reset just before
     and read just after: the path's kernels and the segment sum launched,
     no index_add_ kernel.
-15. Prints the kernels JSON line (launches per path: serve, serve_tier2,
+15. The recsys family (FM, Wide&Deep, DLRM, xDeepFM; seed-0 parameters
+    drawn on the card, Adam 1e-3, root seed 1, ``criteo_batches(seed=3)``).
+    [recsys-kernels]: the quant-pack (INT2 SR) at 40,960 x 7,800 and x
+    1,521 (xDeepFM's CIN residuals at batch 4,096), 4,096 x 13 and 4,096 x
+    1,280; the dequant-matmul (INT2) at (40,960, 7,800, 200), (40,960,
+    1,521, 200), (4,096, 13, 512) and (4,096, 256, 1); the top-K at d 11,
+    33 and 129 over 1,000,000 INT8 candidates (B 8, k 32); the segment
+    sum on the lookup plan of each model's first batch at 4,096 (the
+    table gradient by distinct row: 106,496-163,840 positions, hub rows
+    of more than a chunk, at the embedding width and at width 1), and the
+    whole lookup forward and backward (``gather_rows`` with ``rows=``)
+    against its plain version and ``index_add_``: each against its plain
+    version, twice bit-identical, timed beside its library call and bound
+    (``recsys_shape`` in the kernels line). [recsys]: three reduced INT2
+    steps of each model on the card against the CPU (losses within 1e-4;
+    ``reduced_recsys_losses`` of tests/test_torch_cuda.py); each model at full
+    width (xDeepFM and FM 33,764,241 table rows, Wide&Deep 12,693,600, DLRM at
+    MLPerf widths with each table capped at 2,097,152 rows: 13,693,358), batch
+    4,096, 6 steps under FP32 and INT2 through ``train_model`` (counts reset
+    just before and read just after; exactly ``path_kernels`` launched, the
+    same every step; median step, peak memory, ACT bytes against FP32, losses,
+    AUC on a held-out batch; one INT2 step of each profiled: device busy time,
+    idle share, the longest kernels, no index_add_); xDeepFM at batch
+    16,384, 3 steps under FP32 and INT2 (the peak memory ACT sells at the
+    CIN; INT2's peak must be lower); [determinism]: two xDeepFM INT2 steps
+    from one state bit-identical. [recsys-serve]: ``serve_recsys``
+    p50/p99 of each model at ``serve_p99`` (512) and ``serve_bulk``
+    (262,144; xDeepFM 16,384: at 262,144 two of its (B, k, 7,800) CIN
+    inputs, 81.8 GB each, are held at once). [recsys-retrieval]: the
+    two-stage path, xDeepFM's towers over 1,000,000 candidates of field 2,
+    INT8 store, top-32 through the engine for 200 requests (the quant-pack
+    and top-K launched), the first 16 responses against the plain top-K on
+    the served store, the recall against a dense fp32 top-32 of the same
+    towers and the re-rank's p50/p99. The phase prints its seconds.
+16. Prints the kernels JSON line (launches per path: serve, serve_tier2,
     train_<schedule>, train_<model>_<schedule>, train_sampled_<model>_
     <schedule>, train_dp_<mesh>_<schedule>_<all-reduce>, train_gcn_
     <schedule>, train_gcn_products_<schedule>, train_gcn_sampled_
-    <schedule>, train_gcn_molecule; ``gcn_shape``: each kernel's checks
-    and times at the GCN shapes), the card's line, then last the ok
-    line.
+    <schedule>, train_gcn_molecule, train_recsys_<arch>_<schedule>,
+    train_recsys_xdeepfm_b16384_<schedule>, serve_recsys_retrieval;
+    ``gcn_shape`` and ``recsys_shape``: each kernel's checks and times at
+    the GCN and recsys shapes), the card's line, then last the ok line.
 
     python3 chip_smoke.py --quant-pack-against DIR
 
@@ -342,6 +377,18 @@ GRAD_FP64_RATIO = 4.0
 GCN_FULL = (("gcn", "full_graph_sm", 8), ("gcn-products", "ogb_products", 3))
 GCN_SAMPLED_STEPS = 4
 # several ranks sharing the one card (training.data_parallel, gloo)
+RECSYS_ARCHS = ("fm", "wide-deep", "dlrm-mlperf", "xdeepfm")
+RECSYS_BATCH = 4096          # xDeepFM's published batch (arXiv:1803.05170)
+RECSYS_STEPS = 6             # per model and schedule
+RECSYS_ROW_CAP = {"dlrm-mlperf": 2097152}   # 96.1 GB of table cut to 7.0
+RECSYS_PEAK_BATCH = 16384    # xDeepFM's peak-memory runs
+RECSYS_PEAK_STEPS = 3
+RECSYS_HELDOUT_SEED = 4      # the held-out AUC batch (training uses 3)
+RECSYS_P99_REQUESTS = 50
+RECSYS_BULK_REQUESTS = 10
+RECSYS_XDEEPFM_BULK = 16384  # serve_bulk for xDeepFM (its CIN input)
+RECSYS_RETRIEVAL = dict(n_cand=1_000_000, k=32, requests=200,
+                        item_field=2, bits=8)
 DP_MESHES = ("data=2", "data=2,model=2")
 DP_RUNS = (("fp32", "int8"), ("int2", "int8"), ("fp32", "fp32"))
 DP_STEPS = 3                 # per run: (schedule, all-reduce)
@@ -1841,14 +1888,14 @@ def train_quietly(train, name, *args, **kw):
 
 
 def train_run(torch, tag, name, step, label, steps, *, exact=False,
-              falls=False):
+              falls=False, keep_params=False):
     """``train_model`` on ``step`` under schedule ``label`` for ``steps``
     steps from its seed-0 parameters, the launch counts reset just before
     and read just after: losses finite (and falling, ``falls``), every
     kernel of the model's path launched (``exact``: those and no other),
     the same launches every step. Prints and returns the median step, the
     peak allocated memory, the ACT residual bytes (and their FP32 price)
-    and the launches."""
+    and the launches (and, ``keep_params``, the trained parameters)."""
     from repro_torch.core.policy import parse_schedule
     from repro_torch.kernels import backend
     from repro_torch.launch.train import train_model
@@ -1864,6 +1911,7 @@ def train_run(torch, tag, name, step, label, steps, *, exact=False,
     wall = time.perf_counter() - t0
     counts = dict(backend.LAUNCH_COUNTS)
     hist = res["steps"]
+    trained = res["params"] if keep_params else None
     del res, params
     losses = [r["loss"] for r in hist]
     act = hist[0]["act"]
@@ -1880,7 +1928,8 @@ def train_run(torch, tag, name, step, label, steps, *, exact=False,
         f"max_memory_allocated {r['peak']} B ({r['peak'] / 2**20:.1f} MiB), "
         f"ACT residual bytes {r['act_bytes']} ({r['act_bytes'] / 1e6:.1f} "
         f"MB; FP32-priced {r['act_fp32'] / 1e6:.1f} MB, "
-        f"{r['act_fp32'] / r['act_bytes']:.2f}x)")
+        + (f"{r['act_fp32'] / r['act_bytes']:.2f}x)" if r["act_bytes"]
+           else "no ACT site)"))
     log(f"[{tag}] {name}: launches per step "
         f"{json.dumps(per_step, sort_keys=True)}; run total "
         f"{json.dumps(counts, sort_keys=True)}")
@@ -1895,6 +1944,8 @@ def train_run(torch, tag, name, step, label, steps, *, exact=False,
           f"{sorted(want)}")
     check(all(x["launches"] == per_step for x in hist),
           f"[{tag}] {name}: launches differ between steps")
+    if keep_params:
+        r["params"] = trained
     return r
 
 
@@ -1927,24 +1978,27 @@ def run_training(torch, cfg, ds, g):
 
 
 def profile_step(torch, cfg, ds, g, label="int2", top=15):
-    """torch.profiler over one steady training step of ``cfg.model``: device
+    """``profile_model_step`` on the full-width BPR step of KG
+    ``cfg.model``."""
+    name = label if cfg.model == "kgat" else f"{cfg.model} {label}"
+    profile_model_step(torch, _kg_step(cfg, ds, g), name, label, top)
+
+
+def profile_model_step(torch, step, name, label="int2", top=15):
+    """torch.profiler over one steady training step of ``step``: device
     time by kernel (the ``top`` longest), busy time and idle share of the
     step's wall time; fails on an index_add_ scatter kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.policy import parse_schedule
     from repro_torch.launch.train import ROOT_SEED
-    from repro_torch.models.registry import arch_of, build_step
     from repro_torch.training.optimizer import adam
     from repro_torch.training.step import make_train_step
 
-    step = build_step(arch_of(cfg.model), ds=ds, cfg=cfg,
-                      batch_size=TRAIN_BATCH, device=DEV, graph=g)
     opt = adam(step.lr)
     params = step.init(0)
     train = make_train_step(step, opt, schedule=parse_schedule(label),
                             root_seed=ROOT_SEED)
-    name = label if cfg.model == "kgat" else f"{cfg.model} {label}"
     batches = step.batches()
     state = (params, opt.init(params))
     state, m = train(state, next(batches), 0)         # warm
@@ -3808,6 +3862,419 @@ def run_gcn(torch, host, gen):
     return runs, shapes
 
 
+def _recsys_cfg(arch):
+    """The card's config of ``arch``: full width, DLRM's tables capped."""
+    from repro_torch.models.registry import recsys_config
+
+    return recsys_config(arch, row_cap=RECSYS_ROW_CAP.get(arch))
+
+
+def recsys_topk_case(torch, tk, gen, d, shapes):
+    """Top-32 of 8 queries over 1,000,000 INT8 item rows of width ``d`` (a
+    recsys tower): kernel against its plain version (values within TOL,
+    indices equal except between near-ties, the values the dense scores of
+    the returned ids; two runs bit-identical), timed beside the plain
+    version, the library call and the bound (as ``check_topk``)."""
+    from repro_torch.core.quant import dequantize, quantize
+
+    n_items, b, k = RECSYS_RETRIEVAL["n_cand"], ENGINE_BATCH, \
+        RECSYS_RETRIEVAL["k"]
+    items = quantize(torch.randn((n_items, d), generator=gen, device=DEV)
+                     * 0.3, 0, bits=8)
+    q = torch.randn((b, d), generator=gen, device=DEV) * 0.3
+    excl = torch.full((b, 1), -1, dtype=torch.int32, device=DEV)
+
+    def kernel():
+        return tk.topk_cuda(q, items, excl, k=k)
+
+    def library():
+        return torch.topk(q @ dequantize(items).T, k)
+
+    kv, ki = kernel()
+    kv2, ki2 = kernel()
+    pv, pi = tk.topk_plain(q, items, excl, k=k)
+    err, swaps, ok = _close_topk(torch, kv, ki, pv, pi)
+    dense = q @ dequantize(items).T
+    picked = float((torch.gather(dense, 1, ki.long()) - kv).abs().max())
+    same = torch.equal(kv, kv2) and torch.equal(ki, ki2)
+    label = f"topk_score I={n_items} d={d} k={k} B={b} int8"
+    log(f"[recsys-kernels] {label}: values rel {err:.3e}, {swaps} index "
+        f"swaps (near-ties), two runs "
+        f"{'bit-identical' if same else 'DIFFER'}")
+    check(ok and same and picked <= TOL * float(pv.abs().max()),
+          f"[recsys-kernels] {label} out of tolerance")
+    ms = time_ms(kernel, 20)
+    plain = time_ms(lambda: tk.topk_plain(q, items, excl, k=k), 3, warmup=1)
+    lib = time_ms(library, 20)
+    dev = _device_times(torch, kernel, library, label)
+    n_bytes = (n_items * items.packed.shape[1] + 8 * n_items + b * d * 4
+               + excl.numel() * 4 + b * k * 8)
+    shapes.setdefault("topk_score", []).append(_entry(
+        "topk_score", "topk_score", "src/repro/kernels/topk_score.py:115",
+        err * float(pv.abs().max()), ms, plain, lib, n_bytes,
+        2 * b * n_items * d + 2 * n_items * d, f"recsys {label}",
+        library_call="torch.topk(q @ dequantize(items).T)", **dev))
+
+
+def recsys_kernel_cases(torch, gen, shapes):
+    """[recsys-kernels]: every kernel of the recsys paths at the shapes the
+    full-width models give it, through ``run_case`` (top-K through
+    ``recsys_topk_case``): the quant-pack (INT2 SR) at xDeepFM's CIN
+    residuals at batch 4,096 (R = B·k = 40,960 rows of 7,800 and 1,521),
+    DLRM's dense input (4,096 x 13) and Wide&Deep's first MLP input (4,096
+    x 1,280); the dequant-matmul (INT2) at the CIN's ∇W ((40,960, 7,800,
+    200): 488 output tiles over 264 CTAs, one row chunk each; (40,960,
+    1,521, 200)), an MLP's last layer (4,096, 256, 1) and DLRM's bottom
+    fc0 (4,096, 13, 512); the top-K at tower widths 11, 33 and 129 over
+    1,000,000 INT8 candidates; the segment sum on each model's table
+    gradient (``recsys_table_grad_cases``). Records under ``shapes`` by
+    kernel name."""
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import dequant_matmul as dq
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.kernels import topk_score as tk
+
+    tag = "recsys-kernels"
+    log(f"[{tag}] kernels vs plain and library at the recsys shapes "
+        f"(batch {RECSYS_BATCH})")
+    rows = RECSYS_BATCH * 10                     # xDeepFM: B * k
+    for where, r, dim, n in (("xDeepFM cin1 ", rows, 7800, 200),
+                             ("xDeepFM cin0 ", rows, 1521, 200),
+                             ("DLRM bot fc0 ", RECSYS_BATCH, 13, 512),
+                             ("Wide&Deep deep fc0 ", RECSYS_BATCH, 1280,
+                              1024),
+                             ("DLRM top fc4 ", RECSYS_BATCH, 256, 1)):
+        x = torch.randn((r, dim), generator=gen, device=DEV)
+        seed = 0x7EC + dim
+        if where != "DLRM top fc4 ":
+            c = quant_case(qp, x, seed, where)
+            shapes.setdefault("quant_pack", []).append(run_case(
+                torch, tag, c, shape="recsys ", iters=10))
+            del c
+        if where != "Wide&Deep deep fc0 ":
+            q = quantize(x, seed, bits=2, stochastic=True)
+            g = torch.randn((r, n), generator=gen, device=DEV) * 1e-2
+            c = dequant_matmul_case(torch, dq, q, g, where)
+            shapes.setdefault("dequant_matmul", []).append(run_case(
+                torch, tag, c, shape="recsys ", iters=10))
+            del c, q, g
+        del x
+        torch.cuda.empty_cache()
+    for d in (11, 33, 129):
+        recsys_topk_case(torch, tk, gen, d, shapes)
+    torch.cuda.empty_cache()
+    for archs in (("fm", "xdeepfm"), ("wide-deep",), ("dlrm-mlperf",)):
+        recsys_table_grad_cases(torch, gen, archs, shapes)
+        torch.cuda.empty_cache()
+
+
+def recsys_table_grad_cases(torch, gen, archs, shapes):
+    """The tables' gradient on the lookup plan of the first training batch
+    of ``archs`` (``criteo_batches(seed=3)`` at batch 4,096; FM and xDeepFM
+    share their fields, widths and batches): the segment sum of the
+    positions' gradients by distinct row (``run_case`` and
+    ``segment_sum_report``: its hub rows of more than a chunk take the
+    two-kernel route), at the embedding width and, where the model reads
+    the linear term, at width 1; then the whole lookup forward and backward
+    (``gather_rows`` with ``rows=``: the sums copied into the dense table
+    gradient) against its plain version and ``index_select``'s backward,
+    ``index_add_`` into the table. Records under ``shapes``."""
+    from repro_torch.core.act import gather_rows
+    from repro_torch.data.synthetic import criteo_batches
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import spmm as sp
+    from repro_torch.models import recsys
+    from repro_torch.models.registry import RECSYS_DATA_SEED
+
+    tag = "recsys-kernels"
+    cfg = _recsys_cfg(archs[0])
+    b = next(criteo_batches(batch=RECSYS_BATCH, n_dense=max(cfg.n_dense, 1),
+                            vocab_sizes=cfg.vocab_sizes,
+                            seed=RECSYS_DATA_SEED))
+    plan = recsys.lookup_plan(b["sparse"], cfg, DEV)
+    levels, E = plan.runs, plan.ids.numel()
+    n_out, n_rows = levels[-1].n_out, cfg.total_vocab
+    inv = torch.searchsorted(plan.rows, plan.ids)    # position -> its run
+    who = "/".join(archs)
+    log(f"[{tag}] {who} table gradient: {E:,} positions ({RECSYS_BATCH} x "
+        f"{cfg.n_sparse} fields), {n_out:,} distinct rows of {n_rows:,}")
+    widths = (cfg.embed_dim,) + ((1,) if cfg.model != "dlrm" else ())
+    for d in widths:
+        y = torch.randn((E, d), generator=gen, device=DEV) * 1e-3
+        label = f"{who} lookup segment_sum d={d}"
+
+        def library(y=y, d=d):
+            return torch.zeros((n_out, d), device=DEV).index_add_(0, inv, y)
+
+        n_bytes = E * (d + 1) * 4 + n_out * (d + 2) * 4
+        rec = run_case(torch, tag, (
+            label, "segment_sum", lambda y=y: sp.segment_sum_cuda(y, levels),
+            lambda y=y: sp.segment_sum_plain(y, levels), library, n_bytes,
+            E * d), shape="recsys ", iters=10)
+        rec.update(segment_sum_report(torch, sp, y, levels, library, n_bytes,
+                                      f"[{tag}] {label}"))
+        shapes.setdefault("segment_sum", []).append(rec)
+    d = cfg.embed_dim
+    table = torch.zeros((n_rows, d), device=DEV, requires_grad=True)
+    g = torch.randn((E, d), generator=gen, device=DEV) * 1e-3
+
+    def lookup():
+        out = gather_rows(table, plan.ids, levels, rows=plan.rows)
+        return torch.autograd.grad(out, table, g)[0]
+
+    def lookup_plain():
+        with plain_versions(ops, segment_sum=sp.segment_sum_plain):
+            return lookup()
+
+    def lookup_library():
+        return torch.autograd.grad(table.index_select(0, plan.ids), table,
+                                   g)[0]
+
+    # the forward's gather (ids, rows read, rows written), the backward's
+    # gradient, permutation and runs, the sums, the distinct rows and the
+    # whole dense gradient written once
+    n_bytes = (E * 8 + 3 * E * d * 4 + E * 4 + n_out * 8 + n_out * d * 4
+               + n_out * 8 + n_rows * d * 4)
+    shapes["segment_sum"].append(run_case(torch, tag, (
+        f"{who} lookup forward and backward (gather_rows rows=) d={d}, "
+        f"{n_rows:,}-row table", "segment_sum", lookup, lookup_plain,
+        lookup_library, n_bytes, E * d), shape="recsys ", iters=10))
+    del table, g
+
+
+def recsys_reduced(torch):
+    """Three reduced INT2 steps of each recsys model on the card against
+    the CPU's plain versions from the same parameters: losses within 1e-4
+    relative (``reduced_recsys_losses`` of tests/test_torch_cuda.py, whose
+    card test holds the same)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda import reduced_recsys_losses
+
+    for arch in RECSYS_ARCHS:
+        losses = reduced_recsys_losses(arch, DEV)[0]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses[str(DEV)],
+                                                       losses["cpu"]))
+        log(f"[recsys] reduced {arch} INT2, card vs CPU plain versions: "
+            f"losses {[f'{v:.6f}' for v in losses[str(DEV)]]}, max rel "
+            f"{rel:.3e}")
+        check(rel <= 1e-4, f"reduced {arch} differs from the CPU by {rel}")
+
+
+def _heldout_auc(torch, step, params):
+    """AUC of ``params`` on a held-out batch (``criteo_batches`` from
+    another seed, the step's batch size)."""
+    from repro_torch.data.synthetic import criteo_batches
+    from repro_torch.models import recsys
+    from repro_torch.training.metrics import auc
+
+    cfg = step.cfg
+    b = next(criteo_batches(batch=step.data["batch"],
+                            n_dense=max(cfg.n_dense, 1),
+                            vocab_sizes=cfg.vocab_sizes,
+                            seed=RECSYS_HELDOUT_SEED))
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in b.items()}
+    with torch.no_grad():
+        logits = recsys.forward(params, batch, cfg)
+    check(bool(torch.isfinite(logits).all()), "non-finite held-out logits")
+    return auc(logits, batch["label"])
+
+
+def recsys_train(torch):
+    """[recsys] training: each model at full width (DLRM's tables capped at
+    ``RECSYS_ROW_CAP``), batch 4,096, ``RECSYS_STEPS`` steps under FP32
+    and INT2 (``train_run``: exactly the path's kernels, the same every
+    step), AUC on a held-out batch; xDeepFM at batch 16,384 under FP32 and
+    INT2 (the peak memory ACT sells at the CIN); two xDeepFM INT2 steps
+    from one state bit-identical ([determinism])."""
+    from repro_torch.configs import get
+    from repro_torch.models.registry import build_step
+
+    runs = {}
+    for arch in RECSYS_ARCHS:
+        cfg = _recsys_cfg(arch)
+        full = int(sum(get(arch).model_cfg.vocab_sizes))
+        step = build_step(arch, device=DEV, cfg=cfg, batch_size=RECSYS_BATCH)
+        rows = int(sum(cfg.vocab_sizes))
+        cap = RECSYS_ROW_CAP.get(arch)
+        log(f"[recsys] {arch} ({cfg.model}): {cfg.n_sparse} fields, "
+            f"{rows:,} table rows x d {cfg.embed_dim} = "
+            f"{rows * cfg.embed_dim * 4 / 1e9:.2f} GB"
+            + (f" (reduced: each table capped at {cap:,} rows; the full "
+               f"{full:,} rows x {cfg.embed_dim} x 4 B = "
+               f"{full * cfg.embed_dim * 4 / 1e9:.1f} GB do not fit one "
+               f"card)" if cap else " (full vocabulary)")
+            + f", batch {RECSYS_BATCH}, Adam {step.lr}")
+        got = {}
+        for label in ("fp32", "int2"):
+            r = train_run(torch, "recsys", f"{arch} {label}", step, label,
+                          RECSYS_STEPS, exact=True, keep_params=True)
+            r["auc"] = _heldout_auc(torch, step, r.pop("params"))
+            log(f"[recsys] {arch} {label}: held-out AUC {r['auc']:.4f} "
+                f"(batch {RECSYS_BATCH}, after {RECSYS_STEPS} steps)")
+            got[label] = r
+            torch.cuda.empty_cache()
+        if cfg.model != "fm":
+            check(got["int2"]["act_bytes"] < got["fp32"]["act_bytes"]
+                  and got["int2"]["act_fp32"] == got["fp32"]["act_fp32"],
+                  f"[recsys] {arch} ACT bytes INT2 vs FP32")
+        key = arch.replace("-", "_")
+        runs.update({f"recsys_{key}_{label}": r for label, r in got.items()})
+        profile_model_step(torch, step, f"{arch} int2", top=10)
+        del step
+        torch.cuda.empty_cache()
+    step = build_step("xdeepfm", device=DEV, batch_size=RECSYS_PEAK_BATCH)
+    peak = {label: train_run(torch, "recsys", f"xdeepfm batch "
+                             f"{RECSYS_PEAK_BATCH} {label}", step, label,
+                             RECSYS_PEAK_STEPS, exact=True)
+            for label in ("fp32", "int2")}
+    log(f"[recsys] xdeepfm batch {RECSYS_PEAK_BATCH}: peak FP32 "
+        f"{peak['fp32']['peak'] / 2**30:.2f} GiB, INT2 "
+        f"{peak['int2']['peak'] / 2**30:.2f} GiB (-"
+        f"{(peak['fp32']['peak'] - peak['int2']['peak']) / 2**30:.2f} GiB); "
+        f"ACT residual bytes {peak['fp32']['act_bytes'] / 2**30:.2f} -> "
+        f"{peak['int2']['act_bytes'] / 2**30:.2f} GiB")
+    check(peak["int2"]["peak"] < peak["fp32"]["peak"],
+          "[recsys] xDeepFM's INT2 peak is not below FP32's")
+    runs.update({f"recsys_xdeepfm_b{RECSYS_PEAK_BATCH}_{label}": r
+                 for label, r in peak.items()})
+    del step
+    torch.cuda.empty_cache()
+    check_two_steps(torch, "determinism", "xdeepfm int2",
+                    build_step("xdeepfm", device=DEV,
+                               batch_size=RECSYS_BATCH), "int2")
+    torch.cuda.empty_cache()
+    return runs
+
+
+def recsys_serve(torch):
+    """[recsys-serve]: each model at full width (DLRM capped), random seed-0
+    parameters: ``serve_recsys`` at ``serve_p99`` (512 examples,
+    ``RECSYS_P99_REQUESTS`` batches) and ``serve_bulk`` (262,144, or
+    16,384 for xDeepFM, whose CIN inputs at 262,144 would not fit;
+    ``RECSYS_BULK_REQUESTS`` batches), ids drawn per field from each
+    field's vocabulary (``serve._recsys_queries``). Forward only: no ACT
+    residual and no gradient, so no kernel launches."""
+    from repro_torch.configs import get
+    from repro_torch.launch.serve import serve_recsys
+    from repro_torch.models import recsys
+
+    out = {}
+    for arch in RECSYS_ARCHS:
+        cfg = _recsys_cfg(arch)
+        p = get(arch)
+        params = recsys.init_params(cfg, seed=0, device=DEV)
+        bulk = p.shape("serve_bulk").p()["batch"]
+        why = ""
+        if cfg.cin_layers:
+            # a layer's (B, k, H·F) CIN input is made while the previous
+            # layer's is still held: the widest consecutive pair
+            widths = [cfg.n_sparse] + list(cfg.cin_layers[:-1])
+            per = [h * cfg.n_sparse * cfg.embed_dim * 4 for h in widths]
+            pair = max(a + b for a, b in zip(per, per[1:] + [0]))
+            total = torch.cuda.get_device_properties(0).total_memory
+            if bulk * pair > total:
+                why = (f" (serve_bulk's {bulk:,} would hold (B, k, H·F) "
+                       f"CIN inputs of {bulk * max(per) / 1e9:.1f} and "
+                       f"{bulk * (pair - max(per)) / 1e9:.1f} GB at once, "
+                       f"more than the card's {total / 1e9:.1f} GB: run at "
+                       f"{RECSYS_XDEEPFM_BULK:,})")
+                bulk = RECSYS_XDEEPFM_BULK
+        res = {}
+        for shape, batch, n in (("serve_p99", p.shape("serve_p99").p()
+                                 ["batch"], RECSYS_P99_REQUESTS),
+                                ("serve_bulk", bulk, RECSYS_BULK_REQUESTS)):
+            torch.cuda.reset_peak_memory_stats()
+            r = serve_recsys(cfg, params, batch=batch, requests=n,
+                             device=DEV,
+                             name=f"{arch} {shape}", log=lambda _: None)
+            r["peak"] = torch.cuda.max_memory_allocated()
+            log(f"[recsys-serve] {arch} {shape}: batch {batch:,}, "
+                f"{n} batches: p50 {r['p50_ms']:.3f} ms, p99 "
+                f"{r['p99_ms']:.3f} ms ({batch / r['p50_ms'] * 1e3:,.0f} "
+                f"examples/s at p50), peak {r['peak'] / 2**30:.2f} GiB"
+                + (why if shape == "serve_bulk" else ""))
+            res[shape] = r
+        counts = [r["launches"] for r in res.values()]
+        log(f"[recsys-serve] {arch}: kernel launches of the timed batches "
+            f"{json.dumps(counts) if any(counts) else 'none (forward only)'}")
+        check(all(math.isfinite(r["p50_ms"]) for r in res.values()),
+              f"[recsys-serve] {arch}: no latency")
+        out[arch] = res
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def recsys_retrieval(torch):
+    """[recsys-retrieval]: the two-stage path at full width
+    (``serve_recsys_two_stage``): xDeepFM's towers over 1,000,000
+    candidates of field 2 (vocab 10,131,227), the item tower packed at
+    INT8, top-32 through the engine for ``RECSYS_RETRIEVAL["requests"]``
+    requests, counts reset just before and read just after (the quant-pack
+    and the top-K must have launched); the engine's responses for the
+    first 16 requests against the plain top-K on the served store (values
+    within TOL, indices equal except between near-ties); the recall against
+    a dense fp32 top-32 of the same towers and the re-rank's times."""
+    from repro_torch.kernels import backend
+    from repro_torch.kernels import topk_score as tk
+    from repro_torch.launch.serve import serve_recsys_two_stage
+    from repro_torch.models import recsys
+
+    cfg = _recsys_cfg("xdeepfm")
+    params = recsys.init_params(cfg, seed=0, device=DEV)
+    rc = RECSYS_RETRIEVAL
+    torch.cuda.synchronize()
+    backend.reset_counts()
+    res = serve_recsys_two_stage(
+        cfg, params, n_cand=rc["n_cand"], k=rc["k"],
+        requests=rc["requests"], bits=rc["bits"],
+        item_field=rc["item_field"], device=DEV, name="xdeepfm",
+        log=lambda m: log(m.replace("[serve]", "[recsys-retrieval]")))
+    torch.cuda.synchronize()
+    counts = dict(backend.LAUNCH_COUNTS)
+    for name, ph in res["phases"].items():
+        log(f"[recsys-retrieval] phase {name}: {ph['seconds'] * 1e3:.1f} ms"
+            f", launches {json.dumps(ph['launches'], sort_keys=True)}")
+    check({"quant_pack", "topk_score"} <= set(counts),
+          f"[recsys-retrieval] launched {sorted(counts)}")
+    store = res["store"]
+    n = 16
+    users = store.user_vectors(torch.arange(n, device=DEV))
+    excl = torch.full((n, 1), -1, dtype=torch.int32, device=DEV)
+    pv, pi = tk.topk_plain(users, store.items, excl, k=rc["k"])
+    err, swaps, ok = _close_topk(torch, res["retrieved_values"][:n],
+                                 res["retrieved"][:n], pv.cpu(), pi.cpu())
+    log(f"[recsys-retrieval] the engine's top-{rc['k']} of the first {n} "
+        f"requests against the plain top-K on the served store: values rel "
+        f"{err:.3e}, {swaps} index swaps (near-ties); recall@{rc['k']} "
+        f"{res['recall']:.4f} against the dense fp32 top-{rc['k']} of the "
+        f"same towers; re-rank of a top-{rc['k']}: p50 "
+        f"{res['rerank_p50_ms']:.3f} ms, p99 {res['rerank_p99_ms']:.3f} ms")
+    check(ok, "[recsys-retrieval] the engine's responses differ from the "
+          "plain top-K")
+    check(0.0 < res["recall"] <= 1.0, "[recsys-retrieval] no recall")
+    out = {key: res[key] for key in ("recall", "rerank_p50_ms",
+                                     "rerank_p99_ms", "stats", "phases")}
+    del res, store, params
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def run_recsys(torch, gen, shapes):
+    """The recsys phases ([recsys-kernels], [recsys] with the reduced
+    steps, the training runs and xDeepFM's [determinism] pair,
+    [recsys-serve], [recsys-retrieval]); returns the training runs by path
+    key, the retrieval's launches and the figures printed."""
+    t0 = time.perf_counter()
+    recsys_kernel_cases(torch, gen, shapes)
+    recsys_reduced(torch)
+    runs = recsys_train(torch)
+    serve = recsys_serve(torch)
+    retrieval, counts = recsys_retrieval(torch)
+    log(f"[recsys] phase {time.perf_counter() - t0:.1f} s")
+    return runs, counts, serve, retrieval
+
+
 # quant_pack in turns against another tree's kernel: (label, rows, d, bits,
 # SR) of every shape this script times the quant-pack at
 QUANT_TURN_SHAPES = (
@@ -4047,6 +4514,9 @@ def main() -> int:
     runs_dp = run_dp(torch, cfg, ds, dp_ref, runs)
     torch.cuda.empty_cache()
     runs_gcn, gcn_shapes = run_gcn(torch, gcn_host, gen)
+    torch.cuda.empty_cache()
+    recsys_shapes = {}
+    runs_rs, counts_rs, _, _ = run_recsys(torch, gen, recsys_shapes)
     # launches: the sum over the main-path runs (serving, then training
     # KGAT under each schedule and KGCN, KGIN, R-GCN under FP32 and INT2,
     # then the sampled, multi-rank and GCN runs), each counted from 0 just
@@ -4064,6 +4534,9 @@ def main() -> int:
                         if not key.endswith("_per_step")})
         by_path.update({f"train_{key}": r["counts"].get(e["name"], 0)
                         for key, r in runs_gcn.items()})
+        by_path.update({f"train_{key}": r["counts"].get(e["name"], 0)
+                        for key, r in runs_rs.items()})
+        by_path["serve_recsys_retrieval"] = counts_rs.get(e["name"], 0)
         e["launches_by_path"] = by_path
         e["launches_per_train_step"] = {
             label: r["per_step"].get(e["name"], 0)
@@ -4076,9 +4549,11 @@ def main() -> int:
             for key, c in runs_dp.items() if key.endswith("_per_step")})
         e["launches_per_train_step"].update({
             f"train_{key}": r["per_step"].get(e["name"], 0)
-            for key, r in runs_gcn.items()})
+            for key, r in {**runs_gcn, **runs_rs}.items()})
         if e["name"] in gcn_shapes:
             e["gcn_shape"] = gcn_shapes[e["name"]]
+        if e["name"] in recsys_shapes:
+            e["recsys_shape"] = recsys_shapes[e["name"]]
         e["launches"] = sum(by_path.values())
         check(e["launches"] > 0, f"kernel {e['name']} never launched")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -4086,7 +4561,8 @@ def main() -> int:
             "launches_by_path", "launches_per_train_step")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     optional = ("also_replaces", "other_shape", "sampled_shape",
-                "shard_shape", "gcn_shape", "sass_per_element",
+                "shard_shape", "gcn_shape", "recsys_shape",
+                "sass_per_element",
                 "library_call",
                 "kernels_per_call", "device_ms", "library_device_ms",
                 "device_ms_by_kernel", "spmm_route_device_ms",

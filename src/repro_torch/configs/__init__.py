@@ -1,15 +1,18 @@
-"""Architecture registry of the port (the KG archs kgat, kgcn, kgin and the
-GNN arch gcn-cora)."""
+"""Architecture registry of the port (the KG archs kgat, kgcn, kgin, the
+GNN arch gcn-cora and the recsys archs fm, wide-deep, dlrm-mlperf and
+xdeepfm)."""
 
 from __future__ import annotations
 
 from .base import ArchSpec, ShapeSpec
 from .gcn_cora import GCN_CORA
 from .kgnn_paper import KGAT, KGCN, KGIN
+from .recsys_archs import DLRM_MLPERF, FM, WIDE_DEEP, XDEEPFM
 
 __all__ = ["ARCHS", "get", "ArchSpec", "ShapeSpec"]
 
-ARCHS = {a.name: a for a in (GCN_CORA, KGAT, KGCN, KGIN)}
+ARCHS = {a.name: a for a in (GCN_CORA, KGAT, KGCN, KGIN, WIDE_DEEP,
+                              DLRM_MLPERF, XDEEPFM, FM)}
 
 
 def get(name: str) -> ArchSpec:

@@ -1,18 +1,20 @@
 """Architecture + shape specs (port of ``repro/configs/base.py``): the specs
-and the GNN family's shapes, ``GNN_SHAPES``, with the reference's numbers."""
+and the GNN and recsys families' shapes, ``GNN_SHAPES`` and
+``RECSYS_SHAPES``, with the reference's numbers."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
-__all__ = ["ShapeSpec", "ArchSpec", "GNN_SHAPES"]
+__all__ = ["ShapeSpec", "ArchSpec", "GNN_SHAPES", "RECSYS_SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
     kind: str        # kgnn_train | full_graph | minibatch | batched_graphs
+    #                  | train | serve | retrieval
     params: tuple    # sorted (key, value) pairs, hashable
 
     def p(self) -> dict:
@@ -22,7 +24,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str      # kgnn | gnn
+    family: str      # kgnn | gnn | recsys
     model_cfg: Any
     shapes: tuple
     source: str = ""
@@ -47,4 +49,11 @@ GNN_SHAPES = (
     _s("ogb_products", "full_graph", n_nodes=2449029, n_edges=61859140,
        d_feat=100, n_classes=47),
     _s("molecule", "batched_graphs", n_nodes=30, n_edges=64, batch=128),
+)
+
+RECSYS_SHAPES = (
+    _s("train_batch", "train", batch=65536),
+    _s("serve_p99", "serve", batch=512),
+    _s("serve_bulk", "serve", batch=262144),
+    _s("retrieval_cand", "retrieval", batch=1, n_candidates=1_000_000),
 )

@@ -287,30 +287,37 @@ def act_spmm(x, ew, layout, *, seed=None, policy: ACTPolicy | None = None,
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(fctx, table, idx, runs):
+    def forward(fctx, table, idx, runs, rows):
         fctx.runs = runs
+        fctx.rows = rows
         fctx.n_rows = table.shape[0]
         return table.index_select(0, idx)
 
     @staticmethod
     def backward(fctx, g):
         out = ops.segment_sum(g, fctx.runs)
+        if fctx.rows is not None:
+            # distinct rows: each written once, no accumulation
+            full = out.new_zeros((fctx.n_rows,) + out.shape[1:])
+            return full.index_copy_(0, fctx.rows, out), None, None, None
         extra = fctx.n_rows - out.shape[0]
         if extra:
             out = torch.cat([out, out.new_zeros((extra,) + out.shape[1:])])
-        return out, None, None
+        return out, None, None, None
 
 
-def gather_rows(table, idx, runs):
+def gather_rows(table, idx, runs, *, rows=None):
     """``table.index_select(0, idx)`` whose backward is
     ``grad_table[v] = Σ grad_out[e]`` over the edges ``e`` with
     ``idx[e] == v``, summed in the order ``runs`` gives them
     (``data.csr.SegmentRuns`` levels, which must group exactly the edges of
-    ``idx``): the same bits every run, on the card too. The runs may cover
-    fewer rows than the table (a sampled block gathers from a prefix of a
-    wider table, ``models.kgnn.BlockView``): the rows past them get zero
-    gradient."""
-    return _GatherRows.apply(table, idx, runs)
+    ``idx``): the same bits every run, on the card too. Output row ``r`` of
+    the runs is table row ``r``, or, given ``rows`` (distinct table rows,
+    one a run), table row ``rows[r]``; the rows no run reaches get zero
+    gradient (a sampled block gathers from a prefix of a wider table,
+    ``models.kgnn.BlockView``; a recsys batch touches a few of the table's
+    rows, ``models.recsys.lookup_plan``)."""
+    return _GatherRows.apply(table, idx, runs, rows)
 
 
 class _SumRows(torch.autograd.Function):

@@ -1,5 +1,6 @@
-"""Synthetic KG recommendation datasets and BPR sampler, and the GCN's
-node-classification graphs (port of ``repro/data/synthetic.py:31-197`` and
+"""Synthetic KG recommendation datasets and BPR sampler, the GCN's
+node-classification graphs and the CTR batches of the recsys models (port
+of ``repro/data/synthetic.py:31-197``, ``:217`` ``criteo_batches`` and
 ``:241`` ``cora_like``).
 
 ``gen_kg_dataset``, ``gen_zipf_kg_dataset`` and ``bpr_batches`` make the
@@ -15,6 +16,8 @@ the last relation id.
 features, the same numpy calls in the same order; ``cora_like_avg_deg``
 picks the ``avg_deg`` that brings its edge count nearest a shape's, and
 ``molecule_batch`` draws the batched small graphs of the ``molecule`` shape.
+``criteo_batches`` is the reference's planted-logistic CTR stream, the same
+numpy calls in the same order.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import dataclasses
 import numpy as np
 
 __all__ = ["KGDataset", "gen_kg_dataset", "gen_zipf_kg_dataset",
-           "bpr_batches", "cora_like", "cora_like_avg_deg", "molecule_batch"]
+           "bpr_batches", "criteo_batches", "cora_like", "cora_like_avg_deg",
+           "molecule_batch"]
 
 
 @dataclasses.dataclass
@@ -200,6 +204,32 @@ def bpr_batches(ds: KGDataset, batch_size: int, *, seed=0):
                 neg[i] = rng.integers(0, ds.n_items)
         yield {"user": users.astype(np.int32), "pos": pos.astype(np.int32),
                "neg": neg.astype(np.int32)}
+
+
+def criteo_batches(*, batch: int, n_dense: int, vocab_sizes, seed=0,
+                   zipf_a: float = 1.2):
+    """Planted-logistic CTR batches with Zipf-distributed categorical ids:
+    dicts of ``sparse`` (batch, F) int32, ``dense`` (batch, n_dense)
+    float32 and ``label`` (batch,) float32."""
+    rng = np.random.default_rng(seed)
+    vocab_sizes = np.asarray(vocab_sizes)
+    F = len(vocab_sizes)
+    w_dense = rng.normal(size=n_dense) * 0.5
+    # planted per-field hash weights (cheap stand-in for per-id weights)
+    w_field = rng.normal(size=(F, 64)) * 0.6
+    while True:
+        dense = rng.lognormal(0.0, 1.0, (batch, n_dense)).astype(np.float32)
+        dense = np.log1p(dense)
+        sparse = np.empty((batch, F), np.int64)
+        for f, v in enumerate(vocab_sizes):
+            z = rng.zipf(zipf_a, batch)
+            sparse[:, f] = np.minimum(z - 1, v - 1)
+        logit = dense @ w_dense + sum(
+            w_field[f, sparse[:, f] % 64] for f in range(F))
+        prob = 1 / (1 + np.exp(-(logit - logit.mean())))
+        labels = (rng.random(batch) < prob).astype(np.float32)
+        yield {"sparse": sparse.astype(np.int32), "dense": dense,
+               "label": labels}
 
 
 def cora_like(*, n_nodes=500, d_feat=64, n_classes=7, avg_deg=4, seed=0):

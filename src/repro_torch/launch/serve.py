@@ -1,10 +1,15 @@
-"""KGAT serving launcher (port of the kgnn path of ``repro/launch/serve.py``).
+"""Serving launcher (port of the kgnn and recsys paths of
+``repro/launch/serve.py`` and of ``examples/serve_recsys.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch kgat --bits 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch kgat --bits 8 \\
       --two-stage 4 --item-shards 2 --cache 64 --refresh-steps 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch kgat --bits 4 \\
       --requests 50 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-mlperf \\
+      --batch 512 --requests 20 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xdeepfm \\
+      --retrieval 1000 --k 32 --requests 50 --device cpu
 
 Runs the reduced KGAT config end to end: the synthetic CKG, parameters from
 ``init_params`` trained ``--train-steps`` quick BPR steps (FP32, Adam at
@@ -26,6 +31,20 @@ schema-validated ``summary.json`` of the metrics registry
 
 ``serve_kgnn`` is the same path as a function, so that a caller can drive it
 at any size (``chip_smoke.py`` runs it at full width).
+
+The recsys archs (fm, wide-deep, dlrm-mlperf, xdeepfm) score batches with
+the full model (``serve_recsys``, the reference's path: warm once, then
+``--requests`` batches of ``--batch``, p50/p99). ``--retrieval N`` runs the
+two-stage path of the reference's ``examples/serve_recsys.py`` instead
+(``serve_recsys_two_stage``): the two towers (``recsys.retrieval_towers``)
+over the first N ids of field 0, the item tower packed at
+``--bits`` into a ``QuantizedEmbeddingStore`` (the query tower stays
+fp32), micro-batched top-``--k`` through the ``ServingEngine`` (the top-K
+kernel on the card), recall against a dense fp32 top-K of the same towers,
+then a re-rank of each top-K with the full model's ``forward``. Random
+seed-0 parameters; on the CPU the reduced config, on the card the full one
+(``--row-cap N`` caps each table, which DLRM's 96.1 GB table needs: a
+table that does not fit is refused with its bytes).
 """
 
 from __future__ import annotations
@@ -48,12 +67,14 @@ from repro_torch.obs import get_tracer, log as obs_log, reset_registry, \
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.eval import streaming_eval_dataset, \
     streaming_recall_ndcg
-from repro_torch.serving.store import build_kgnn_store, padded_pos_lists
+from repro_torch.serving.store import QuantizedEmbeddingStore, \
+    build_kgnn_store, padded_pos_lists
 from repro_torch.training.metrics import recall_ndcg_at_k
 from repro_torch.training.optimizer import adam
 from repro_torch.training.step import trainable
 
-__all__ = ["serve_kgnn", "bpr_trainer", "reduced_dataset", "main"]
+__all__ = ["serve_kgnn", "serve_recsys", "serve_recsys_two_stage",
+           "bpr_trainer", "reduced_dataset", "main"]
 
 TRAIN_LR = 5e-3        # the reference launcher's quick training
 TRAIN_BATCH = 128
@@ -220,6 +241,166 @@ def serve_kgnn(cfg, ds, params, *, bits: int | None, k: int = 20,
     return out
 
 
+def _recsys_queries(cfg, n: int, rng):
+    """(n, F) int32 field-local ids, field f drawn uniformly from ``[0,
+    vocab_f)`` (the reference draws every field from ``[0, min vocab)``,
+    which at full width is ids 0-2 of each field)."""
+    return rng.integers(0, np.asarray(cfg.vocab_sizes),
+                        (n, cfg.n_sparse)).astype(np.int32)
+
+
+def _percentiles(lat_ms) -> tuple[float, float]:
+    """The reference's p50 and p99 of a list of latencies."""
+    lat = np.sort(np.asarray(lat_ms))
+    return float(lat[len(lat) // 2]), float(lat[-max(len(lat) // 100, 1)])
+
+
+def serve_recsys(cfg, params, *, batch: int, requests: int, device="cuda",
+                 name: str | None = None, log=print) -> dict:
+    """Batched CTR scoring with the full model (port of
+    ``repro/launch/serve.py:serve_recsys``): one warm-up batch, then
+    ``requests`` batches of ``batch`` (``_recsys_queries`` ids and normal
+    dense features from seed 0, on the device before the clock starts),
+    each timed from the call to its logits on the host's side of a
+    synchronize. Returns the latencies, p50/p99 and the kernel launches of
+    the timed batches."""
+    from repro_torch.models import recsys
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+
+    def request(n):
+        return {"sparse": torch.from_numpy(_recsys_queries(
+                    cfg, n, rng)).to(dev),
+                "dense": torch.from_numpy(rng.normal(
+                    size=(n, max(cfg.n_dense, 1))).astype(np.float32)
+                    ).to(dev)}
+
+    @torch.no_grad()
+    def score(b):
+        out = recsys.forward(params, b, cfg)
+        _sync(dev)
+        return out
+
+    score(request(batch))
+    lat, c0 = [], _counts()
+    for _ in range(requests):
+        b = request(batch)
+        _sync(dev)
+        t0 = time.perf_counter()
+        score(b)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    p50, p99 = _percentiles(lat)
+    log(f"[serve] {name or cfg.model}: batch={batch} p50={p50:.2f}ms "
+        f"p99={p99:.2f}ms")
+    return {"latencies_ms": lat, "p50_ms": p50, "p99_ms": p99,
+            "launches": _diff(_counts(), c0)}
+
+
+def serve_recsys_two_stage(cfg, params, *, n_cand: int, k: int = 32,
+                           requests: int = 200, bits: int | None = 8,
+                           item_field: int = 0, device="cuda",
+                           name: str | None = None, log=print) -> dict:
+    """Two-stage recsys serving (port of ``examples/serve_recsys.py``):
+    retrieval through the engine over the packed item tower, then a
+    re-rank of each request's top-``k`` with the full ``forward``.
+
+    ``requests`` queries (``_recsys_queries`` from seed 0) are the store's
+    users, one row each; the candidates are ids ``0 .. n_cand-1`` of field
+    ``item_field``; the engine's buckets are the reference example's (1, 4, 16,
+    64). Returns the store and its memory report, the engine's stats, the
+    retrieved ids and values, ``recall`` (the mean share of the dense fp32
+    top-``k`` of the same towers that the engine returned), the re-rank's
+    latencies and p50/p99, and per phase the kernel launches and wall time."""
+    from repro_torch.models import recsys
+
+    dev = resolve_device(device)
+    queries = _recsys_queries(cfg, requests, np.random.default_rng(0))
+    out: dict = {"phases": {}}
+
+    def phase(key, fn):
+        c0 = _counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        out["phases"][key] = {"seconds": time.perf_counter() - t0,
+                              "launches": _diff(_counts(), c0)}
+        return res
+
+    q_dev = torch.from_numpy(queries).to(dev)
+    cand = torch.arange(n_cand, device=dev)
+    with torch.no_grad():
+        user_aug, cand_aug = phase("towers", lambda: recsys.retrieval_towers(
+            params, q_dev, cand, cfg, item_field=item_field))
+    # only the item tower is packed: a query vector is made per request
+    store = phase("pack", lambda: QuantizedEmbeddingStore.from_arrays(
+        user_aug, cand_aug, bits=bits, quantize_users=False))
+    mem = store.memory_report()
+    with ServingEngine(store, k=k, buckets=(1, 4, 16, 64)) as eng:
+        phase("warmup", eng.warmup)
+
+        def burst():
+            futs = [eng.submit(i) for i in range(requests)]
+            return [f.result(timeout=300) for f in futs]
+
+        retrieved = phase("engine", burst)
+        stats = eng.stats()
+    got = np.stack([idx for _, idx in retrieved])               # (R, k)
+    got_v = np.stack([v for v, _ in retrieved])
+
+    def dense_topk():
+        ids = []
+        for a in range(0, requests, 64):
+            s = user_aug[a:a + 64] @ cand_aug.T
+            ids.append(torch.topk(s, k, dim=1).indices.cpu().numpy())
+        return np.concatenate(ids)
+
+    ref = phase("dense_reference", dense_topk)
+    recall = float(np.mean([len(np.intersect1d(g, r)) / k
+                            for g, r in zip(got, ref)]))
+
+    dense = torch.zeros((k, max(cfg.n_dense, 1)), device=dev)
+
+    def rerank_batch(r):
+        sparse = np.repeat(queries[r:r + 1], k, 0)
+        sparse[:, item_field] = got[r]
+        return {"sparse": torch.from_numpy(sparse).to(dev), "dense": dense}
+
+    @torch.no_grad()
+    def rerank(b):
+        s = recsys.forward(params, b, cfg)
+        _sync(dev)
+        return s
+
+    rerank(rerank_batch(0))                                     # warm
+    lat, best = [], []
+
+    def rerank_all():
+        for r in range(requests):
+            b = rerank_batch(r)
+            _sync(dev)
+            t0 = time.perf_counter()
+            s = rerank(b)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            best.append(int(got[r][int(torch.argmax(s))]))
+
+    phase("rerank", rerank_all)
+    p50, p99 = _percentiles(lat)
+    log(f"[serve] {name or cfg.model} retrieval: {n_cand} candidates of "
+        f"field {item_field}, d {cfg.embed_dim + 1}, bits={bits or 'fp32'} "
+        f"{mem['total_bytes']} B ({mem['compression_ratio']:.2f}x vs fp32)"
+        f"; engine {stats}; recall@{k} {recall:.4f} against the dense fp32 "
+        f"top-{k} of the same towers")
+    log(f"[serve] {name or cfg.model} re-rank: batch={k} p50 {p50:.2f}ms "
+        f"p99 {p99:.2f}ms; request 0's winner: candidate {best[0]}")
+    out.update(memory=mem, stats=stats, retrieved=got,
+               retrieved_values=got_v, reference=ref,
+               recall=recall, rerank_ms=lat, rerank_p50_ms=p50,
+               rerank_p99_ms=p99, best=best, store=store)
+    return out
+
+
 def reduced_dataset(cfg):
     """The synthetic CKG sized to a reduced config's node/relation space
     (the JAX launcher's arguments)."""
@@ -237,6 +418,13 @@ def main(argv=None) -> None:
                     help="store precision")
     ap.add_argument("--k", type=int, default=20, help="top-K size")
     ap.add_argument("--requests", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=4,
+                    help="recsys: examples a scored batch")
+    ap.add_argument("--retrieval", type=int, default=None, metavar="N",
+                    help="recsys: two-stage serving over N candidates "
+                         "(packed retrieval, then a full-model re-rank)")
+    ap.add_argument("--row-cap", type=int, default=None, metavar="N",
+                    help="recsys: cap each embedding table at N rows")
     ap.add_argument("--train-steps", type=int, default=30,
                     help="quick BPR steps before the serving rollout")
     ap.add_argument("--two-stage", type=int, default=None, metavar="C",
@@ -264,7 +452,7 @@ def main(argv=None) -> None:
                          "under DIR")
     args = ap.parse_args(argv)
     family = get(args.arch).family
-    if family != "kgnn":
+    if family not in ("kgnn", "recsys"):
         raise SystemExit(f"{family} has no serve path "
                          "(GNNs are training workloads)")
     dev = resolve_device(args.device)
@@ -272,16 +460,20 @@ def main(argv=None) -> None:
     if args.trace:
         get_tracer().enable()
     try:
-        cfg = reduced(get(args.arch)).model_cfg
-        ds = reduced_dataset(cfg)
-        params = kgnn.init_params(cfg, seed=0, device=dev)
         bits = None if args.bits == "fp32" else int(args.bits)
-        serve_kgnn(cfg, ds, params, bits=bits, k=args.k,
-                   requests=args.requests, device=dev,
-                   train_steps=args.train_steps, two_stage=args.two_stage,
-                   item_shards=args.item_shards, cache=args.cache,
-                   max_pending=args.max_pending,
-                   refresh_steps=args.refresh_steps)
+        if family == "recsys":
+            _serve_recsys_main(args, dev, bits)
+        else:
+            cfg = reduced(get(args.arch)).model_cfg
+            ds = reduced_dataset(cfg)
+            params = kgnn.init_params(cfg, seed=0, device=dev)
+            serve_kgnn(cfg, ds, params, bits=bits, k=args.k,
+                       requests=args.requests, device=dev,
+                       train_steps=args.train_steps,
+                       two_stage=args.two_stage,
+                       item_shards=args.item_shards, cache=args.cache,
+                       max_pending=args.max_pending,
+                       refresh_steps=args.refresh_steps)
         run = {"kind": "serve", "arch": args.arch, "family": family,
                "requests": args.requests, "bits": args.bits}
         if args.trace:
@@ -292,6 +484,29 @@ def main(argv=None) -> None:
                     f"{write_summary(args.metrics_out, run)}")
     finally:
         get_tracer().disable()
+
+
+def _serve_recsys_main(args, dev: torch.device, bits: int | None) -> None:
+    """The launcher's recsys path: the reduced config on the CPU, the full
+    one (``--row-cap``) on the card, seed-0 parameters."""
+    from repro_torch.models import recsys
+    from repro_torch.models.registry import check_fits, recsys_config
+
+    spec = get(args.arch)
+    cfg = recsys_config(args.arch, row_cap=args.row_cap, cfg=(
+        reduced(spec).model_cfg if dev.type == "cpu" else None))
+    try:
+        check_fits(cfg, dev, copies=1, name=args.arch)
+    except ValueError as e:
+        raise SystemExit(f"error: {e}") from None
+    params = recsys.init_params(cfg, seed=0, device=dev)
+    if args.retrieval:
+        serve_recsys_two_stage(cfg, params, n_cand=min(
+            args.retrieval, cfg.vocab_sizes[0]), k=args.k,
+            requests=args.requests, bits=bits, device=dev, name=args.arch)
+    else:
+        serve_recsys(cfg, params, batch=args.batch, requests=args.requests,
+                     device=dev, name=args.arch)
 
 
 if __name__ == "__main__":

@@ -29,6 +29,20 @@ with the reference's reasons.
   PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora \\
       --bits 2 --steps 8
 
+``--arch fm|wide-deep|dlrm-mlperf|xdeepfm`` trains the recsys model's CTR
+step (``models.registry``: the reference's mean logistic loss, Adam at lr
+1e-3, ``criteo_batches(seed=3)``): on ``cuda`` the full config at batch
+4,096, on ``cpu`` the reduced config at batch 256, as the reference's
+step (``--batch`` overrides). ``--row-cap N`` caps each embedding table at
+N rows; DLRM's full table (187,767,399 rows x 128 x 4 B = 96.1 GB) does
+not fit one card and is refused up front, naming its bytes. ``--mesh``
+and ``--sample`` exit with the reference's reasons.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xdeepfm \\
+      --bits 2 --steps 3 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
+      --bits 2 --steps 6 --row-cap 2097152
+
 The loop is the fault-tolerant ``Trainer``: a checkpoint every
 ``max(steps // 4, 10)`` steps and at the end under ``--ckpt`` (default: a
 fresh temporary directory), restore of the latest one at start (a second
@@ -197,7 +211,7 @@ def train_model(step, params, schedule, steps: int, *, log_every: int = 1,
         TrainerConfig(total_steps=steps, log_every=log_every,
                       ckpt_dir=ckpt_dir, ckpt_every=ckpt_every),
         log_fn=log, ckpt_meta=step_metadata(step, schedule_spec),
-        step_writer=step_writer, items_per_step=step.data["n_edges"],
+        step_writer=step_writer, items_per_step=step.data.get("n_edges"),
     ).restore_if_available()
     params_out, _ = trainer.run()
     return {"steps": trainer.history, "params": params_out}
@@ -213,7 +227,11 @@ def main(argv=None) -> None:
                     help="PolicySchedule spec (preset | intN/fp32 | "
                          "'[kind:]glob=bits,...'); overrides --bits")
     ap.add_argument("--batch", type=int, default=None,
-                    help="BPR batch size (default 512; 256 with --sample)")
+                    help="BPR batch size (default 512; 256 with --sample); "
+                         "recsys: CTR batch (default 4096 on the card, 256 "
+                         "on the CPU)")
+    ap.add_argument("--row-cap", type=int, default=None, metavar="N",
+                    help="recsys: cap each embedding table at N rows")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the kernels; cpu their plain versions")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
@@ -325,9 +343,18 @@ def _run_sampled(args, dev, schedule, label: str) -> None:
 
 
 def _run(args, dev, schedule, label: str) -> dict:
-    step = (build_step(args.arch, device=dev)
-            if family_of(args.arch) == "gnn" else
-            build_step(args.arch, batch_size=args.batch or 512, device=dev))
+    family = family_of(args.arch)
+    if family == "gnn":
+        step = build_step(args.arch, device=dev)
+    elif family == "recsys":
+        try:
+            step = build_step(args.arch, device=dev, batch_size=args.batch,
+                              row_cap=args.row_cap)
+        except ValueError as e:
+            raise SystemExit(f"error: {e}") from None
+    else:
+        step = build_step(args.arch, batch_size=args.batch or 512,
+                          device=dev)
     run = {"kind": "train", "arch": args.arch, "family": step.family,
            "schedule": label, "steps": args.steps, "mesh": args.mesh,
            "sample": None}

@@ -1,5 +1,5 @@
 """Model-step registry: ``--arch <id>`` -> one ``ModelStep`` (port of
-``repro/models/registry.py``, the KG and GNN families).
+``repro/models/registry.py``, the KG, GNN and recsys families).
 
 ``build_step`` binds the layer functions (``models.kgnn``, ``models.gnn``)
 to a dataset and a config. KG steps take the reference's defaults: the
@@ -11,15 +11,21 @@ reference, and trains as kgat's step with its own config (``arch_of``,
 reference's full-graph mean cross-entropy at lr 1e-2: on the CPU the
 reduced config on ``cora_like(n_nodes=300)``, as the reference's step; on
 the card the full config on the ``full_graph_sm`` shape, or any of
-``GNN_SHAPES`` (``gnn_config``, ``gnn_data``). The reference's other archs
-raise ``NotImplementedError`` naming the slice of the port that brings
-them (ROADMAP Queue 1).
+``GNN_SHAPES`` (``gnn_config``, ``gnn_data``). The recsys archs (fm, wide-deep,
+dlrm-mlperf, xdeepfm) train CTR under the reference's mean logistic loss
+at lr 1e-3 on ``criteo_batches(seed=3)``: on the CPU the reduced config at
+batch 256, as the reference's step; on the card the full config at batch
+4,096 (xDeepFM's published batch), each table capped at ``row_cap`` rows
+where asked (``recsys_config``); a config whose training state does not
+fit the card is refused before anything is allocated (``check_fits``).
+The reference's LM archs raise ``NotImplementedError`` naming the slice of
+the port that brings them (ROADMAP Queue 1).
 
 KG steps carry a ``ShardSpec`` (``kg_dp_spec``: edges split by destination
 over the ``data`` ranks, the entity table row-sharded over the ``model``
 ranks of a 2D mesh), so every KG model trains on several ranks
-(``training.data_parallel``); the GCN step carries the reference's
-``dp_unsupported`` reason instead.
+(``training.data_parallel``); the GCN and recsys steps carry the
+reference's ``dp_unsupported`` reasons instead.
 
 ``PATH_KERNELS`` lists the CUDA kernels a training step of each model
 launches, for the checks that the path really went through them.
@@ -38,18 +44,15 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.training.step import ROW_SHARDED, ModelStep, ShardSpec, \
     enter_or_null, trainable
 
-__all__ = ["build_step", "family_of", "archs", "arch_of", "model_config", "path_kernels",
-           "kg_dp_spec", "gnn_config", "gnn_data", "NOT_PORTED",
-           "PATH_KERNELS", "GNN_DP_UNSUPPORTED"]
+__all__ = ["build_step", "family_of", "archs", "arch_of", "model_config",
+           "path_kernels", "kg_dp_spec", "gnn_config", "gnn_data",
+           "recsys_config", "check_fits", "NOT_PORTED", "PATH_KERNELS",
+           "GNN_DP_UNSUPPORTED", "RECSYS_DP_UNSUPPORTED"]
 
 # the reference's archs that the port does not carry yet, and where they land
-NOT_PORTED = {
-    **{a: "slice 6b (the recsys family)" for a in (
-        "wide-deep", "dlrm-mlperf", "xdeepfm", "fm")},
-    **{a: "slice 6c (the LM families)" for a in (
-        "mistral-large-123b", "codeqwen1.5-7b", "stablelm-12b",
-        "moonshot-v1-16b-a3b", "grok-1-314b")},
-}
+NOT_PORTED = {a: "slice 6c (the LM families)" for a in (
+    "mistral-large-123b", "codeqwen1.5-7b", "stablelm-12b",
+    "moonshot-v1-16b-a3b", "grok-1-314b")}
 
 
 # the kernels of a model's training step: (at FP32, added at INT-b)
@@ -62,6 +65,12 @@ PATH_KERNELS = {
     "rgcn": (("spmm", "sddmm", "segment_sum"),
              ("quant_pack", "dequant_matmul")),
     "gcn": (("spmm",), ("quant_pack", "dequant_matmul")),
+    # the recsys models: the table gradients' segment sums; FM has no ACT
+    # site
+    "fm": (("segment_sum",), ()),
+    "wide_deep": (("segment_sum",), ("quant_pack", "dequant_matmul")),
+    "dlrm": (("segment_sum",), ("quant_pack", "dequant_matmul")),
+    "xdeepfm": (("segment_sum",), ("quant_pack", "dequant_matmul")),
 }
 
 # the reference's defaults (repro/models/registry.py)
@@ -71,6 +80,20 @@ DIM = 32
 N_LAYERS = 3
 GNN_LR = 1e-2
 GNN_CPU_NODES = 300       # the reference's CPU step: cora_like(n_nodes=300)
+
+RECSYS_LR = 1e-3
+RECSYS_DATA_SEED = 3
+RECSYS_CPU_BATCH = 256    # the reference's step
+RECSYS_CARD_BATCH = 4096  # xDeepFM's published batch (arXiv:1803.05170)
+# the training state a table's bytes take: weights, gradient, Adam's two
+# moments
+RECSYS_TRAIN_COPIES = 4
+
+RECSYS_DP_UNSUPPORTED = (
+    "recsys steps have no graph to edge-shard; DLRM-scale "
+    "parallelism is embedding-table model parallelism (a "
+    "different axis — see launch.partition), not this "
+    "edge-sharded DP path")
 
 GNN_DP_UNSUPPORTED = (
     "gcn-cora trains full-graph from dense node features; the "
@@ -98,13 +121,14 @@ def kg_dp_spec(cfg, graph=None) -> ShardSpec:
 
 def build_step(arch: str, *, device="cuda", **kw) -> ModelStep:
     """The ``ModelStep`` of ``arch`` on ``device``; the keywords are the
-    family's (``_kgnn_step``, ``_gnn_step``)."""
-    make = _gnn_step if family_of(arch) == "gnn" else _kgnn_step
+    family's (``_kgnn_step``, ``_gnn_step``, ``_recsys_step``)."""
+    make = {"gnn": _gnn_step, "recsys": _recsys_step}.get(family_of(arch),
+                                                          _kgnn_step)
     return make(get(arch), resolve_device(device), **kw)
 
 
 def family_of(arch: str) -> str:
-    """The family of a ported ``arch``; the reference's other archs raise
+    """The family of a ported ``arch``; the reference's LM archs raise
     ``NotImplementedError`` naming the slice that brings them."""
     if arch in NOT_PORTED:
         raise NotImplementedError(
@@ -304,6 +328,92 @@ def _sampled_gcn(cfg, x, y, csr, dev, batch_nodes, fanouts):
     return loss, batches
 
 
+# -- recsys family: fm / wide&deep / dlrm / xdeepfm, CTR logistic loss -------
+
+
+def recsys_config(arch: str, *, row_cap: int | None = None, cfg=None):
+    """``cfg`` (default: ``arch``'s full config) with each table capped at
+    ``row_cap`` rows (ids past the cap never occur: ``criteo_batches``
+    clips each field's zipf ids to its vocabulary)."""
+    cfg = cfg or get(arch).model_cfg
+    if row_cap is None:
+        return cfg
+    return dataclasses.replace(cfg, vocab_sizes=tuple(
+        min(v, row_cap) for v in cfg.vocab_sizes))
+
+
+def check_fits(cfg, dev: torch.device, *, copies: int = RECSYS_TRAIN_COPIES,
+               name: str | None = None) -> None:
+    """Refuse a config whose tables, held ``copies`` times (training:
+    weights, gradient and Adam's two moments; serving: 1), would not fit
+    the card: ``ValueError`` naming the table's bytes, before anything is
+    allocated. Nothing to check on the CPU."""
+    if dev.type != "cuda":
+        return
+    rows = int(sum(cfg.vocab_sizes))
+    table = cfg.total_vocab * (cfg.embed_dim + 1) * 4
+    need = copies * table
+    have = torch.cuda.get_device_properties(dev).total_memory
+    if need > have:
+        held = (f"training keeps it {copies} times (weights, gradient, two "
+                f"Adam moments), " if copies > 1 else "")
+        raise ValueError(
+            f"{name or cfg.model}: the embedding table holds {rows:,} rows x "
+            f"{cfg.embed_dim} x 4 B = {rows * cfg.embed_dim * 4 / 1e9:.1f} GB"
+            f" (with the linear term and padding {table / 1e9:.1f} GB); "
+            f"{held}{need / 1e9:.1f} GB, more than this card's "
+            f"{have / 1e9:.1f} GB. Cap each table's rows (--row-cap N; "
+            f"recsys_config(..., row_cap=N)) or shard the table over "
+            f"several cards (not ported)")
+
+
+def _recsys_step(spec, dev, *, cfg=None, batch_size: int | None = None,
+                 row_cap: int | None = None) -> ModelStep:
+    """A recsys model's CTR step (port of ``repro/models/registry.py:
+    _recsys_step``): the mean logistic loss of ``recsys.forward``'s
+    logits, batches from ``criteo_batches(seed=3)``, each with its
+    ``LookupPlan`` built on the host beside the step. Default config and
+    batch: on the CPU the reduced config at 256, on the card the full
+    config at 4,096; ``row_cap`` caps the default config's tables
+    (``recsys_config``)."""
+    from repro_torch.configs.smoke import reduced
+    from repro_torch.data.synthetic import criteo_batches
+    from repro_torch.models import recsys
+
+    if cfg is None:
+        cfg = recsys_config(spec.name, row_cap=row_cap, cfg=(
+            reduced(spec).model_cfg if dev.type == "cpu" else None))
+    if batch_size is None:
+        batch_size = RECSYS_CPU_BATCH if dev.type == "cpu" \
+            else RECSYS_CARD_BATCH
+    check_fits(cfg, dev, name=spec.name)
+
+    def init(seed: int = 0):
+        return trainable(recsys.init_params(cfg, seed=seed, device=dev))
+
+    def loss(params, batch, *, ctx=None):
+        with enter_or_null(ctx):
+            logits = recsys.forward(params, batch, cfg)
+        lab = batch["label"]
+        logsig = torch.nn.functional.logsigmoid
+        return -torch.mean(lab * logsig(logits) + (1 - lab) * logsig(-logits))
+
+    def batches():
+        for b in criteo_batches(batch=batch_size, n_dense=max(cfg.n_dense, 1),
+                                vocab_sizes=cfg.vocab_sizes,
+                                seed=RECSYS_DATA_SEED):
+            out = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            out["lookup"] = recsys.lookup_plan(b["sparse"], cfg, dev)
+            yield out
+
+    return ModelStep(arch=spec.name, family="recsys", cfg=cfg, init=init,
+                     loss=loss, batches=batches, lr=RECSYS_LR,
+                     data={"device": dev, "batch": batch_size},
+                     dp_spec=None, dp_unsupported=RECSYS_DP_UNSUPPORTED,
+                     unread=("linear", "bias") if cfg.model == "dlrm"
+                     else ())
+
+
 def arch_of(model: str) -> str:
     """The arch id whose step trains KG ``model``: R-GCN has none of its
     own and trains as kgat's step with its own config."""
@@ -322,8 +432,9 @@ def model_config(model: str, spec=get):
 
 
 def path_kernels(model: str, packed: bool) -> tuple[str, ...]:
-    """The kernels a training step of ``model`` (a KG model, or ``gcn``)
-    launches, with INT-b sites (``packed``) or at FP32."""
+    """The kernels a training step of ``model`` (a KG model, ``gcn``, or a
+    recsys ``RecsysConfig.model``) launches, with INT-b sites (``packed``)
+    or at FP32."""
     fp32, more = PATH_KERNELS[model]
     return fp32 + (more if packed else ())
 

@@ -10,7 +10,10 @@ A ``ModelStep`` binds a model's loss to its config and data:
   * ``batches() -> iterator``: the step's default data stream;
   * ``dp_spec``: what the multi-rank path shards (``ShardSpec``: the edges
     over the ``data`` ranks, and per parameter its layout over the
-    ``model`` ranks), or ``None`` with ``dp_unsupported`` naming why.
+    ``model`` ranks), or ``None`` with ``dp_unsupported`` naming why;
+  * ``unread``: the top-level parameters the loss does not read (DLRM's
+    ``linear`` and ``bias``); their gradient is zero, as ``jax.grad``
+    gives it. Any other parameter without a path to the loss is an error.
 
 The registry (``repro_torch.models.registry``) builds them; the launcher,
 the trainer and ``chip_smoke.py`` consume the same object.
@@ -91,6 +94,7 @@ class ModelStep:
     data: dict = dataclasses.field(default_factory=dict)  # bound data refs
     dp_spec: ShardSpec | None = None
     dp_unsupported: str | None = None   # why dp_spec is None, for errors
+    unread: tuple = ()             # parameters the loss does not read
 
     def metadata(self) -> dict:
         """Checkpoint-facing identity (see ``step_metadata``)."""
@@ -144,15 +148,22 @@ def make_train_step(step: ModelStep, opt, *, schedule=None,
     its scope-derived rounding seed (``seed_fn`` injects seeds instead).
     ``metrics`` holds the loss and ``act``, the activation-bytes report of
     the residuals this step saved. The forward and the backward run in full
-    fp32 (``full_fp32``), whatever the caller's TF32 setting.
+    fp32 (``full_fp32``), whatever the caller's TF32 setting. The
+    parameters of ``step.unread`` get a zero gradient.
     """
 
     def train_step(state, batch, i):
         params, opt_state = state
         ctx = act_context(schedule, root_seed, step=i, seed_fn=seed_fn)
+        leaves = param_leaves(params)
+        unread = {id(t) for t in param_leaves(
+            {k: params[k] for k in step.unread})}
         with full_fp32():
             loss = step.loss(params, batch, ctx=ctx)
-            grads = torch.autograd.grad(loss, param_leaves(params))
+            got = iter(torch.autograd.grad(
+                loss, [p for p in leaves if id(p) not in unread]))
+        grads = [torch.zeros_like(p) if id(p) in unread else next(got)
+                 for p in leaves]
         params, opt_state = opt.update(grads, opt_state, params)
         return (params, opt_state), {"loss": loss.detach(),
                                      "act": ctx.report()}

@@ -1294,3 +1294,158 @@ def test_reduced_gcn_step_launches_its_kernels_and_repeats(cuda, bits):
     for a, b in zip(param_leaves(p1) + o1["mu"] + o1["nu"],
                     param_leaves(p2) + o2["mu"] + o2["nu"]):
         assert torch.equal(a, b)
+
+
+# -- the recsys family's shapes ------------------------------------------------
+
+
+@pytest.mark.parametrize("rows,d,bits,stochastic", [
+    (40960, 7800, 2, True),      # xDeepFM's CIN layers 1-2 at batch 4,096
+    (4096, 13, 2, True),         # DLRM's dense input (4-byte packed rows)
+])
+def test_quant_pack_kernel_recsys_shapes(cuda, rows, d, bits, stochastic):
+    """Codes, scale and zero bit-identical to the plain version, and two
+    calls bit-identical, at the recsys ACT sites' widths."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn((rows, d), generator=gen, device=cuda)
+    got = qp.quant_pack_cuda(x, 17, bits=bits, stochastic=stochastic)
+    again = qp.quant_pack_cuda(x, 17, bits=bits, stochastic=stochastic)
+    ref = qp.quant_pack_plain(x, 17, bits=bits, stochastic=stochastic)
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, r)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("rows,dim,n", [
+    (40960, 7800, 200),          # xDeepFM's CIN ∇W: 488 output tiles
+    (4096, 256, 1),              # an MLP's last layer: n 1, no 16-byte g
+    (4096, 13, 512),             # DLRM's bottom fc0: 4-byte packed rows
+])
+def test_dequant_matmul_kernel_recsys_shapes(cuda, rows, dim, n):
+    """Within 1e-5 relative of the plain version and bit-identical twice,
+    INT2 (the recsys training schedule's width)."""
+    x, g = _dqmm_table(cuda, "cancel", rows, dim, n, dim + n)
+    q = quantize(x, 5, bits=2, stochastic=True)
+    a = dq.dequant_matmul_cuda(q, g)
+    assert a.shape == (dim, n)
+    assert torch.equal(a, dq.dequant_matmul_cuda(q, g))
+    assert _rel(a, dq.dequant_matmul_plain(q, g)) <= 1e-5
+
+
+@pytest.mark.parametrize("d", [11, 33, 129])
+def test_topk_kernel_recsys_tower_widths(cuda, d):
+    """Top-32 over an INT8 item tower of width d (xDeepFM and FM's k + 1,
+    Wide&Deep's, DLRM's), 100,003 items, B 8: values within 1e-5 of the
+    plain version, indices equal except between near-ties, the values the
+    dense scores of the returned ids; integer-valued ties bit-identical;
+    two runs bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    n_items, b, k = 100003, 8, 32
+    items = quantize(torch.randn((n_items, d), generator=gen, device=cuda),
+                     0, bits=8)
+    q = torch.randn((b, d), generator=gen, device=cuda)
+    excl = torch.full((b, 1), -1, dtype=torch.int32, device=cuda)
+    kv, ki = _run_twice(lambda: tk.topk_cuda(q, items, excl, k=k))
+    pv, pi = tk.topk_plain(q, items, excl, k=k)
+    scale = float(pv.abs().max())
+    assert float((kv - pv).abs().max()) <= 1e-5 * scale
+    assert bool(((kv - pv).abs()[ki != pi] <= 1e-5 * scale).all())
+    dense = q @ dequantize(items).T
+    assert float((torch.gather(dense, 1, ki.long()) - kv).abs().max()) \
+        <= 1e-5 * scale
+    codes = torch.randint(0, 4, (n_items, d), generator=gen,
+                          device=cuda).to(torch.uint8)
+    ties = QTensor(pack_bits(codes, 8), torch.ones((n_items, 1), device=cuda),
+                   torch.zeros((n_items, 1), device=cuda), 8, d)
+    qi = torch.randint(-2, 3, (b, d), generator=gen,
+                       device=cuda).to(torch.float32)
+    kv, ki = _run_twice(lambda: tk.topk_cuda(qi, ties, excl, k=k))
+    pv, pi = tk.topk_plain(qi, ties, excl, k=k)
+    assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+def reduced_recsys_losses(arch, device, *, steps: int = 3,
+                          batch: int = 256):
+    """The losses of ``steps`` reduced INT2 steps of ``arch`` (registry
+    step, ``batch`` examples), on the CPU and on ``device`` from the same
+    seed-0 parameters, by device name; and the step and run on ``device``.
+    ``chip_smoke.py``'s [recsys] phase holds the card to the CPU with it
+    too."""
+    from repro_torch.launch.train import train_model
+    from repro_torch.models import recsys
+
+    cfg = reduced(get(arch)).model_cfg
+    params = recsys.init_params(cfg, seed=0, device="cpu")
+    losses = {}
+    for dev in ("cpu", device):
+        step = build_step(arch, device=dev, cfg=cfg, batch_size=batch)
+        run = train_model(step, {k: [t.to(dev) for t in v]
+                                 if isinstance(v, list) else v.to(dev)
+                                 for k, v in params.items()},
+                          schedule_from_cli(None, 2), steps,
+                          log=lambda _: None)
+        losses[str(dev)] = [r["loss"] for r in run["steps"]]
+    return losses, step, run
+
+
+@pytest.mark.parametrize("arch", ["fm", "wide-deep", "dlrm-mlperf",
+                                  "xdeepfm"])
+def test_reduced_recsys_training_on_card(cuda, arch):
+    """Three reduced INT2 steps on the card follow the CPU's plain versions
+    (losses within 1e-4) from the same parameters, launch exactly the
+    path's kernels, and two steps from one state are bit-identical."""
+    losses, step, run = reduced_recsys_losses(arch, cuda)
+    sched = schedule_from_cli(None, 2)
+    assert set(run["steps"][-1]["launches"]) == set(
+        path_kernels(step.cfg.model, True))
+    np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-4)
+    opt = adam(step.lr)
+    train = make_train_step(step, opt, schedule=sched, root_seed=1)
+    batch = next(step.batches())
+    p = trainable(run["params"])
+    state = (p, opt.init(p))
+    outs = []
+    for _ in range(2):
+        s = ({k: [t.detach().clone().requires_grad_() for t in v]
+              if isinstance(v, list) else v.detach().clone().requires_grad_()
+              for k, v in state[0].items()},
+             {"step": 0, "mu": [m.clone() for m in state[1]["mu"]],
+              "nu": [v.clone() for v in state[1]["nu"]]})
+        (p2, o2), m = train(s, batch, 0)
+        outs.append([m["loss"]] + param_leaves(p2) + o2["mu"] + o2["nu"])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.parametrize("d", [10, 1])
+def test_recsys_table_gradient_on_card(cuda, d):
+    """The lookups' backward on the card (``gather_rows`` with ``rows=``):
+    a reduced xDeepFM batch of 1,024, whose hub rows hold more than a
+    chunk's slots (the segment sum's two-kernel route), against
+    ``index_add_`` in float64 within 1e-5 of its max, rows no id reaches
+    zero, two runs bit-identical; the embedding width and the linear
+    term's."""
+    from repro_torch.core.act import gather_rows
+    from repro_torch.data.synthetic import criteo_batches
+    from repro_torch.models import recsys
+
+    cfg = reduced(get("xdeepfm")).model_cfg
+    b = next(criteo_batches(batch=1024, n_dense=1,
+                            vocab_sizes=cfg.vocab_sizes, seed=3))
+    plan = recsys.lookup_plan(b["sparse"], cfg, cuda)
+    lv = plan.runs[0]
+    assert int((lv.row_end - lv.row_start).max()) > SEG_CHUNK
+    table = torch.zeros((cfg.total_vocab, d), device=cuda,
+                        requires_grad=True)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    g = torch.randn((plan.ids.numel(), d), generator=gen, device=cuda)
+    before = backend.CUDA_KERNEL_COUNTS["segment_sum"]
+    got, again = (torch.autograd.grad(
+        gather_rows(table, plan.ids, plan.runs, rows=plan.rows), table, g)[0]
+        for _ in range(2))
+    assert backend.CUDA_KERNEL_COUNTS["segment_sum"] - before == 4
+    assert torch.equal(got, again)
+    ref = torch.zeros((cfg.total_vocab, d), dtype=torch.float64,
+                      device=cuda).index_add_(0, plan.ids, g.double())
+    assert float((got.double() - ref).abs().max()) <= \
+        1e-5 * float(ref.abs().max())
+
