@@ -306,14 +306,44 @@ their plain versions.
     and top-K launched), the first 16 responses against the plain top-K on
     the served store, the recall against a dense fp32 top-32 of the same
     towers and the re-rank's p50/p99. The phase prints its seconds.
-16. Prints the kernels JSON line (launches per path: serve, serve_tier2,
+16. The LM families (dense GQA and MoE transformers; seed-0 weights drawn
+    on the card in bf16, Adam 1e-3, root seed 1, ``lm_batches(seed=0)``;
+    the card configs: published widths at 2 layers, batch 2 x 4,096).
+    [lm-kernels]: the quant-pack (INT2 SR) at each block's saved input,
+    8,192 x 5,120 (stablelm-12b) and 8,192 x 2,048 (moonshot-v1-16b-a3b),
+    from bf16 (as the step hands it over), from bf16 through an fp32 copy
+    and from fp32, bit-identical to the plain version; the segment sum on
+    each config's embedding gradient (8,192 positions by distinct token
+    id) against its plain version and beside ``index_add_`` (``lm_shape``
+    in the kernels line). [lm]: three reduced INT2 steps of each of the
+    five archs on the card against the CPU (losses within 1e-5; exactly
+    ``path_kernels`` every step; ``reduced_lm_losses`` of
+    tests/test_torch_cuda.py). [lm-train]: stablelm-12b and
+    moonshot-v1-16b-a3b at the card configs, 4 steps under FP32 and INT2
+    through ``train_model`` (finite losses, the first near ln V + 0.5,
+    exactly the path's kernels, median step, peak memory, ACT bytes as the
+    reference prices them and as the block stack's graph holds them,
+    measured; one INT2 step profiled, no index_add_; [determinism]: two
+    INT2 steps from one state bit-identical; the bf16 forward against the
+    same weights in fp32 within ``LM_BF16_TOL``, for the MoE at the tokens
+    routed the same in both, with the share routed otherwise at most
+    ``LM_ROUTER_FLIP_MAX``). [lm-serve]: ``serve_lm``: stablelm-12b's
+    prefill of 1 x 32,768 tokens, its decode at batch 8 (a 32,704-token
+    prompt, 64 steps) with the bf16 cache and the int8 cache (ms a token,
+    cache bytes, int8 at most 0.53x bf16), then both caches teacher-forced
+    with the bf16 run's tokens (the largest logit difference and top-1
+    agreement),
+    moonshot-v1-16b-a3b at batch 8, a 4,096-token prompt, 32 steps. The
+    phase prints its seconds.
+17. Prints the kernels JSON line (launches per path: serve, serve_tier2,
     train_<schedule>, train_<model>_<schedule>, train_sampled_<model>_
     <schedule>, train_dp_<mesh>_<schedule>_<all-reduce>, train_gcn_
     <schedule>, train_gcn_products_<schedule>, train_gcn_sampled_
     <schedule>, train_gcn_molecule, train_recsys_<arch>_<schedule>,
-    train_recsys_xdeepfm_b16384_<schedule>, serve_recsys_retrieval;
-    ``gcn_shape`` and ``recsys_shape``: each kernel's checks and times at
-    the GCN and recsys shapes), the card's line, then last the ok line.
+    train_recsys_xdeepfm_b16384_<schedule>, serve_recsys_retrieval,
+    train_lm_<arch>_<schedule>; ``gcn_shape``, ``recsys_shape`` and
+    ``lm_shape``: each kernel's checks and times at the GCN, recsys and LM
+    shapes), the card's line, then last the ok line.
 
     python3 chip_smoke.py --quant-pack-against DIR
 
@@ -389,6 +419,20 @@ RECSYS_BULK_REQUESTS = 10
 RECSYS_XDEEPFM_BULK = 16384  # serve_bulk for xDeepFM (its CIN input)
 RECSYS_RETRIEVAL = dict(n_cand=1_000_000, k=32, requests=200,
                         item_field=2, bits=8)
+# the LM families: the card configs (published widths in bf16, 2 layers,
+# batch 2 x 4,096; models.registry.lm_config)
+LM_ARCHS = ("mistral-large-123b", "codeqwen1.5-7b", "stablelm-12b",
+            "moonshot-v1-16b-a3b", "grok-1-314b")
+LM_TRAIN = ("stablelm-12b", "moonshot-v1-16b-a3b")
+LM_FULL_LAYERS = {"stablelm-12b": 40, "moonshot-v1-16b-a3b": 48}
+LM_STEPS = 4                 # per model and schedule
+LM_FIRST_LOSS_TOL = 0.25     # the first loss vs ln V + 0.5
+LM_BF16_TOL = 5e-2           # bf16 logits vs fp32, of max |logit|
+LM_BF16_LOSS_TOL = 1e-2      # bf16 loss vs fp32, relative
+LM_ROUTER_FLIP_MAX = 0.30    # MoE tokens routed otherwise in bf16, share
+LM_PREFILL = (1, 32768)      # prefill_32k: batch 32 cut to 1
+LM_DECODE = (8, 32768, 64)   # decode_32k: batch 128 cut to 8; steps
+LM_MOE_SERVE = (8, 4096, 32)
 DP_MESHES = ("data=2", "data=2,model=2")
 DP_RUNS = (("fp32", "int8"), ("int2", "int8"), ("fp32", "fp32"))
 DP_STEPS = 3                 # per run: (schedule, all-reduce)
@@ -538,7 +582,7 @@ def _plan_str(plan):
         return f"route rows (a warp a row), grid {plan['grid']}"
     return (f"route tiles, {plan['rows_a_tile']} rows a tile, "
             f"{plan['stages']} stage buffers of {plan['stage_floats']} "
-            f"floats, {plan['smem']} B shared, {plan['tiles']} tiles, grid "
+            f"elements, {plan['smem']} B shared, {plan['tiles']} tiles, grid "
             f"{plan['grid']}, {plan['lanes_a_row']} lanes a row")
 
 
@@ -653,11 +697,13 @@ def quant_pack_sass():
         return {}
     out = {}
     for name, (ins, loops) in _sass_loops(text).items():
-        m = re.search(r"quant_(tile|rows)_kernelILi(\d)ELb([01])E", name)
+        m = re.search(r"quant_(tile|rows)_kernelILi(\d)ELb([01])E([ft])",
+                      name)
         if not m:
             continue
         key = (f"{m.group(1).replace('tile', 'tiles')} INT{m.group(2)} "
-               f"{'sr' if m.group(3) == '1' else 'nearest'}")
+               f"{'sr' if m.group(3) == '1' else 'nearest'}"
+               + (" bf16" if m.group(4) == "t" else ""))
         out[key] = {"codes": _inner_loops(ins, loops, _codes),
                     "min/max": _inner_loops(ins, loops, _minmax_reads)}
     return out
@@ -2647,28 +2693,34 @@ def rotation(x, copies: int = ROTATION):
 
 
 def quant_case(qp, x, seed, where="", *, bits=2, stochastic=True):
-    """The quant-pack of ``x`` (INT2 SR unless asked) as a ``run_case``
-    case (no single library call); each kernel call takes the next input
-    of ``rotation(x)``. Logs the launch's plan."""
+    """The quant-pack of ``x`` (fp32 or bf16; INT2 SR unless asked) as a
+    ``run_case`` case (no single library call); each kernel call takes the
+    next input of ``rotation(x)``. Logs the launch's plan."""
+    import torch
+
     rows, d = x.shape
     xs = rotation(x)
     turn = itertools.count()
     dp = -(-d // (8 // bits))
-    n_bytes, n_ops = rows * d * 4 + rows * (dp + 8), 7 * rows * d
-    plan = qp.quant_pack_plan(rows, d, bits=bits, stochastic=stochastic)
+    n_bytes = rows * d * x.element_size() + rows * (dp + 8)
+    n_ops = 7 * rows * d
+    bf16 = x.dtype == torch.bfloat16
+    plan = qp.quant_pack_plan(rows, d, bits=bits, stochastic=stochastic,
+                              dtype=x.dtype)
     rnd = "sr" if stochastic else "nearest"
-    log(f"  quant_pack {rows}x{d} INT{bits} {rnd}: {_plan_str(plan)}; timed "
-        f"calls rotate over {len(xs)} input(s); "
-        + _budget_str(quant_pack_sass().get(f"{plan['route']} INT{bits} {rnd}"),
+    sass_key = f"{plan['route']} INT{bits} {rnd}" + (" bf16" if bf16 else "")
+    log(f"  quant_pack {rows}x{d}{' bf16' if bf16 else ''} INT{bits} {rnd}: "
+        f"{_plan_str(plan)}; timed calls rotate over {len(xs)} input(s); "
+        + _budget_str(quant_pack_sass().get(sass_key),
                       bound_ms(n_bytes, n_ops)[0], rows * d))
 
     def kernel():
         return qp.quant_pack_cuda(xs[next(turn) % len(xs)], seed, bits=bits,
                                   stochastic=stochastic)
 
-    return (f"{where}quant_pack INT{bits} {rnd} {rows}x{d}", "quant_pack",
-            kernel,
-            lambda: qp.quant_pack_plain(x, seed, bits=bits,
+    return (f"{where}quant_pack INT{bits} {rnd} {rows}x{d}"
+            f"{' bf16' if bf16 else ''}", "quant_pack", kernel,
+            lambda: qp.quant_pack_plain(x.float(), seed, bits=bits,
                                         stochastic=stochastic),
             None, n_bytes, n_ops)
 
@@ -4275,6 +4327,540 @@ def run_recsys(torch, gen, shapes):
     return runs, counts, serve, retrieval
 
 
+# -- the LM families (dense GQA and MoE transformers) --------------------------
+
+
+def lm_kernel_cases(torch, gen, shapes):
+    """[lm-kernels]: the kernels of the LM training path at the shapes the
+    card configs give them: the quant-pack (INT2 SR) at each block's saved
+    input, 8,192 x 5,120 (stablelm) and 8,192 x 2,048 (moonshot), from bf16
+    as the step hands it over, from bf16 through an fp32 copy (what the
+    wrapper did before it read bf16) and from fp32; the segment sum on the
+    embedding gradient of each config's first training batch (8,192
+    positions over the distinct token ids), beside ``index_add_`` into the
+    same distinct rows (``segment_sum_report``). Records under ``shapes``
+    by kernel name."""
+    from repro_torch.data.csr import lookup_plan
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.kernels import spmm as sp
+    from repro_torch.models.registry import LM_CARD_BATCH, LM_CARD_SEQ, \
+        lm_config
+
+    tag = "lm-kernels"
+    rows = LM_CARD_BATCH * LM_CARD_SEQ
+    log(f"[{tag}] kernels vs plain and library at the LM shapes "
+        f"({LM_CARD_BATCH} x {LM_CARD_SEQ} tokens a step)")
+    for arch in LM_TRAIN:
+        cfg = lm_config(arch)
+        d = cfg.d_model
+        x = torch.randn((rows, d), generator=gen, device=DEV) * 0.3
+        xb = x.to(torch.bfloat16)
+        seed = 0x1A + d
+        for where, xin in ((f"{arch} block input ", xb),
+                           (f"{arch} block input ", x)):
+            c = quant_case(qp, xin, seed, where)
+            shapes.setdefault("quant_pack", []).append(run_case(
+                torch, tag, c, shape="lm ", iters=10))
+        label, name, _, plain, _, n_bytes, n_ops = quant_case(
+            qp, xb, seed, f"{arch} block input via fp32 copy ")
+
+        def copied(xb=xb, seed=seed):
+            return qp.quant_pack_cuda(xb.float(), seed, bits=2,
+                                      stochastic=True)
+
+        rec = run_case(torch, tag, (label, name, copied, plain, None,
+                                    n_bytes, n_ops), shape="lm ", iters=10)
+        shapes["quant_pack"].append(rec)
+        del x, xb
+        b = next(lm_batches(vocab=cfg.vocab, batch=LM_CARD_BATCH,
+                            seq=LM_CARD_SEQ, seed=0))
+        plan = lookup_plan(b["tokens"][:, :-1], cfg.vocab, DEV)
+        levels, E = plan.runs, plan.ids.numel()
+        n_out = levels[-1].n_out
+        inv = torch.searchsorted(plan.rows, plan.ids)
+        log(f"[{tag}] {arch} embedding gradient: {E:,} positions, {n_out:,} "
+            f"distinct ids of {cfg.vocab:,} rows, d {d}")
+        y = torch.randn((E, d), generator=gen, device=DEV) * 1e-3
+
+        def library(y=y, inv=inv, n_out=n_out, d=d):
+            return torch.zeros((n_out, d), device=DEV).index_add_(0, inv, y)
+
+        n_bytes = E * (d + 1) * 4 + n_out * (d + 2) * 4
+        label = f"{arch} embedding segment_sum d={d}"
+        rec = run_case(torch, tag, (
+            label, "segment_sum",
+            lambda y=y, lv=levels: sp.segment_sum_cuda(y, lv),
+            lambda y=y, lv=levels: sp.segment_sum_plain(y, lv), library,
+            n_bytes, E * d), shape="lm ", iters=10)
+        rec.update(segment_sum_report(torch, sp, y, levels, library, n_bytes,
+                                      f"[{tag}] {label}"))
+        shapes.setdefault("segment_sum", []).append(rec)
+        del y, plan, inv
+        torch.cuda.empty_cache()
+
+
+def lm_reduced(torch):
+    """[lm]: three reduced INT2 steps of each of the five LM archs on the
+    card against the CPU's plain versions from the same parameters, losses
+    within 1e-5 relative, exactly the path's kernels every step
+    (``reduced_lm_losses`` of tests/test_torch_cuda.py)."""
+    from repro_torch.models.registry import path_kernels
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda import reduced_lm_losses
+
+    for arch in LM_ARCHS:
+        losses, step, run = reduced_lm_losses(arch, DEV)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses[str(DEV)],
+                                                       losses["cpu"]))
+        want = set(path_kernels(step.cfg.model, True))
+        got = [sorted(r["launches"]) for r in run["steps"]]
+        log(f"[lm] reduced {arch} INT2, card vs CPU plain versions: losses "
+            f"{[f'{v:.6f}' for v in losses[str(DEV)]]}, max rel {rel:.3e}; "
+            f"launches per step {json.dumps(run['steps'][-1]['launches'])}")
+        check(rel <= TOL, f"reduced {arch} differs from the CPU by {rel}")
+        check(all(set(g) == want for g in got),
+              f"reduced {arch} launched {got}, the path has {sorted(want)}")
+
+
+def _to_cpu_state(state):
+    """A (params, Adam state) pair's tensors, copied to the host."""
+    from repro_torch.models.layers import param_leaves
+
+    params, opt = state
+    return [t.detach().cpu() for t in param_leaves(params)
+            + opt["mu"] + opt["nu"]]
+
+
+def lm_two_steps(torch, name, step, label="int2"):
+    """Two steps of ``step`` under ``label`` from one state (after a first
+    step) on one batch: the loss, every parameter and every Adam moment
+    bit-identical. The first run's results wait on the host, so that the
+    card holds the state twice, not three times."""
+    from repro_torch.core.policy import parse_schedule
+    from repro_torch.launch.train import ROOT_SEED
+    from repro_torch.training.optimizer import adam
+    from repro_torch.training.step import make_train_step
+
+    opt = adam(step.lr)
+    batches = step.batches()
+    train = make_train_step(step, opt, schedule=parse_schedule(label),
+                            root_seed=ROOT_SEED)
+    params = step.init(0)
+    state, _ = train((params, opt.init(params)), next(batches), 0)
+    del params
+    batch = next(batches)
+    s1, m1 = train(_clone_state(torch, state), batch, 1)
+    first = _to_cpu_state(s1)
+    del s1
+    s2, m2 = train(_clone_state(torch, state), batch, 1)
+    del state
+    pairs = list(zip(first, _to_cpu_state(s2)))
+    del s2
+    n_same = sum(bool(torch.equal(a, b)) for a, b in pairs)
+    same_loss = bool(torch.equal(m1["loss"], m2["loss"]))
+    log(f"[determinism] {name}: two steps from one state: loss "
+        f"{float(m1['loss']):.9f} / {float(m2['loss']):.9f} "
+        f"({'bit-identical' if same_loss else 'DIFFER'}), {n_same} of "
+        f"{len(pairs)} parameter and moment tensors bit-identical")
+    check(same_loss and n_same == len(pairs),
+          f"[determinism] {name}: two steps from one state differ")
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def moe_routing_log():
+    """While open, every MoE group's routing is appended to the list it
+    yields, in call order (layer by layer, group by group): the group's
+    (Tg, k) expert choices and whether each choice is within capacity
+    (``models.moe._routing``, wrapped)."""
+    from repro_torch.models import moe
+
+    inner, log_ = moe._routing, []
+
+    def routing(idx, E, C):
+        slot_src, choice_slot = inner(idx, E, C)
+        log_.append((idx.clone(), (choice_slot < E * C).reshape(idx.shape)))
+        return slot_src, choice_slot
+
+    moe._routing = routing
+    try:
+        yield log_
+    finally:
+        moe._routing = inner
+
+
+def _same_routing(torch, a, b, n_layers):
+    """(n_layers, T) bool from two ``moe_routing_log``s of one forward:
+    whether a token's routing in a layer is the same in both, as the set
+    of its (expert, within capacity) pairs (the order of a token's k
+    choices does not change where it goes)."""
+    same = []
+    for (ia, ka), (ib, kb) in zip(a, b, strict=True):
+        sa, oa = ia.sort(-1)
+        sb, ob = ib.sort(-1)
+        same.append((sa == sb).all(-1)
+                    & (ka.gather(-1, oa) == kb.gather(-1, ob)).all(-1))
+    return torch.cat(same).reshape(n_layers, -1)
+
+
+def _layerwise_bf16(torch, cfg, cfg32, p16, p32, tokens):
+    """Each block of the bf16 model and of the fp32 model on one input, the
+    fp32 model's hidden state (cast to bf16 for the bf16 block), then the
+    final norm and head the same way, so that no stage inherits an earlier
+    stage's difference: per stage, each token's largest |diff| of the
+    stage's output, of the fp32 output's max |value| (a (T,) tensor), and
+    for each block whether each token's routing is the same in both ((T,)
+    bool; all True for a dense block)."""
+    from repro_torch.models import transformer as tf
+
+    pos = torch.arange(tokens.shape[1], device=DEV)
+    f16, f32 = tf._block_fwd(cfg), tf._block_fwd(cfg32)
+    x = p32["emb"][tokens.long()]
+    errs, same = [], []
+
+    def err(a, b):
+        return ((a.float() - b).abs().amax(-1) / b.abs().max()).flatten()
+
+    for i in range(cfg.n_layers):
+        with moe_routing_log() as r16:
+            y16 = f16(tf.layer_params(p16, i), x.to(torch.bfloat16), pos)
+        with moe_routing_log() as r32:
+            y32 = f32(tf.layer_params(p32, i), x, pos)
+        errs.append(err(y16, y32))
+        same.append(_same_routing(torch, r16, r32, 1)[0] if r32
+                    else torch.ones_like(errs[-1], dtype=torch.bool))
+        x = y32
+        del y16, r16, r32
+    l16 = tf._rmsnorm(x.to(torch.bfloat16), p16["ln_f"], cfg.norm_eps) \
+        @ p16["head"]
+    l32 = tf._rmsnorm(x, p32["ln_f"], cfg.norm_eps) @ p32["head"]
+    errs.append(err(l16, l32))
+    return errs, same
+
+
+def lm_bf16_check(torch, arch, step):
+    """The bf16 forward of the card config against the same weights in
+    fp32 on the card, first batch, no ACT. The whole forward: losses
+    within ``LM_BF16_LOSS_TOL`` relative, and for a dense model the logits
+    within ``LM_BF16_TOL`` of the fp32 logits' max |value| at every token
+    (bf16 keeps 8 bits of mantissa in every product's inputs and in every
+    activation between the fp32 accumulations). A MoE token whose routing
+    differs between the two (a near-tie between its k-th and (k+1)-th
+    expert, or a capacity cut that moves with one) goes to other experts
+    and changes wholesale, and causal attention carries that change into
+    every later token of its sequence in the next layer, whatever their
+    own routing. So each stage is also held alone (``_layerwise_bf16``):
+    every block's output at every token routed the same in that block, and
+    the head's logits at every token, within ``LM_BF16_TOL``; and the share
+    of tokens routed otherwise in some layer of the whole forward (the
+    routing recorded in both, ``moe_routing_log``) at most
+    ``LM_ROUTER_FLIP_MAX``."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tf
+
+    cfg = step.cfg
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    batch = next(step.batches())
+    toks = batch["tokens"]
+    with torch.no_grad():
+        p16 = tf.init_params(cfg, seed=0, device=DEV)
+        p32 = {k: [t.float() for t in v] if isinstance(v, list)
+               else v.float() for k, v in p16.items()}
+        out, routes = {}, {}
+        for c, p in ((cfg, p16), (cfg32, p32)):
+            with moe_routing_log() as routes[c.dtype]:
+                logits = tf.forward(p, toks[:, :-1], c).float()
+            logz = torch.logsumexp(logits, -1)
+            gold = torch.gather(logits, -1, toks[:, 1:, None].long())[..., 0]
+            out[c.dtype] = (float((logz - gold).mean()), logits)
+            del logits, logz, gold
+        l16, lg16 = out.pop("bfloat16")
+        l32, lg32 = out.pop("float32")
+        # per token: the largest |diff| of its logits, of the max |logit|
+        tok = ((lg16 - lg32).abs().amax(-1) / lg32.abs().max()).flatten()
+        del lg16, lg32
+        errs, same_l = _layerwise_bf16(torch, cfg, cfg32, p16, p32,
+                                       toks[:, :-1])
+        del p16, p32
+    err, med = float(tok.max()), float(tok.median())
+    off = float((tok > LM_BF16_TOL).float().mean())
+    lrel = abs(l16 - l32) / abs(l32)
+    stage = [float(e[s].max()) for e, s in zip(errs, same_l)] \
+        + [float(errs[-1].max())]
+    msg = (f"[lm-train] {arch} bf16 forward against the same weights in "
+           f"fp32 on the card: logits max |diff| {err:.3e} of max |logit| "
+           f"(median token {med:.3e}; tol {LM_BF16_TOL}; tokens past it "
+           f"{off:.2%}), loss {l16:.6f} / {l32:.6f} (rel {lrel:.3e}, tol "
+           f"{LM_BF16_LOSS_TOL}); each stage alone from the fp32 input, max "
+           f"|diff| of its max |output|: blocks "
+           + ", ".join(f"{e:.3e}" for e in stage[:-1])
+           + f", head {stage[-1]:.3e} (tol {LM_BF16_TOL})")
+    worst, flips = max([err] + stage), 0.0
+    if cfg.moe is not None:
+        same = _same_routing(torch, routes["bfloat16"], routes["float32"],
+                             cfg.n_layers)
+        flips = 1.0 - float(same.all(0).float().mean())
+        worst = max(stage)
+        by_layer = ", ".join(f"{1 - float(r.float().mean()):.2%}"
+                             for r in same)
+        alone = ", ".join(f"{1 - float(s.float().mean()):.2%}"
+                          for s in same_l)
+        msg += (f" at the tokens routed the same in that block (routed "
+                f"otherwise there: {alone}); in the whole forward the "
+                f"routing differs for {flips:.2%} of tokens in some layer "
+                f"(by layer {by_layer}; limit {LM_ROUTER_FLIP_MAX:.0%})")
+    log(msg)
+    check(worst <= LM_BF16_TOL and lrel <= LM_BF16_LOSS_TOL
+          and flips <= LM_ROUTER_FLIP_MAX,
+          f"[lm-train] {arch}: bf16 forward off fp32 by {worst} / {lrel}, "
+          f"routing differs for {flips:.2%} of tokens")
+    del routes, errs, same_l
+    torch.cuda.empty_cache()
+
+
+def lm_held_bytes(torch, step, label):
+    """The bytes the block stack's autograd graph holds for its backward
+    under ``label``'s block policy, after the stack's forward on one batch
+    of random inputs: the storages of the tensors it saves (a
+    ``saved_tensors_hooks`` pack hook sees each; non-reentrant checkpoint
+    saves the block inputs so) and of the packed residuals (``QTensor``)
+    an ACT Function keeps on its context (read off the graph's nodes),
+    each storage once, the parameters' not counted. The stack's input is a
+    product with a leaf, which saves nothing, as the embedding's output
+    in a step."""
+    from repro_torch.core.act import act_remat
+    from repro_torch.core.policy import parse_schedule
+    from repro_torch.core.quant import QTensor
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.step import trainable
+
+    cfg = step.cfg
+    B, S = step.data["batch"], step.data["seq"]
+    params = trainable(tf.init_params(cfg, seed=0, device=DEV))
+    layers = [tf.layer_params(params, i) for i in range(cfg.n_layers)]
+    pol = parse_schedule(label).resolve("remat", "lm/block")
+    block = act_remat(tf._block_fwd(cfg), pol, repeat=cfg.n_layers)
+    leaf = torch.randn((B, S, cfg.d_model), device=DEV,
+                       dtype=getattr(torch, cfg.dtype), requires_grad=True)
+    positions = torch.arange(S, device=DEV)
+    held = {}
+    skip = {t.untyped_storage().data_ptr()
+            for v in params.values() for t in (v if isinstance(v, list)
+                                               else [v])}
+
+    def keep(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in skip:
+            held[st.data_ptr()] = st.nbytes()
+
+    def pack(t):
+        keep(t)
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        y = block(layers, leaf * 1, list(range(cfg.n_layers)),
+                  consts=positions)
+    seen, todo = set(), [y.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        q = getattr(node, "q", None)
+        if isinstance(q, QTensor):
+            for t in (q.packed, q.scale, q.zero):
+                keep(t)
+        todo.extend(f for f, _ in node.next_functions)
+    del y, leaf, layers, params
+    torch.cuda.empty_cache()
+    return sum(held.values())
+
+
+def lm_train(torch):
+    """[lm-train]: stablelm-12b and moonshot-v1-16b-a3b at the card configs
+    (published widths in bf16, 2 layers, batch 2 x 4,096), ``LM_STEPS``
+    steps under FP32 and INT2 each (``train_run``: finite losses, exactly
+    the path's kernels, the same every step; median step, peak memory,
+    ACT bytes). Checks: the first loss near ln V + 0.5 (the random head's
+    logits have unit variance), INT2's residual bytes below FP32's
+    pricing, the bytes the block stack's graph holds (``lm_held_bytes``);
+    then an INT2 step profiled
+    (no ``index_add_``), two INT2 steps bit-identical ([determinism]) and
+    the bf16 forward against fp32."""
+    from repro_torch.models.registry import build_step
+
+    runs = {}
+    for arch in LM_TRAIN:
+        step = build_step(arch, device=DEV)
+        cfg = step.cfg
+        log(f"[lm-train] {arch}: d {cfg.d_model}, {cfg.n_heads} heads over "
+            f"{cfg.n_kv_heads} KV heads of {cfg.d_head}, "
+            + (f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
+               f"{cfg.moe.d_ff}" if cfg.moe else f"d_ff {cfg.d_ff}")
+            + f", vocab {cfg.vocab:,}, {cfg.n_layers} layers (cut from "
+            f"{LM_FULL_LAYERS[arch]}), {cfg.n_params / 1e9:.3f} B "
+            f"parameters ({cfg.n_active_params / 1e9:.3f} B active) in "
+            f"{cfg.dtype}; batch {step.data['batch']} x {step.data['seq']}")
+        rows = step.data["batch"] * step.data["seq"]
+        got = {}
+        for label in ("fp32", "int2"):
+            r = train_run(torch, "lm-train", f"{arch} {label}", step, label,
+                          LM_STEPS, exact=True)
+            first = r["losses"][0]
+            want = math.log(cfg.vocab) + 0.5
+            held = lm_held_bytes(torch, step, label)
+            r["act_held"] = held
+            log(f"[lm-train] {arch} {label}: first loss {first:.4f} (ln V + "
+                f"0.5 = {want:.4f}); ACT residual bytes priced as the "
+                f"reference prices them {r['act_bytes']:,} (FP32 pricing "
+                f"{r['act_fp32']:,}), held by the block stack's graph "
+                f"{held:,} (measured: the storages its saved tensors and "
+                f"packed residuals hold; "
+                f"{rows * cfg.d_model * 2 * cfg.n_layers:,} are the "
+                f"{cfg.n_layers} bf16 block inputs); peak "
+                f"{r['peak'] / 2**30:.2f} GiB")
+            check(abs(first - want) <= LM_FIRST_LOSS_TOL,
+                  f"[lm-train] {arch} {label}: first loss {first} is not "
+                  f"near ln V + 0.5 = {want}")
+            got[label] = r
+            torch.cuda.empty_cache()
+        check(got["int2"]["act_bytes"] < got["fp32"]["act_bytes"]
+              and got["int2"]["act_fp32"] == got["fp32"]["act_fp32"],
+              f"[lm-train] {arch} ACT bytes INT2 vs FP32")
+        key = arch.split("-")[0]
+        runs.update({f"lm_{key}_{label}": r for label, r in got.items()})
+        profile_model_step(torch, step, f"{arch} int2", top=10)
+        torch.cuda.empty_cache()
+        lm_two_steps(torch, f"{arch} int2", step)
+        lm_bf16_check(torch, arch, step)
+        del step
+        torch.cuda.empty_cache()
+    return runs
+
+
+def lm_serve(torch):
+    """[lm-serve]: ``serve_lm`` at the card configs (2 layers, seed-0
+    weights): stablelm-12b's prefill of one 32,768-token prompt
+    (``prefill_32k``, batch 32 cut to 1); its decode at batch 8
+    (``decode_32k``, batch 128 cut to 8: a 32,704-token prompt, then 64
+    greedy steps) with the bf16 cache and with the int8 cache: ms a token
+    and the cache's bytes (int8 at most 0.53x bf16); then both caches
+    teacher-forced with the bf16 run's prompt and tokens
+    (``teacher_forced_logits`` of tests/test_torch_cuda.py): the largest
+    logit difference and the share of steps whose top-1 agrees;
+    moonshot-v1-16b-a3b at batch 8, a 4,096-token
+    prompt and 32 steps (capacity 1 at decode: colliding tokens are
+    dropped, as in the reference). Forward only: no kernel launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.kernels import backend
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import lm_config
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cuda import teacher_forced_logits
+
+    out = {}
+    cfg = lm_config("stablelm-12b")
+    params = tf.init_params(cfg, seed=0, device=DEV)
+    quiet = dict(device=DEV, log=lambda _: None)
+    backend.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    b, s = LM_PREFILL
+    r = serve_lm(cfg, params, batch=b, tokens=1, prompt_len=s,
+                 name="stablelm-12b prefill_32k", **quiet)
+    log(f"[lm-serve] stablelm-12b prefill of {b} x {s:,} tokens: "
+        f"{r['prefill_ms']:.1f} ms ({b * s / r['prefill_ms'] * 1e3:,.0f} "
+        f"tokens/s), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    out["prefill_ms"] = r["prefill_ms"]
+    del r
+    torch.cuda.empty_cache()
+    b, s, n = LM_DECODE
+    res = {}
+    for bits in (None, 8):
+        c = dataclasses.replace(cfg, kv_cache_bits=bits)
+        torch.cuda.reset_peak_memory_stats()
+        r = serve_lm(c, params, batch=b, tokens=n + 1, prompt_len=s - n,
+                     name=f"stablelm-12b decode_32k kv {bits or 'bf16'}",
+                     **quiet)
+        r["peak"] = torch.cuda.max_memory_allocated()
+        log(f"[lm-serve] stablelm-12b decode at batch {b}, "
+            f"{s - n:,}-token prompt then {n} steps, "
+            f"{'int8' if bits else 'bf16'} cache: prefill "
+            f"{r['prefill_ms']:.1f} ms, {r['ms_per_token']:.3f} ms a token "
+            f"({b / r['ms_per_token'] * 1e3:,.0f} tokens/s), cache "
+            f"{r['cache_bytes']:,} B ({r['cache_bytes'] / 1e9:.3f} GB), peak "
+            f"{r['peak'] / 2**30:.2f} GiB")
+        res[bits] = r
+        torch.cuda.empty_cache()
+    ratio = res[8]["cache_bytes"] / res[None]["cache_bytes"]
+    # the prompt serve_lm drew, and the bf16 run's tokens fed to both
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (b, s - n))).to(DEV)
+    feed = res[None]["tokens"][:, :-1]
+    logits = {bits: teacher_forced_logits(
+                  dataclasses.replace(cfg, kv_cache_bits=bits), params,
+                  prompt, feed) for bits in (None, 8)}
+    torch.cuda.empty_cache()
+    diffs = [float((a.float() - c.float()).abs().max())
+             for a, c in zip(logits[8], logits[None])]
+    agree = [bool(torch.equal(a.argmax(-1), c.argmax(-1)))
+             for a, c in zip(logits[8], logits[None])]
+    share = sum(agree) / len(agree)
+    log(f"[lm-serve] int8 cache against bf16 over the prefill and {n} "
+        f"steps (teacher forcing): cache bytes {ratio:.4f}x, largest logit "
+        f"difference {max(diffs):.4f} (max |logit| "
+        f"{max(float(x.float().abs().max()) for x in logits[None]):.3f}"
+        f"), top-1 agrees on {share:.2%} of steps (all {b} rows)")
+    check(ratio <= 0.53, f"[lm-serve] int8 cache takes {ratio:.4f}x bf16's")
+    check(all(math.isfinite(d) for d in diffs), "[lm-serve] non-finite logits")
+    out.update(decode_ms_bf16=res[None]["ms_per_token"],
+               decode_ms_int8=res[8]["ms_per_token"],
+               cache_bytes_bf16=res[None]["cache_bytes"],
+               cache_bytes_int8=res[8]["cache_bytes"],
+               max_logit_diff=max(diffs), top1_share=share)
+    del res, logits, params
+    torch.cuda.empty_cache()
+    cfg = lm_config("moonshot-v1-16b-a3b")
+    params = tf.init_params(cfg, seed=0, device=DEV)
+    b, s, n = LM_MOE_SERVE
+    r = serve_lm(cfg, params, batch=b, tokens=n + 1, prompt_len=s,
+                 name="moonshot-v1-16b-a3b", **quiet)
+    log(f"[lm-serve] moonshot-v1-16b-a3b at batch {b}, {s:,}-token prompt, "
+        f"{n} steps: prefill {r['prefill_ms']:.1f} ms, "
+        f"{r['ms_per_token']:.3f} ms a token, cache "
+        f"{r['cache_bytes'] / 1e9:.3f} GB (bf16)")
+    check(math.isfinite(r["ms_per_token"]), "[lm-serve] moonshot: no time")
+    out.update(moe_prefill_ms=r["prefill_ms"], moe_ms_per_token=r[
+        "ms_per_token"])
+    counts = dict(backend.LAUNCH_COUNTS)
+    log(f"[lm-serve] kernel launches of the serving runs: "
+        f"{json.dumps(counts) if counts else 'none (forward only)'}")
+    del params, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_lm(torch, gen, shapes):
+    """The LM phases ([lm-kernels], [lm] reduced, [lm-train] with the
+    [determinism] pairs, [lm-serve]); returns the training runs by path
+    key."""
+    t0 = time.perf_counter()
+    lm_kernel_cases(torch, gen, shapes)
+    lm_reduced(torch)
+    runs = lm_train(torch)
+    lm_serve(torch)
+    log(f"[lm] phase {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 # quant_pack in turns against another tree's kernel: (label, rows, d, bits,
 # SR) of every shape this script times the quant-pack at
 QUANT_TURN_SHAPES = (
@@ -4517,6 +5103,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     recsys_shapes = {}
     runs_rs, counts_rs, _, _ = run_recsys(torch, gen, recsys_shapes)
+    torch.cuda.empty_cache()
+    lm_shapes = {}
+    runs_lm = run_lm(torch, gen, lm_shapes)
     # launches: the sum over the main-path runs (serving, then training
     # KGAT under each schedule and KGCN, KGIN, R-GCN under FP32 and INT2,
     # then the sampled, multi-rank and GCN runs), each counted from 0 just
@@ -4535,7 +5124,7 @@ def main() -> int:
         by_path.update({f"train_{key}": r["counts"].get(e["name"], 0)
                         for key, r in runs_gcn.items()})
         by_path.update({f"train_{key}": r["counts"].get(e["name"], 0)
-                        for key, r in runs_rs.items()})
+                        for key, r in {**runs_rs, **runs_lm}.items()})
         by_path["serve_recsys_retrieval"] = counts_rs.get(e["name"], 0)
         e["launches_by_path"] = by_path
         e["launches_per_train_step"] = {
@@ -4549,11 +5138,13 @@ def main() -> int:
             for key, c in runs_dp.items() if key.endswith("_per_step")})
         e["launches_per_train_step"].update({
             f"train_{key}": r["per_step"].get(e["name"], 0)
-            for key, r in {**runs_gcn, **runs_rs}.items()})
+            for key, r in {**runs_gcn, **runs_rs, **runs_lm}.items()})
         if e["name"] in gcn_shapes:
             e["gcn_shape"] = gcn_shapes[e["name"]]
         if e["name"] in recsys_shapes:
             e["recsys_shape"] = recsys_shapes[e["name"]]
+        if e["name"] in lm_shapes:
+            e["lm_shape"] = lm_shapes[e["name"]]
         e["launches"] = sum(by_path.values())
         check(e["launches"] > 0, f"kernel {e['name']} never launched")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -4561,7 +5152,7 @@ def main() -> int:
             "launches_by_path", "launches_per_train_step")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     optional = ("also_replaces", "other_shape", "sampled_shape",
-                "shard_shape", "gcn_shape", "recsys_shape",
+                "shard_shape", "gcn_shape", "recsys_shape", "lm_shape",
                 "sass_per_element",
                 "library_call",
                 "kernels_per_call", "device_ms", "library_device_ms",

@@ -1,20 +1,20 @@
 """Architecture + shape specs (port of ``repro/configs/base.py``): the specs
-and the GNN and recsys families' shapes, ``GNN_SHAPES`` and
-``RECSYS_SHAPES``, with the reference's numbers."""
+and the LM, GNN and recsys families' shapes, ``LM_SHAPES``, ``GNN_SHAPES``
+and ``RECSYS_SHAPES``, with the reference's numbers."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
-__all__ = ["ShapeSpec", "ArchSpec", "GNN_SHAPES", "RECSYS_SHAPES"]
+__all__ = ["ShapeSpec", "ArchSpec", "LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
     kind: str        # kgnn_train | full_graph | minibatch | batched_graphs
-    #                  | train | serve | retrieval
+    #                  | train | prefill | decode | serve | retrieval
     params: tuple    # sorted (key, value) pairs, hashable
 
     def p(self) -> dict:
@@ -24,7 +24,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str      # kgnn | gnn | recsys
+    family: str      # kgnn | gnn | recsys | lm | moe_lm
     model_cfg: Any
     shapes: tuple
     source: str = ""
@@ -40,6 +40,13 @@ class ArchSpec:
 def _s(name, kind, **kw) -> ShapeSpec:
     return ShapeSpec(name, kind, tuple(sorted(kw.items())))
 
+
+LM_SHAPES = (
+    _s("train_4k", "train", seq_len=4096, global_batch=256),
+    _s("prefill_32k", "prefill", seq_len=32768, global_batch=32),
+    _s("decode_32k", "decode", seq_len=32768, global_batch=128),
+    _s("long_500k", "decode", seq_len=524288, global_batch=1),
+)
 
 GNN_SHAPES = (
     _s("full_graph_sm", "full_graph", n_nodes=2708, n_edges=10556,

@@ -1,5 +1,5 @@
-"""Reduced configs for CPU runs (port of the gnn, recsys and kgnn branches
-of ``repro/configs/smoke.py``): same topology, tiny widths."""
+"""Reduced configs for CPU runs (port of ``repro/configs/smoke.py``): same
+topology (GQA ratio, MoE routing, CIN stack, field count), tiny widths."""
 
 from __future__ import annotations
 
@@ -11,6 +11,22 @@ __all__ = ["reduced"]
 
 
 def reduced(arch: ArchSpec) -> ArchSpec:
+    if arch.family in ("lm", "moe_lm"):
+        from repro_torch.models.moe import MoEConfig
+
+        cfg = arch.model_cfg
+        kv_ratio = max(cfg.n_heads // cfg.n_kv_heads, 1)
+        moe = None
+        d_ff = 128
+        if cfg.moe is not None:
+            moe = MoEConfig(n_experts=min(cfg.moe.n_experts, 8),
+                            top_k=min(cfg.moe.top_k, 2), d_ff=64)
+            d_ff = 0
+        small = dataclasses.replace(
+            cfg, n_layers=2, d_model=64, n_heads=4,
+            n_kv_heads=max(4 // kv_ratio, 1), d_head=16, d_ff=d_ff,
+            vocab=512, moe=moe, dtype="float32", q_chunk=16, kv_chunk=16)
+        return dataclasses.replace(arch, model_cfg=small)
     if arch.family == "gnn":
         small = dataclasses.replace(arch.model_cfg, d_in=32, d_hidden=16,
                                     n_classes=7)

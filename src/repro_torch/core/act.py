@@ -14,15 +14,22 @@ from the dequantized residual, unbiased because the quantizer is
 (Proposition 1). The port has the reference's layout path only: the SPMM's
 backward runs the SPMM kernel on the transpose arrays for ∇x and the SDDMM
 (fp32 or packed residual) for ∇ew; ``act_matmul``'s ∇W is the fused
-dequant-matmul kernel. ``act_rmsnorm`` and ``act_remat`` come with the
-non-KG models.
+dequant-matmul kernel. ``act_rmsnorm`` saves its input (quantized) and
+recomputes the rstd in the backward; ``act_remat`` wraps a whole block
+(the transformer's): the forward saves only Quant(x) and references to the
+block's parameters, and the backward dequantizes x and recomputes the
+block under autograd (gradient checkpointing whose checkpoint is b-bit
+compressed); under an inactive policy it is a plain checkpoint that
+recomputes from the fp32 input (``torch.utils.checkpoint``), the
+reference's ``jax.checkpoint`` baseline.
 
-``gather_rows`` is no ACT site: it is ``index_select`` with a backward that
-sums each table row's gradient in a fixed order (``ops.segment_sum`` over a
-precomputed grouping of the edges), where ``index_select``'s own backward,
-``index_add_``, adds with atomics on the card and so changes the last bits
-from run to run. ``sum_rows`` is its transpose: that fixed-order sum
-forward, the gather backward.
+``gather_rows`` (and ``lookup_rows``, an embedding lookup through it) is no
+ACT site: it is ``index_select`` with a backward that sums each table row's
+gradient in a fixed order (``ops.segment_sum`` over a precomputed grouping
+of the edges), where ``index_select``'s own backward, ``index_add_``, adds
+with atomics on the card and so changes the last bits from run to run.
+``sum_rows`` is its transpose: that fixed-order sum forward, the gather
+backward.
 
 Site resolution follows the reference: explicit ``seed=`` / ``policy=``
 kwargs first, then the ambient ``ActContext`` at the site named ``scope``;
@@ -33,8 +40,10 @@ with neither, the policy is FP32. Every resolved site records its residual
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 
@@ -43,7 +52,8 @@ from .policy import FP32, ACTPolicy
 from .quant import QTensor, dequantize
 
 __all__ = ["act_matmul", "act_dense", "act_relu", "act_nonlin", "act_spmm",
-           "weighted_spmm", "gather_rows", "sum_rows", "NONLIN"]
+           "act_rmsnorm", "act_remat", "weighted_spmm", "gather_rows",
+           "lookup_rows", "sum_rows", "NONLIN"]
 
 
 def _resolve_site(op_kind: str, scope: str | None, seed,
@@ -233,6 +243,116 @@ def act_nonlin(x, *, fn: str, seed=None, policy: ACTPolicy | None = None,
     return _ActNonlin.apply(x, fn, policy, seed)
 
 
+# -- RMSNorm --------------------------------------------------------------------
+
+
+class _ActRmsnorm(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, gamma, eps, policy, seed):
+        _save(fctx, x, seed, policy, gamma)
+        fctx.eps = eps
+        r = torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+        return x * r * gamma
+
+    @staticmethod
+    def backward(fctx, g):
+        res, (gamma,) = _load(fctx)
+        xhat = _xhat(res, fctx.x_shape).to(torch.float32)
+        gf = g.to(torch.float32)
+        d = xhat.shape[-1]
+        r = torch.rsqrt(torch.mean(xhat * xhat, dim=-1, keepdim=True)
+                        + fctx.eps)
+        gg = gf * gamma.to(torch.float32)
+        dot = torch.sum(gg * xhat, dim=-1, keepdim=True)
+        dx = r * gg - (r ** 3 / d) * dot * xhat
+        dgamma = torch.sum(gf * xhat * r, dim=tuple(range(g.ndim - 1)))
+        return dx.to(g.dtype), dgamma.to(gamma.dtype), None, None, None
+
+
+def act_rmsnorm(x, gamma, *, seed=None, policy: ACTPolicy | None = None,
+                scope: str | None = None, eps: float = 1e-6):
+    """RMSNorm storing its input quantized; the backward recomputes the rstd
+    from the dequantized input (the reference's formulas)."""
+    name, policy, seed, ctx = _resolve_site("rmsnorm", scope, seed, policy)
+    _record(ctx, name, "rmsnorm", x.shape, policy)
+    if not policy.enabled:
+        r = torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+        return x * r * gamma
+    return _ActRmsnorm.apply(x, gamma, eps, policy, seed)
+
+
+# -- compressed checkpoint of a whole block -------------------------------------
+
+
+class _ActRemat(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, fn, keys, consts, policy, seed, x, *leaves):
+        _save(fctx, x, seed, policy, *leaves)
+        fctx.fn, fctx.keys, fctx.consts = fn, keys, consts
+        return fn(dict(zip(keys, leaves)), x, consts)
+
+    @staticmethod
+    def backward(fctx, g):
+        res, leaves = _load(fctx)
+        need = fctx.needs_input_grad[6:]
+        xhat = _xhat(res, fctx.x_shape).detach().requires_grad_(True)
+        ps = [t.detach().requires_grad_(n) for t, n in zip(leaves, need)]
+        with torch.enable_grad():
+            y = fctx.fn(dict(zip(fctx.keys, ps)), xhat, fctx.consts)
+        wants = [xhat] + [t for t, n in zip(ps, need) if n]
+        got = iter(torch.autograd.grad(y, wants, g))
+        dx = next(got)
+        return (None, None, None, None, None, dx,
+                *[next(got) if n else None for n in need])
+
+
+def act_remat(fn: Callable, policy: ACTPolicy | None = None, *,
+              scope: str | None = None, repeat: int = 1):
+    """Wrap ``fn(params, x, consts) -> y`` (``params`` a dict of tensors) to
+    save only Quant(x) for the backward, which dequantizes x̂ and recomputes
+    ``fn`` under autograd: one wrapper ACT-ifies a whole block with
+    O(N·d·b/8) residual bytes. Returns ``apply(params, x, seed=None,
+    consts=None)``; under an inactive policy it is a plain checkpoint
+    (recompute from the fp32 input). ``policy=None`` resolves from the
+    ambient context at call time (site ``scope`` / ``"remat"``).
+
+    ``repeat`` is the reference's scan over stacked layers: ``apply`` then
+    takes a list of ``repeat`` parameter dicts and runs the layers in
+    order, one residual recorded a layer (``name``, ``name[1]``, ...), the
+    site resolved once; ``seed`` is then a list of per-layer seeds (None:
+    the site's one seed for every layer, as the reference's scan reuses a
+    resolved key).
+    """
+
+    def one(p: dict, x, pol, seed, consts):
+        keys = tuple(p)
+        leaves = [p[k] for k in keys]
+        if not pol.active:
+            return torch.utils.checkpoint.checkpoint(
+                lambda xx, *ls: fn(dict(zip(keys, ls)), xx, consts), x,
+                *leaves, use_reentrant=False)
+        return _ActRemat.apply(fn, keys, consts, pol, seed, x, *leaves)
+
+    def apply(params, x, seed=None, consts=None):
+        layer_seeds = seed if repeat > 1 else None
+        if repeat > 1 and seed is not None:
+            seed = 0          # the per-layer seeds are given: resolve none
+        name, pol, seed0, ctx = _resolve_site("remat", scope, seed, policy)
+        _record(ctx, name, "remat", x.shape, pol)
+        for i in range(1, repeat):
+            _record(ctx, None if name is None else f"{name}[{i}]", "remat",
+                    x.shape, pol)
+        if repeat == 1:
+            return one(params, x, pol, seed0, consts)
+        if layer_seeds is None:
+            layer_seeds = [seed0] * repeat
+        for p, s in zip(params, layer_seeds, strict=True):
+            x = one(p, x, pol, s, consts)
+        return x
+
+    return apply
+
+
 # -- SPMM (KG message passing, paper Eq. 2) -----------------------------------
 
 
@@ -316,8 +436,22 @@ def gather_rows(table, idx, runs, *, rows=None):
     one a run), table row ``rows[r]``; the rows no run reaches get zero
     gradient (a sampled block gathers from a prefix of a wider table,
     ``models.kgnn.BlockView``; a recsys batch touches a few of the table's
-    rows, ``models.recsys.lookup_plan``)."""
+    rows, ``data.csr.lookup_plan``)."""
     return _GatherRows.apply(table, idx, runs, rows)
+
+
+def lookup_rows(table, plan=None, ids=None):
+    """An embedding lookup: with the batch's ``data.csr.LookupPlan``, the
+    rows ``plan.ids`` through ``gather_rows`` (the table's deterministic
+    backward); without one, ``table.index_select(0, ids)``, whose backward
+    would scatter with atomics, so the table must not need a gradient
+    then."""
+    if plan is not None:
+        return gather_rows(table, plan.ids, plan.runs, rows=plan.rows)
+    if torch.is_grad_enabled() and table.requires_grad:
+        raise ValueError("training an embedding table needs the batch's "
+                         "LookupPlan (data.csr.lookup_plan)")
+    return table.index_select(0, ids)
 
 
 class _SumRows(torch.autograd.Function):

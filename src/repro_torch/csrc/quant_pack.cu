@@ -2,6 +2,12 @@
 //
 // Replaces the TPU kernel src/repro/kernels/quant_pack.py:_quant_kernel.
 //
+// Input: fp32, or bf16 (a bf16 value is the top half of an fp32, so it
+// widens exactly, in registers: the codes, scale and zero of a bf16 row
+// are those of its fp32 upcast, bit for bit, as the TPU kernel casts to
+// fp32 inside). One code path for both, templated on the element E; the
+// byte counts below are for fp32, a bf16 input reads half as many.
+//
 // Bound on the H100: bytes. It reads R*d*4 bytes of fp32 and writes
 // R*ceil(d*b/8) packed bytes plus 8 bytes of scale/zero per row: at
 // 3.35 TB/s about 0.84 G elements a ms. The SMs issue about 33 T
@@ -25,7 +31,10 @@
 //   16-byte aligned interior as one TMA bulk copy (cp.async.bulk, completion
 //   on the buffer's mbarrier), a misaligned head and tail (at most 3 floats
 //   each: a table that is a row slice of another at an odd d) as 4-byte
-//   cp.async tracked by the same mbarrier. Every byte of x is read from
+//   cp.async tracked by the same mbarrier (bf16: at most 7 elements each,
+//   copied by thread 0 with plain loads and stores before its arrival,
+//   which releases them: cp.async moves no 2-byte unit). Every byte of x
+//   is read from
 //   device memory once. Two 32 KB buffers (three blocks an SM) beat three
 //   (two blocks) and smaller or larger tiles on the H100;
 // - T is picked per d: a stage of about kStageFloats floats, T*d a
@@ -169,55 +178,94 @@ __device__ __forceinline__ uint32_t code_of(float x, float2 li,
   return __float2uint_rz(fminf(code, kBins));
 }
 
+// -- input elements -----------------------------------------------------------
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(uint16_t v) {    // bf16: exact
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
+// four consecutive elements from an aligned address (16 bytes of fp32, 8
+// of bf16)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const uint16_t* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(v.x << 16),
+                     __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16),
+                     __uint_as_float(v.y & 0xffff0000u));
+}
+
+// a tile's misaligned head or tail, elements [i0, i1)
+__device__ __forceinline__ void copy_edge(float* s, const float* g, int i0,
+                                          int i1) {
+  for (int i = i0; i < i1; ++i) cp_async4(s + i, g + i);
+}
+__device__ __forceinline__ void copy_edge(uint16_t* s, const uint16_t* g,
+                                          int i0, int i1) {
+  for (int i = i0; i < i1; ++i) s[i] = g[i];
+}
+
 // -- the tile route ------------------------------------------------------------
 
 struct TileArgs {
-  const float* x;
+  const void* x;              // float or uint16_t (bf16) elements
   uint8_t* packed;
   float* scale;
   float* zero;
   int rows, d, dp;
   uint32_t seed;
   int T;        // rows a tile
-  int sf;       // floats a stage buffer (>= T*d + 11, a multiple of 4)
+  int sf;       // elements a stage buffer (>= T*d + 8 + 2*(v-1), a
+                //  multiple of v = the elements in 16 bytes)
   int pb;       // bytes of the packed staging buffer (a multiple of 16)
   int tiles;
   int G;        // lanes a row in the min/max
 };
 
-// Tile k of this block: its first row, its rows, and the float offset of
-// its span from 16-byte alignment.
+// Tile k of this block: its first row, its rows, and the element offset
+// of its span from 16-byte alignment.
 struct TilePos {
   int64_t row0;
   int nrows, mis;
 };
 
+template <typename E>
 __device__ __forceinline__ TilePos tile_pos(const TileArgs& a, int k) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(E));
   TilePos t;
   t.row0 = static_cast<int64_t>(blockIdx.x + k * gridDim.x) * a.T;
   t.nrows = static_cast<int>(a.rows - t.row0 < a.T ? a.rows - t.row0 : a.T);
   t.mis = static_cast<int>(
-      (reinterpret_cast<uintptr_t>(a.x + t.row0 * a.d) >> 2) & 3);
+      (reinterpret_cast<uintptr_t>(static_cast<const E*>(a.x) +
+                                   t.row0 * a.d) /
+       sizeof(E)) &
+      (kVec - 1));
   return t;
 }
 
 // Thread 0 starts the copy of the block's tile k into stage buffer `buf`:
 // element i of the tile lands at buf[mis + i], so the 16-byte aligned
 // interior is one bulk copy; the misaligned head and tail (at most 3
-// floats each) are 4-byte cp.async tracked by the same barrier.
-__device__ __forceinline__ void issue_tile(const TileArgs& a, int k,
-                                           float* buf, uint64_t* bar) {
-  const TilePos t = tile_pos(a, k);
+// floats or 7 bf16 each) go by copy_edge, tracked by the same barrier.
+template <typename E>
+__device__ __forceinline__ void issue_tile(const TileArgs& a, int k, E* buf,
+                                           uint64_t* bar) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(E));
+  const TilePos t = tile_pos<E>(a, k);
   const int n = t.nrows * a.d;
-  const float* g = a.x + t.row0 * a.d;
-  float* s = buf + t.mis;
-  const int head = min((4 - t.mis) & 3, n);
-  const int n_int = (n - head) & ~3;
-  for (int i = 0; i < head; ++i) cp_async4(s + i, g + i);
-  for (int i = head + n_int; i < n; ++i) cp_async4(s + i, g + i);
+  const E* g = static_cast<const E*>(a.x) + t.row0 * a.d;
+  E* s = buf + t.mis;
+  const int head = min((kVec - t.mis) & (kVec - 1), n);
+  const int n_int = (n - head) & ~(kVec - 1);
+  copy_edge(s, g, 0, head);
+  copy_edge(s, g, head + n_int, n);
   if (n_int > 0) {
-    mbar_arrive_expect_tx(bar, static_cast<uint32_t>(n_int) * 4u);
-    bulk_copy(s + head, g + head, static_cast<uint32_t>(n_int) * 4u, bar);
+    const uint32_t bytes = static_cast<uint32_t>(n_int) * sizeof(E);
+    mbar_arrive_expect_tx(bar, bytes);
+    bulk_copy(s + head, g + head, bytes, bar);
   } else {
     mbar_arrive(bar);
   }
@@ -226,13 +274,14 @@ __device__ __forceinline__ void issue_tile(const TileArgs& a, int k,
 
 // Per-row min/max of a staged tile: groups of G lanes a row over the whole
 // block (G from the plan spreads the block's threads over the tile's rows,
-// so most tiles take one pass), float4 reads where the rows sit on 16-byte
-// boundaries in shared memory (d % 4 == 0 and an aligned tile), else one
-// float a lane. Each group's first lane writes its row's (lo, inv) to
-// shared memory and scale, zero to device memory.
-template <int BITS>
-__device__ __forceinline__ void minmax_pass(const TileArgs& a,
-                                            const float* xs, bool vec4,
+// so most tiles take one pass), reads of four elements where the rows sit
+// on their size in shared memory (d % 4 == 0 and a tile offset by a
+// multiple of 4 elements), else one element a lane. Each group's first
+// lane writes its row's (lo, inv) to shared memory and scale, zero to
+// device memory.
+template <int BITS, typename E>
+__device__ __forceinline__ void minmax_pass(const TileArgs& a, const E* xs,
+                                            bool vec4,
                                             const TilePos& t,
                                             float2* lo_inv) {
   constexpr float kBins = static_cast<float>((1 << BITS) - 1);
@@ -243,19 +292,18 @@ __device__ __forceinline__ void minmax_pass(const TileArgs& a,
     const int r = rb + static_cast<int>(threadIdx.x) / G;
     float lo = INFINITY, hi = -INFINITY;
     if (r < t.nrows) {
-      const float* xr = xs + r * d;
+      const E* xr = xs + r * d;
       if (vec4) {
-        const float4* x4 = reinterpret_cast<const float4*>(xr);
 #pragma unroll 4
         for (int c = gl; c < (d >> 2); c += G) {
-          const float4 v = x4[c];
+          const float4 v = load4(xr + 4 * c);
           lo = fminf(lo, fminf(fminf(v.x, v.y), fminf(v.z, v.w)));
           hi = fmaxf(hi, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
         }
       } else {
 #pragma unroll 4
         for (int c = gl; c < d; c += G) {
-          const float v = xr[c];
+          const float v = to_f(xr[c]);
           lo = fminf(lo, v);
           hi = fmaxf(hi, v);
         }
@@ -293,11 +341,12 @@ __device__ __forceinline__ void walk_on(const Walk& wk, int dp, int& r,
 
 // The codes where every packed row is whole words (d a multiple of 4*cpb:
 // dp % 4 == 0, no pads) on an aligned tile: word w is bytes j..j+3 of one
-// row, its codes cpb float4 reads under one (lo, inv), and it goes straight
-// to device memory (the words of a warp: 128 contiguous bytes).
-template <int BITS, bool SR>
+// row, its codes cpb reads of four elements under one (lo, inv), and it
+// goes straight to device memory (the words of a warp: 128 contiguous
+// bytes).
+template <int BITS, bool SR, typename E>
 __device__ __forceinline__ void codes_rowwords(const TileArgs& a,
-                                               const float* xs,
+                                               const E* xs,
                                                const float2* lo_inv,
                                                int nrows, uint32_t gbase,
                                                const Walk& wk,
@@ -311,7 +360,7 @@ __device__ __forceinline__ void codes_rowwords(const TileArgs& a,
     uint32_t word = 0;
 #pragma unroll
     for (int kk = 0; kk < kCpb; ++kk) {
-      const float4 v = *reinterpret_cast<const float4*>(xs + idx + kk * dp);
+      const float4 v = load4(xs + idx + kk * dp);
       const uint32_t g = gbase + static_cast<uint32_t>(idx + kk * dp);
       const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
@@ -331,9 +380,8 @@ __device__ __forceinline__ void codes_rowwords(const TileArgs& a,
 // in two rows (SMALL: dp < 4, more); they are visited in an order rotated
 // by lane / 8, so a warp's reads of one step fall in 32 banks. PAD: d is
 // not a multiple of cpb, so some codes are pads (0).
-template <int BITS, bool SR, bool PAD, bool SMALL>
-__device__ __forceinline__ void codes_flat(const TileArgs& a,
-                                           const float* xs,
+template <int BITS, bool SR, bool PAD, bool SMALL, typename E>
+__device__ __forceinline__ void codes_flat(const TileArgs& a, const E* xs,
                                            const float2* lo_inv, int nrows,
                                            uint32_t gbase, int r, int j,
                                            const Walk& wk, uint32_t* pw) {
@@ -365,10 +413,10 @@ __device__ __forceinline__ void codes_flat(const TileArgs& a,
       uint32_t byte = 0;
 #pragma unroll
       for (int kk = 0; kk < kCpb; ++kk) {
-        // a pad code reads a neighbour's float (inside the buffer: sf's
+        // a pad code reads a neighbour's element (inside the buffer: sf's
         // slack) and is masked
         uint32_t c = code_of<BITS, SR>(
-            xs[idx + kdp[kk]], li,
+            to_f(xs[idx + kdp[kk]]), li,
             gbase + static_cast<uint32_t>(idx + kdp[kk]), a.seed);
         if (PAD && kdp[kk] + js >= d) c = 0;
         byte += c << (kk * BITS);
@@ -399,13 +447,13 @@ __device__ __forceinline__ void store_tile(const unsigned char* pst,
 // A persistent block walks tiles k = 0, 1, ... (tile blockIdx + k*grid)
 // through the ring: min/max, barrier, codes, barrier, (store the staged
 // words, barrier,) refill the buffer with tile k + kStages.
-template <int BITS, bool SR>
+template <int BITS, bool SR, typename E>
 __global__ void __launch_bounds__(kThreads)
     quant_tile_kernel(const TileArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  float* stage0 = reinterpret_cast<float*>(smem + kBarBytes);
-  unsigned char* pst = smem + kBarBytes + kStages * a.sf * 4;
+  E* stage0 = reinterpret_cast<E*>(smem + kBarBytes);
+  unsigned char* pst = smem + kBarBytes + kStages * a.sf * sizeof(E);
   float2* lo_inv = reinterpret_cast<float2*>(pst + a.pb);
 
   const int tid = threadIdx.x;
@@ -432,10 +480,11 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int k = 0; k < n_mine; ++k) {
     const int s = k % kStages;
-    const TilePos t = tile_pos(a, k);
-    const float* xs = stage0 + s * a.sf + t.mis;
+    const TilePos t = tile_pos<E>(a, k);
+    const E* xs = stage0 + s * a.sf + t.mis;
+    const bool vec4 = (t.mis & 3) == 0;     // fp32: an aligned tile
     mbar_wait(&bars[s], static_cast<uint32_t>((k / kStages) & 1));
-    minmax_pass<BITS>(a, xs, (d & 3) == 0 && t.mis == 0, t, lo_inv);
+    minmax_pass<BITS>(a, xs, (d & 3) == 0 && vec4, t, lo_inv);
     __syncthreads();
 
     const int64_t p0 = t.row0 * dp;
@@ -444,7 +493,7 @@ __global__ void __launch_bounds__(kThreads)
     const uint32_t gbase = static_cast<uint32_t>(t.row0) *
                            static_cast<uint32_t>(d);
     uint32_t* pw = reinterpret_cast<uint32_t*>(pst);
-    const bool direct = rowwords && h == 0 && t.mis == 0;
+    const bool direct = rowwords && h == 0 && vec4;
     if (direct) {
       codes_rowwords<BITS, SR>(a, xs, lo_inv, t.nrows, gbase, wk,
                                reinterpret_cast<uint32_t*>(a.packed + p0));
@@ -483,11 +532,12 @@ __global__ void __launch_bounds__(kThreads)
 // gathers codes j, dp+j, 2*dp+j, ... The row is read twice, the second
 // time from L1/L2. Its chain of dependent steps is the shortest, which is
 // what a table of a few thousand rows waits on.
-template <int BITS, bool SR>
+template <int BITS, bool SR, typename E>
 __global__ void __launch_bounds__(kRowsThreads)
-    quant_rows_kernel(const float* __restrict__ x, int rows, int d,
+    quant_rows_kernel(const void* __restrict__ xv, int rows, int d,
                       uint32_t seed, uint8_t* __restrict__ packed,
                       float* __restrict__ scale, float* __restrict__ zero) {
+  const E* __restrict__ x = static_cast<const E*>(xv);
   constexpr int kCpb = 8 / BITS;
   constexpr float kBins = static_cast<float>((1 << BITS) - 1);
   const int lane = threadIdx.x & 31;
@@ -495,10 +545,10 @@ __global__ void __launch_bounds__(kRowsThreads)
   const int dp = (d + kCpb - 1) / kCpb;
   for (int row = blockIdx.x * (kRowsThreads / 32) + (threadIdx.x >> 5);
        row < rows; row += warps) {
-    const float* xr = x + static_cast<int64_t>(row) * d;
+    const E* xr = x + static_cast<int64_t>(row) * d;
     float lo = INFINITY, hi = -INFINITY;
     for (int c = lane; c < d; c += 32) {
-      const float v = xr[c];
+      const float v = to_f(xr[c]);
       lo = fminf(lo, v);
       hi = fmaxf(hi, v);
     }
@@ -516,7 +566,7 @@ __global__ void __launch_bounds__(kRowsThreads)
       for (int k = 0; k < kCpb; ++k) {
         const int col = k * dp + j;
         if (col < d)
-          byte |= code_of<BITS, SR>(xr[col], li,
+          byte |= code_of<BITS, SR>(to_f(xr[col]), li,
                                     gbase + static_cast<uint32_t>(col), seed)
                   << (k * BITS);
       }
@@ -556,7 +606,8 @@ int device_attr(cudaDeviceAttr attr) {
 
 int sm_count() { return device_attr(cudaDevAttrMultiProcessorCount); }
 
-Plan make_plan(int rows, int d, int bits) {
+// esize: bytes an input element (4 fp32, 2 bf16)
+Plan make_plan(int rows, int d, int bits, int esize) {
   Plan p{};
   p.route = 1;
   // a small table: a warp a row has the shortest chain of steps (a narrow
@@ -566,7 +617,8 @@ Plan make_plan(int rows, int d, int bits) {
     return p;
   const int cpb = 8 / bits;
   const int dp = (d + cpb - 1) / cpb;
-  const int q_load = 4 / gcd(d, 4);          // T*d % 4 == 0
+  const int vec = 16 / esize;                // elements in 16 bytes
+  const int q_load = vec / gcd(d, vec);      // T*d % vec == 0
   const int q_store = 16 / gcd(dp, 16);      // T*dp % 16 == 0
   const int q = q_load * q_store / gcd(q_load, q_store);
   // T: a multiple of m whose stage holds at most 2 * kStageFloats floats;
@@ -602,7 +654,7 @@ Plan make_plan(int rows, int d, int bits) {
   if (T > rows) T = rows;                    // one tile: no alignment needed
   p.T = T;
   // + 8: a pad code's read past the last row stays inside the buffer
-  p.sf = (T * d + 3 + 8 + 3) & ~3;
+  p.sf = (T * d + (vec - 1) + 8 + (vec - 1)) & ~(vec - 1);
   p.pb = (15 + T * dp + 15) & ~15;
   p.tiles = (rows + T - 1) / T;
   // lanes a row in the min/max: the block's threads over the tile's rows,
@@ -612,7 +664,8 @@ Plan make_plan(int rows, int d, int bits) {
   while (p.G > 1 && (p.G * T > kThreads || p.G > reads)) p.G >>= 1;
   // the ring, the packed staging, (lo, inv) of T rows; where a ring of
   // one-row tiles does not fit, a warp a row
-  const long long smem = kBarBytes + 4LL * kStages * p.sf + p.pb + 8LL * T;
+  const long long smem =
+      kBarBytes + 1LL * esize * kStages * p.sf + p.pb + 8LL * T;
   if (smem <= device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin)) {
     p.route = 0;
     p.smem = static_cast<int>(smem);
@@ -645,40 +698,53 @@ int blocks_per_sm(K kernel, int smem) {
   return per_sm;
 }
 
-// the kernels for (bits, stochastic)
+// the kernels for (bits, stochastic, element)
 using TileKernel = void (*)(TileArgs);
-using RowsKernel = void (*)(const float*, int, int, uint32_t, uint8_t*,
+using RowsKernel = void (*)(const void*, int, int, uint32_t, uint8_t*,
                             float*, float*);
 
-TileKernel tile_kernel(int bits, bool sr) {
+template <typename E>
+TileKernel tile_kernel_of(int bits, bool sr) {
   switch (bits * 2 + (sr ? 1 : 0)) {
-    case 2: return quant_tile_kernel<1, false>;
-    case 3: return quant_tile_kernel<1, true>;
-    case 4: return quant_tile_kernel<2, false>;
-    case 5: return quant_tile_kernel<2, true>;
-    case 8: return quant_tile_kernel<4, false>;
-    case 9: return quant_tile_kernel<4, true>;
-    case 16: return quant_tile_kernel<8, false>;
-    default: return quant_tile_kernel<8, true>;
+    case 2: return quant_tile_kernel<1, false, E>;
+    case 3: return quant_tile_kernel<1, true, E>;
+    case 4: return quant_tile_kernel<2, false, E>;
+    case 5: return quant_tile_kernel<2, true, E>;
+    case 8: return quant_tile_kernel<4, false, E>;
+    case 9: return quant_tile_kernel<4, true, E>;
+    case 16: return quant_tile_kernel<8, false, E>;
+    default: return quant_tile_kernel<8, true, E>;
   }
 }
 
-RowsKernel rows_kernel(int bits, bool sr) {
+template <typename E>
+RowsKernel rows_kernel_of(int bits, bool sr) {
   switch (bits * 2 + (sr ? 1 : 0)) {
-    case 2: return quant_rows_kernel<1, false>;
-    case 3: return quant_rows_kernel<1, true>;
-    case 4: return quant_rows_kernel<2, false>;
-    case 5: return quant_rows_kernel<2, true>;
-    case 8: return quant_rows_kernel<4, false>;
-    case 9: return quant_rows_kernel<4, true>;
-    case 16: return quant_rows_kernel<8, false>;
-    default: return quant_rows_kernel<8, true>;
+    case 2: return quant_rows_kernel<1, false, E>;
+    case 3: return quant_rows_kernel<1, true, E>;
+    case 4: return quant_rows_kernel<2, false, E>;
+    case 5: return quant_rows_kernel<2, true, E>;
+    case 8: return quant_rows_kernel<4, false, E>;
+    case 9: return quant_rows_kernel<4, true, E>;
+    case 16: return quant_rows_kernel<8, false, E>;
+    default: return quant_rows_kernel<8, true, E>;
   }
 }
 
-int grid_of(const Plan& p, int rows, int bits, bool sr) {
+TileKernel tile_kernel(int bits, bool sr, bool bf16) {
+  return bf16 ? tile_kernel_of<uint16_t>(bits, sr)
+              : tile_kernel_of<float>(bits, sr);
+}
+
+RowsKernel rows_kernel(int bits, bool sr, bool bf16) {
+  return bf16 ? rows_kernel_of<uint16_t>(bits, sr)
+              : rows_kernel_of<float>(bits, sr);
+}
+
+int grid_of(const Plan& p, int rows, int bits, bool sr, bool bf16) {
   if (p.route == 0) {
-    const int cap = blocks_per_sm(tile_kernel(bits, sr), p.smem) * sm_count();
+    const int cap =
+        blocks_per_sm(tile_kernel(bits, sr, bf16), p.smem) * sm_count();
     return p.tiles < cap ? p.tiles : cap;
   }
   const int rows_a_block = kRowsThreads / 32;
@@ -687,48 +753,65 @@ int grid_of(const Plan& p, int rows, int bits, bool sr) {
   return blocks < cap ? blocks : cap;
 }
 
-}  // namespace
-
-extern "C" int quant_pack_launch(const void* x, int rows, int d, int bits,
-                                 int stochastic, unsigned int seed,
-                                 void* packed, void* scale, void* zero,
-                                 void* stream) {
+int launch(const void* x, bool bf16, int rows, int d, int bits,
+           int stochastic, unsigned int seed, void* packed, void* scale,
+           void* zero, void* stream) {
   if (rows > 0 && d > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const bool sr = stochastic != 0;
-    const Plan p = make_plan(rows, d, bits);
-    const int grid = grid_of(p, rows, bits, sr);
+    const Plan p = make_plan(rows, d, bits, bf16 ? 2 : 4);
+    const int grid = grid_of(p, rows, bits, sr, bf16);
     if (p.route == 0) {
       const int cpb = 8 / bits;
-      const TileArgs a{static_cast<const float*>(x),
+      const TileArgs a{x,
                        static_cast<uint8_t*>(packed),
                        static_cast<float*>(scale),
                        static_cast<float*>(zero),
                        rows, d, (d + cpb - 1) / cpb, seed, p.T, p.sf, p.pb,
                        p.tiles, p.G};
-      tile_kernel(bits, sr)<<<grid, kThreads, p.smem, st>>>(a);
+      tile_kernel(bits, sr, bf16)<<<grid, kThreads, p.smem, st>>>(a);
     } else {
-      rows_kernel(bits, sr)<<<grid, kRowsThreads, 0, st>>>(
-          static_cast<const float*>(x), rows, d, seed,
-          static_cast<uint8_t*>(packed), static_cast<float*>(scale),
-          static_cast<float*>(zero));
+      rows_kernel(bits, sr, bf16)<<<grid, kRowsThreads, 0, st>>>(
+          x, rows, d, seed, static_cast<uint8_t*>(packed),
+          static_cast<float*>(scale), static_cast<float*>(zero));
     }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The plan quant_pack_launch follows for (rows, d, bits): out[0..6] =
-// route (0 tiles, 1 a warp a row), rows a tile, stage buffers, floats a
-// buffer, dynamic shared memory, tiles, lanes a row in the min/max; out[7]
-// the grid the launch takes.
+}  // namespace
+
+// x: (rows, d) fp32
+extern "C" int quant_pack_launch(const void* x, int rows, int d, int bits,
+                                 int stochastic, unsigned int seed,
+                                 void* packed, void* scale, void* zero,
+                                 void* stream) {
+  return launch(x, false, rows, d, bits, stochastic, seed, packed, scale,
+                zero, stream);
+}
+
+// x: (rows, d) bf16, read as 16-bit words
+extern "C" int quant_pack_launch_bf16(const void* x, int rows, int d,
+                                      int bits, int stochastic,
+                                      unsigned int seed, void* packed,
+                                      void* scale, void* zero, void* stream) {
+  return launch(x, true, rows, d, bits, stochastic, seed, packed, scale,
+                zero, stream);
+}
+
+// The plan the launch follows for (rows, d, bits) from fp32 (x_bf16 0) or
+// bf16 (1): out[0..6] = route (0 tiles, 1 a warp a row), rows a tile,
+// stage buffers, elements a buffer, dynamic shared memory, tiles, lanes a
+// row in the min/max; out[7] the grid the launch takes.
 extern "C" int quant_pack_plan(int rows, int d, int bits, int stochastic,
-                               int* out) {
+                               int x_bf16, int* out) {
   rows = rows > 0 ? rows : 1;
   d = d > 0 ? d : 1;
-  const Plan p = make_plan(rows, d, bits);
+  const bool bf16 = x_bf16 != 0;
+  const Plan p = make_plan(rows, d, bits, bf16 ? 2 : 4);
   const int fields[8] = {p.route, p.T,     p.route == 0 ? kStages : 0,
                          p.sf,    p.smem,  p.tiles, p.G,
-                         grid_of(p, rows, bits, stochastic != 0)};
+                         grid_of(p, rows, bits, stochastic != 0, bf16)};
   for (int i = 0; i < 8; ++i) out[i] = fields[i];
   return static_cast<int>(cudaGetLastError());
 }

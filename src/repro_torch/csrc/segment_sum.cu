@@ -58,6 +58,12 @@
 // group that walks its item's gathers itself (16 in flight a lane) keeps
 // too few rows in flight where a tile holds a few long chunks: tried on
 // the H100, such a kernel ran runs of 256 slots well behind spmm.cu.
+// Wide rows with few tiles (an LM's embedding gradient: 8,192 positions of
+// 5,120 floats make 32 tiles) would leave most SMs idle, each block
+// streaming its tile's whole rows: the grid's second dimension splits the
+// columns into slabs of whole passes, one block a (tile, slab), enough
+// slabs to fill the card. A column's sum is the same chain of adds in any
+// slab, so the bits do not depend on the split.
 // Tiles of kTile = 512 rows plus slot positions keep four blocks on an SM
 // (at most 64 registers a thread, 52 KB of shared memory a block): tried
 // on the H100, tiles of 1,024 with three blocks an SM ran the full graph's
@@ -290,8 +296,14 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int g = tid / L;
   const int sub = tid % L;
   const int cols = d / VEC;
+  // this block's slab of columns: whole passes of L * VEC
+  const int passes = (d + L * VEC - 1) / (L * VEC);
+  const int per = (passes + static_cast<int>(gridDim.y) - 1) /
+                  static_cast<int>(gridDim.y);
+  const int c_lo = static_cast<int>(blockIdx.y) * per * L * VEC;
+  const int c_hi = min(d, c_lo + per * L * VEC);
   for_tiles(lv, smem, [&](const Tile& td, const Stage& st) {
-    const int nz = td.r1 - td.r0;
+    const int nz = blockIdx.y == 0 ? td.r1 - td.r0 : 0;   // empty rows once
     for (int e = tid; e < nz * cols; e += kThreads) {
       const int j = e / cols;
       if (st.ip[j + 1] == st.ip[j])
@@ -310,7 +322,7 @@ __global__ void __launch_bounds__(kThreads, 4)
       it.dst = item_dst(lv, st, j, td.r0 + j, k, d, scratch, out);
       return it;
     };
-    for (int c0 = 0; c0 < d; c0 += L * VEC) {
+    for (int c0 = c_lo; c0 < c_hi; c0 += L * VEC) {
       const int cw = min(d - c0, L * VEC);      // columns this pass
       const int pieces = cw / VEC;              // copies a slot row
       const int rows = min(kRingFloats / cw, kSpanCap);
@@ -522,10 +534,17 @@ void launch_wide(const float* y, int d, int n_rows, const Level& lv,
                  float* scratch, float* out, cudaStream_t st, int* kernels) {
   static int occupancy = 0;
   const int smem = 2 * kStageInts * 4 + kRingBufs * kRingFloats * 4;
-  const int grid = persistent_grid(seg_wide_kernel<L, VEC>, smem, lv.n_tiles,
-                                   &occupancy);
-  seg_wide_kernel<L, VEC>
-      <<<grid, kThreads, smem, st>>>(y, d, n_rows, lv, scratch, out);
+  int gx = persistent_grid(seg_wide_kernel<L, VEC>, smem, lv.n_tiles,
+                           &occupancy);
+  // column slabs: as many as fill the resident blocks, in whole passes
+  const int passes = (d + L * VEC - 1) / (L * VEC);
+  int gy = occupancy / (lv.n_tiles > 0 ? lv.n_tiles : 1);
+  gy = gy < 1 ? 1 : gy > passes ? passes : gy;
+  const int per = (passes + gy - 1) / gy;
+  gy = (passes + per - 1) / per;
+  if (gy > 1) gx = lv.n_tiles;
+  seg_wide_kernel<L, VEC><<<dim3(gx, gy), kThreads, smem, st>>>(
+      y, d, n_rows, lv, scratch, out);
   ++*kernels;
 }
 

@@ -53,9 +53,9 @@ __all__ = ["CSRMeta", "SpmmLayout", "Direction", "SegmentRuns",
            "SegmentPlan", "segment_plan", "segment_runs", "SEG_CHUNK",
            "SEG_TILE", "static_block_caps", "build_spmm_layout", "relation_runs",
            "attach_layout", "map_tensors", "to_device", "stable_argsort",
-           "group_ids", "EdgePartition", "partition_edges",
-           "unpartition_edges", "shard_graph_arrays", "RowPartition",
-           "row_partition"]
+           "group_ids", "LookupPlan", "lookup_plan", "EdgePartition",
+           "partition_edges", "unpartition_edges", "shard_graph_arrays",
+           "RowPartition", "row_partition"]
 
 REL_CHUNK = 256   # slots a relation chunk holds (relation_runs)
 # the segment-sum kernel's contract and work split (csrc/segment_sum.cu
@@ -292,6 +292,33 @@ def segment_runs(perm, row_start, row_end, n_out: int, n_rows: int,
 
     return SegmentRuns(t(perm), t(row_start), t(row_end), int(n_out),
                        int(n_rows), segment_plan(row_start, row_end, device))
+
+
+@dataclasses.dataclass(frozen=True)
+class LookupPlan:
+    """A batch's table rows and their grouping for an embedding lookup's
+    backward (``core.act.lookup_rows``): ``ids`` the flat rows, ``rows``
+    the distinct rows (ascending) and ``runs`` one ``SegmentRuns`` level
+    whose output row ``r`` sums the positions of ``rows[r]`` in position
+    order."""
+
+    ids: torch.Tensor      # (n_ids,) int64
+    rows: torch.Tensor     # (n_distinct,) int64
+    runs: tuple
+
+
+def lookup_plan(flat_ids, n_rows: int, device="cpu") -> LookupPlan:
+    """The ``LookupPlan`` of a batch's flat table rows (numpy, in ``[0,
+    n_rows)``), built on the host in O(len) and moved to ``device`` without
+    waiting."""
+    flat = np.asarray(flat_ids, np.int64).reshape(-1)
+    uniq, _, _, order, counts = group_ids(flat, n_rows)
+    end = np.cumsum(counts)
+    runs = (segment_runs(order, end - counts, end, len(uniq), len(flat),
+                         device),)
+    return LookupPlan(torch.from_numpy(flat).to(device, non_blocking=True),
+                      torch.from_numpy(uniq.astype(np.int64)).to(
+                          device, non_blocking=True), runs)
 
 
 def to_device(obj, device):

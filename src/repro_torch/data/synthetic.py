@@ -1,7 +1,7 @@
 """Synthetic KG recommendation datasets and BPR sampler, the GCN's
-node-classification graphs and the CTR batches of the recsys models (port
-of ``repro/data/synthetic.py:31-197``, ``:217`` ``criteo_batches`` and
-``:241`` ``cora_like``).
+node-classification graphs, the LM token stream and the CTR batches of the
+recsys models (port of ``repro/data/synthetic.py:31-197``, ``:201``
+``lm_batches``, ``:217`` ``criteo_batches`` and ``:241`` ``cora_like``).
 
 ``gen_kg_dataset``, ``gen_zipf_kg_dataset`` and ``bpr_batches`` make the
 same numpy calls in the same order as the JAX package's, so the same
@@ -16,8 +16,9 @@ the last relation id.
 features, the same numpy calls in the same order; ``cora_like_avg_deg``
 picks the ``avg_deg`` that brings its edge count nearest a shape's, and
 ``molecule_batch`` draws the batched small graphs of the ``molecule`` shape.
-``criteo_batches`` is the reference's planted-logistic CTR stream, the same
-numpy calls in the same order.
+``criteo_batches`` is the reference's planted-logistic CTR stream and
+``lm_batches`` its noisy affine-bigram token stream, the same numpy calls
+in the same order.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ import dataclasses
 import numpy as np
 
 __all__ = ["KGDataset", "gen_kg_dataset", "gen_zipf_kg_dataset",
-           "bpr_batches", "criteo_batches", "cora_like", "cora_like_avg_deg",
-           "molecule_batch"]
+           "bpr_batches", "criteo_batches", "lm_batches", "cora_like",
+           "cora_like_avg_deg", "molecule_batch"]
 
 
 @dataclasses.dataclass
@@ -290,3 +291,21 @@ def molecule_batch(*, n_graphs=128, n_nodes=30, n_edges=64, d_feat=32,
             np.concatenate([dst, loops]).astype(np.int32),
             np.repeat(np.arange(B), n).astype(np.int32),
             labels.astype(np.int32))
+
+
+def lm_batches(*, vocab: int, batch: int, seq: int, seed=0,
+               noise: float = 0.1):
+    """Noisy affine-bigram token stream (port of the reference's):
+    ``next = (a·prev + c) mod V`` with probability 1-ε, else uniform; each
+    batch ``{"tokens": (batch, seq + 1) int32}``."""
+    rng = np.random.default_rng(seed)
+    a, c = 31, 7
+    while True:
+        toks = np.empty((batch, seq + 1), np.int32)
+        toks[:, 0] = rng.integers(0, vocab, batch)
+        for t in range(1, seq + 1):
+            nxt = (a * toks[:, t - 1] + c) % vocab
+            flip = rng.random(batch) < noise
+            nxt = np.where(flip, rng.integers(0, vocab, batch), nxt)
+            toks[:, t] = nxt
+        yield {"tokens": toks}

@@ -45,10 +45,13 @@ def _on_card(x: torch.Tensor, op: str) -> bool:
 def quant_pack(x: torch.Tensor, seed: int, *, bits: int,
                stochastic: bool = True):
     """(rows, d) float -> (packed uint8 (rows, dp), scale (rows, 1),
-    zero (rows, 1)); see kernels/quant_pack.py."""
+    zero (rows, 1)); see kernels/quant_pack.py. On the card fp32 and bf16
+    rows go to the kernel as they are (no fp32 copy of a bf16 table)."""
     if _on_card(x, "quant_pack"):
-        return _qp.quant_pack_cuda(x.to(torch.float32).contiguous(), seed,
-                                   bits=bits, stochastic=stochastic)
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            x = x.to(torch.float32)
+        return _qp.quant_pack_cuda(x.contiguous(), seed, bits=bits,
+                                   stochastic=stochastic)
     return _qp.quant_pack_plain(x, seed, bits=bits, stochastic=stochastic)
 
 

@@ -11,7 +11,9 @@ H100.
 ``kernels.ops.quant_pack`` sends a CUDA tensor to ``quant_pack_cuda`` and a
 CPU tensor to ``quant_pack_plain``; both return ``(packed, scale, zero)``
 with identical bits: the plain version keeps the kernel's fp32 operation
-order.
+order. The kernel reads fp32 or bf16 rows (a bf16 row widens exactly in
+registers, so its codes are its fp32 upcast's, as the TPU kernel casts to
+fp32 inside); the plain version upcasts first.
 
 ``dequant_unpack_cuda`` and ``dequant_unpack_plain`` (``core.quant``'s
 ``dequantize``: unpack, then ``code * scale + zero`` with the product and
@@ -48,7 +50,10 @@ __all__ = ["quant_pack_plain", "quant_pack_cuda", "quant_pack_plan",
 _EPS = 1e-12
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _I, _I, _I, _I, ctypes.c_uint, _P, _P, _P, _P)
-_PLAN_ARGTYPES = (_I, _I, _I, _I, _P)
+_PLAN_ARGTYPES = (_I, _I, _I, _I, _I, _P)
+# the C entry a dtype of x launches
+_ENTRY = {torch.float32: "quant_pack_launch",
+          torch.bfloat16: "quant_pack_launch_bf16"}
 _PLAN_KEYS = ("route", "rows_a_tile", "stages", "stage_floats", "smem",
               "tiles", "lanes_a_row", "grid")
 _DQ_ARGTYPES = (_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P)
@@ -86,9 +91,11 @@ def _recip(bits: int) -> float:
 
 def quant_pack_cuda(x: torch.Tensor, seed: int, *, bits: int,
                     stochastic: bool = True):
-    """Launch ``csrc/quant_pack.cu`` on a contiguous fp32 CUDA table (at
-    any base: a row slice of a larger table needs no copy)."""
-    backend.check_cuda(x, torch.float32, 2, "x")
+    """Launch ``csrc/quant_pack.cu`` on a contiguous fp32 or bf16 CUDA
+    table (at any base: a row slice of a larger table needs no copy)."""
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    backend.check_cuda(x, x.dtype, 2, "x")
     backend.require_sm90(x.device)
     if bits not in (1, 2, 4, 8):
         raise ValueError(f"unsupported bit-width {bits}")
@@ -97,7 +104,7 @@ def quant_pack_cuda(x: torch.Tensor, seed: int, *, bits: int,
     packed = torch.empty((rows, dp), dtype=torch.uint8, device=x.device)
     scale = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
     zero = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
-    fn = backend.kernel_fn("quant_pack", "quant_pack_launch", _ARGTYPES)
+    fn = backend.kernel_fn("quant_pack", _ENTRY[x.dtype], _ARGTYPES)
     with torch.cuda.device(x.device):
         backend.launch(fn, x.data_ptr(), rows, d, bits, int(stochastic),
                        int(seed) & 0xFFFFFFFF, packed.data_ptr(),
@@ -106,18 +113,19 @@ def quant_pack_cuda(x: torch.Tensor, seed: int, *, bits: int,
     return packed, scale, zero
 
 
-def quant_pack_plan(rows: int, d: int, *, bits: int,
-                    stochastic: bool = True) -> dict:
-    """The plan ``csrc/quant_pack.cu`` follows for a (rows, d) table on the
-    current card: ``route`` "tiles" (rows a tile, stage buffers, floats a
-    buffer, dynamic shared memory, tiles, lanes a row in the min/max) or
-    "rows" (a block a row, for rows wider than two stage buffers), and the
-    grid its launch takes."""
+def quant_pack_plan(rows: int, d: int, *, bits: int, stochastic: bool = True,
+                    dtype: torch.dtype = torch.float32) -> dict:
+    """The plan ``csrc/quant_pack.cu`` follows for a (rows, d) table of
+    ``dtype`` on the current card: ``route`` "tiles" (rows a tile, stage
+    buffers, elements a buffer, dynamic shared memory, tiles, lanes a row
+    in the min/max) or "rows" (a block a row, for rows wider than two
+    stage buffers), and the grid its launch takes."""
     if bits not in (1, 2, 4, 8):
         raise ValueError(f"unsupported bit-width {bits}")
     out = (ctypes.c_int * len(_PLAN_KEYS))()
     fn = backend.kernel_fn("quant_pack", "quant_pack_plan", _PLAN_ARGTYPES)
-    backend.launch(fn, rows, d, bits, int(stochastic), ctypes.addressof(out))
+    backend.launch(fn, rows, d, bits, int(stochastic),
+                   int(dtype == torch.bfloat16), ctypes.addressof(out))
     plan = dict(zip(_PLAN_KEYS, out))
     plan["route"] = ("tiles", "rows")[plan["route"]]
     return plan

@@ -10,6 +10,8 @@
       --batch 512 --requests 20 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xdeepfm \\
       --retrieval 1000 --k 32 --requests 50 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b \\
+      --batch 4 --tokens 16 --device cpu
 
 Runs the reduced KGAT config end to end: the synthetic CKG, parameters from
 ``init_params`` trained ``--train-steps`` quick BPR steps (FP32, Adam at
@@ -45,6 +47,15 @@ then a re-rank of each top-K with the full model's ``forward``. Random
 seed-0 parameters; on the CPU the reduced config, on the card the full one
 (``--row-cap N`` caps each table, which DLRM's 96.1 GB table needs: a
 table that does not fit is refused with its bytes).
+
+The LM archs serve greedy generation (``serve_lm``, the reference's path):
+random seed-0 parameters, a seeded numpy prompt of 16 tokens a sequence,
+``prefill`` into the KV cache, then ``--tokens`` - 1 greedy
+``decode_step``s of ``--batch`` sequences; it prints the prefill's ms and
+the decode's ms a token. On the CPU the reduced config; on the card the
+published widths in bfloat16 at 2 layers (``models.registry.lm_config``).
+The int8 cache is the config's ``kv_cache_bits=8``
+(``dataclasses.replace``), as the reference's tests reach it.
 """
 
 from __future__ import annotations
@@ -74,7 +85,7 @@ from repro_torch.training.optimizer import adam
 from repro_torch.training.step import trainable
 
 __all__ = ["serve_kgnn", "serve_recsys", "serve_recsys_two_stage",
-           "bpr_trainer", "reduced_dataset", "main"]
+           "serve_lm", "bpr_trainer", "reduced_dataset", "main"]
 
 TRAIN_LR = 5e-3        # the reference launcher's quick training
 TRAIN_BATCH = 128
@@ -239,6 +250,45 @@ def serve_kgnn(cfg, ds, params, *, bits: int | None, k: int = 20,
                ndcg_sub=n_sub, recall_dense=r_d, ndcg_dense=n_d,
                dense_delta=delta)
     return out
+
+
+def serve_lm(cfg, params, *, batch: int, tokens: int, prompt_len: int = 16,
+             device="cuda", name: str = "lm", log=print) -> dict:
+    """Greedy generation (port of the reference's ``serve_lm``): a
+    ``(batch, prompt_len)`` prompt from ``numpy.random.default_rng(1)``,
+    ``prefill`` into a cache of ``prompt_len + tokens`` positions, then
+    ``tokens - 1`` ``decode_step``s, each feeding the last step's argmax.
+    Returns the prefill's ms, the decode's ms a step, the generated tokens
+    ``(batch, tokens)`` and the cache's bytes."""
+    from repro_torch.models import transformer as tf
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt_len))
+                              ).to(dev)
+    cache = tf.init_cache(cfg, batch, prompt_len + tokens, dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(params, prompt, cfg, cache)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    toks = torch.argmax(logits, -1)[:, None]
+    out = [toks]
+    t0 = time.perf_counter()
+    for _ in range(tokens - 1):
+        logits, cache = tf.decode_step(params, cache, toks, cfg)
+        toks = torch.argmax(logits, -1)[:, None]
+        out.append(toks)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    per = dt / max(tokens - 1, 1)
+    seq = torch.cat(out, 1)
+    log(f"[serve] {name}: prefill({batch}x{prompt_len}) "
+        f"{t_prefill * 1e3:.1f}ms | {tokens - 1} decode steps "
+        f"{dt * 1e3:.1f}ms ({per * 1e3:.2f} ms/tok/batch)")
+    log(f"[serve] sample tokens: {seq[0, :12].cpu().numpy()}")
+    return {"prefill_ms": t_prefill * 1e3, "ms_per_token": per * 1e3,
+            "tokens": seq, "cache_bytes": tf.cache_bytes(cache)}
 
 
 def _recsys_queries(cfg, n: int, rng):
@@ -419,7 +469,9 @@ def main(argv=None) -> None:
     ap.add_argument("--k", type=int, default=20, help="top-K size")
     ap.add_argument("--requests", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4,
-                    help="recsys: examples a scored batch")
+                    help="recsys: examples a scored batch; lm: sequences")
+    ap.add_argument("--tokens", type=int, default=16,
+                    help="lm: tokens generated a sequence")
     ap.add_argument("--retrieval", type=int, default=None, metavar="N",
                     help="recsys: two-stage serving over N candidates "
                          "(packed retrieval, then a full-model re-rank)")
@@ -452,7 +504,7 @@ def main(argv=None) -> None:
                          "under DIR")
     args = ap.parse_args(argv)
     family = get(args.arch).family
-    if family not in ("kgnn", "recsys"):
+    if family not in ("kgnn", "recsys", "lm", "moe_lm"):
         raise SystemExit(f"{family} has no serve path "
                          "(GNNs are training workloads)")
     dev = resolve_device(args.device)
@@ -463,6 +515,8 @@ def main(argv=None) -> None:
         bits = None if args.bits == "fp32" else int(args.bits)
         if family == "recsys":
             _serve_recsys_main(args, dev, bits)
+        elif family in ("lm", "moe_lm"):
+            _serve_lm_main(args, dev)
         else:
             cfg = reduced(get(args.arch)).model_cfg
             ds = reduced_dataset(cfg)
@@ -484,6 +538,19 @@ def main(argv=None) -> None:
                     f"{write_summary(args.metrics_out, run)}")
     finally:
         get_tracer().disable()
+
+
+def _serve_lm_main(args, dev: torch.device) -> None:
+    """The launcher's LM path: the reduced config on the CPU, the published
+    widths at 2 layers on the card, seed-0 parameters."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import lm_config
+
+    cfg = (reduced(get(args.arch)).model_cfg if dev.type == "cpu"
+           else lm_config(args.arch))
+    params = tf.init_params(cfg, seed=0, device=dev)
+    serve_lm(cfg, params, batch=args.batch, tokens=args.tokens, device=dev,
+             name=args.arch)
 
 
 def _serve_recsys_main(args, dev: torch.device, bits: int | None) -> None:

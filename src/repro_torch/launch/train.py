@@ -43,6 +43,19 @@ and ``--sample`` exit with the reference's reasons.
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
       --bits 2 --steps 6 --row-cap 2097152
 
+``--arch mistral-large-123b|codeqwen1.5-7b|stablelm-12b|moonshot-v1-16b-a3b|
+grok-1-314b`` trains the LM's next-token cross entropy (``models.registry``:
+Adam at lr 1e-3 on ``lm_batches(seed=0)``, the whole stack one ACT site,
+``lm/block``, recomputed in the backward from each block's b-bit input):
+on ``cpu`` the reduced config at batch 8, seq 64, as the reference's step;
+on ``cuda`` the published widths in bfloat16 at 2 layers, batch 2 at seq
+4,096 (``--batch`` overrides the batch). grok-1 does not fit one card so:
+its experts alone are 4.8 B parameters a layer. ``--mesh`` and
+``--sample`` exit with the reference's reasons.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-12b \\
+      --bits 2 --steps 2 --device cpu
+
 The loop is the fault-tolerant ``Trainer``: a checkpoint every
 ``max(steps // 4, 10)`` steps and at the end under ``--ckpt`` (default: a
 fresh temporary directory), restore of the latest one at start (a second
@@ -352,6 +365,8 @@ def _run(args, dev, schedule, label: str) -> dict:
                               row_cap=args.row_cap)
         except ValueError as e:
             raise SystemExit(f"error: {e}") from None
+    elif family in ("lm", "moe_lm"):
+        step = build_step(args.arch, device=dev, batch_size=args.batch)
     else:
         step = build_step(args.arch, batch_size=args.batch or 512,
                           device=dev)

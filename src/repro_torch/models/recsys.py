@@ -9,16 +9,16 @@ training memory at CTR batch sizes: xDeepFM's CIN input is ``(B, k,
 H·F)``. The lookups keep index residuals only.
 
 The lookups' backward is deterministic: a batch's flat ids are grouped by
-distinct id on the host (``lookup_plan``: ``data.csr.group_ids``, one
+distinct id on the host (``lookup_plan``: ``data.csr.lookup_plan``, one
 ``SegmentRuns`` level over the batch's positions, never over the whole
 table), each distinct row's gradient is the fixed-order segment sum of its
-positions (``core.act.gather_rows`` with ``rows=``; the ``segment_sum``
-kernel on the card), and the sums are copied into the dense table
-gradient at their distinct rows: no atomics. The optimizer stays the
-reference's dense Adam over the whole table. A batch that trains the
-tables carries its plan (``batch["lookup"]``; the registry's step builds
-it beside each batch); one without a plan gathers with ``index_select``
-and may not train the tables.
+positions (``core.act.lookup_rows``; the ``segment_sum`` kernel on the
+card), and the sums are copied into the dense table gradient at their
+distinct rows: no atomics. The optimizer stays the reference's dense Adam
+over the whole table. A batch that trains the tables carries its plan
+(``batch["lookup"]``; the registry's step builds it beside each batch);
+one without a plan gathers with ``index_select`` and may not train the
+tables.
 
 Parameters come from a seeded ``torch.Generator`` on the device
 (``init_params``) or the reference's, carried across (``params_from_jax``).
@@ -35,9 +35,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.act import act_matmul, gather_rows
+from repro_torch.core.act import act_matmul, lookup_rows
 from repro_torch.core.context import model_context
-from repro_torch.data.csr import group_ids, segment_runs
+from repro_torch.data.csr import LookupPlan
+from repro_torch.data.csr import lookup_plan as csr_lookup_plan
 from repro_torch.kernels.backend import full_fp32, resolve_device
 
 from .layers import mlp_apply, mlp_params, normal_init
@@ -137,54 +138,27 @@ def params_from_jax(params_np: dict, device="cuda") -> dict:
     return p
 
 
-@dataclasses.dataclass(frozen=True)
-class LookupPlan:
-    """A batch's table rows and their grouping for the lookups' backward:
-    ``ids`` the flat rows of the ``(B, F)`` batch, ``rows`` its distinct
-    rows (ascending) and ``runs`` one ``SegmentRuns`` level whose output
-    row ``r`` sums the positions of ``rows[r]`` in position order."""
-
-    ids: torch.Tensor      # (B * F,) int64
-    rows: torch.Tensor     # (n_distinct,) int64
-    runs: tuple
-
-
 def lookup_plan(sparse, cfg: RecsysConfig, device="cuda") -> LookupPlan:
-    """The ``LookupPlan`` of a ``(B, F)`` batch of field-local ids (numpy),
-    built on the host in O(B·F) and moved to ``device`` without waiting."""
-    dev = resolve_device(device)
+    """The ``LookupPlan`` of a ``(B, F)`` batch of field-local ids (numpy):
+    ``data.csr.lookup_plan`` of the fused table's rows."""
     flat = (np.asarray(sparse, np.int64)
-            + np.asarray(cfg.field_offsets, np.int64)[None, :]).reshape(-1)
-    uniq, _, _, order, counts = group_ids(flat, cfg.total_vocab)
-    end = np.cumsum(counts)
-    runs = (segment_runs(order, end - counts, end, len(uniq), len(flat),
-                         dev),)
-    return LookupPlan(torch.from_numpy(flat).to(dev, non_blocking=True),
-                      torch.from_numpy(uniq.astype(np.int64)).to(
-                          dev, non_blocking=True), runs)
+            + np.asarray(cfg.field_offsets, np.int64)[None, :])
+    return csr_lookup_plan(flat, cfg.total_vocab, resolve_device(device))
 
 
 def _lookup(params, sparse_ids: torch.Tensor, cfg: RecsysConfig,
             plan: LookupPlan | None = None, *, linear: bool = True):
     """(B, F) field-local ids -> (B, F, k) embeddings and the (B,) linear
-    term (None without ``linear``). With ``plan``, through ``gather_rows``
-    (the tables' deterministic backward); without one, ``index_select``,
-    whose backward would scatter with atomics, so the tables must not need
-    a gradient then."""
+    term (None without ``linear``), through ``lookup_rows``: training the
+    tables needs ``plan``."""
     B, F = sparse_ids.shape
     tables = [params["table"]] + ([params["linear"]] if linear else [])
+    ids = None
     if plan is None:
-        if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
-            raise ValueError("training the embedding tables needs the "
-                             "batch's LookupPlan (batch['lookup'] = "
-                             "lookup_plan(sparse, cfg))")
         offs = torch.tensor(cfg.field_offsets, dtype=torch.int64,
                             device=sparse_ids.device)
         ids = (sparse_ids.long() + offs[None, :]).reshape(-1)
-        got = [t.index_select(0, ids) for t in tables]
-    else:
-        got = [gather_rows(t, plan.ids, plan.runs, rows=plan.rows)
-               for t in tables]
+    got = [lookup_rows(t, plan, ids) for t in tables]
     emb = got[0].reshape(B, F, cfg.embed_dim)
     return emb, (torch.sum(got[1].reshape(B, F), dim=-1) if linear
                  else None)

@@ -18,8 +18,12 @@ batch 256, as the reference's step; on the card the full config at batch
 4,096 (xDeepFM's published batch), each table capped at ``row_cap`` rows
 where asked (``recsys_config``); a config whose training state does not
 fit the card is refused before anything is allocated (``check_fits``).
-The reference's LM archs raise ``NotImplementedError`` naming the slice of
-the port that brings them (ROADMAP Queue 1).
+The LM archs (``lm`` and ``moe_lm``) train next-token cross entropy on
+``lm_batches(seed=0)`` with Adam at 1e-3, each batch with its embedding's
+``data.csr.lookup_plan``: on the CPU the reduced config at batch 8, seq 64,
+as the reference's step; on the card the arch's published widths in
+bfloat16 at ``LM_CARD_LAYERS`` layers, batch ``LM_CARD_BATCH`` at seq
+4,096 (``train_4k``'s sequence; ``lm_config``).
 
 KG steps carry a ``ShardSpec`` (``kg_dp_spec``: edges split by destination
 over the ``data`` ranks, the entity table row-sharded over the ``model``
@@ -46,13 +50,12 @@ from repro_torch.training.step import ROW_SHARDED, ModelStep, ShardSpec, \
 
 __all__ = ["build_step", "family_of", "archs", "arch_of", "model_config",
            "path_kernels", "kg_dp_spec", "gnn_config", "gnn_data",
-           "recsys_config", "check_fits", "NOT_PORTED", "PATH_KERNELS",
-           "GNN_DP_UNSUPPORTED", "RECSYS_DP_UNSUPPORTED"]
+           "recsys_config", "check_fits", "lm_config", "NOT_PORTED",
+           "PATH_KERNELS", "GNN_DP_UNSUPPORTED", "RECSYS_DP_UNSUPPORTED",
+           "LM_DP_UNSUPPORTED"]
 
 # the reference's archs that the port does not carry yet, and where they land
-NOT_PORTED = {a: "slice 6c (the LM families)" for a in (
-    "mistral-large-123b", "codeqwen1.5-7b", "stablelm-12b",
-    "moonshot-v1-16b-a3b", "grok-1-314b")}
+NOT_PORTED: dict[str, str] = {}
 
 
 # the kernels of a model's training step: (at FP32, added at INT-b)
@@ -71,6 +74,11 @@ PATH_KERNELS = {
     "wide_deep": (("segment_sum",), ("quant_pack", "dequant_matmul")),
     "dlrm": (("segment_sum",), ("quant_pack", "dequant_matmul")),
     "xdeepfm": (("segment_sum",), ("quant_pack", "dequant_matmul")),
+    # the LMs: the embedding gradient's segment sum; at INT-b each block's
+    # saved input (the backward dequantizes it in plain PyTorch, as the
+    # reference's jnp does)
+    "lm": (("segment_sum",), ("quant_pack",)),
+    "moe_lm": (("segment_sum",), ("quant_pack",)),
 }
 
 # the reference's defaults (repro/models/registry.py)
@@ -94,6 +102,18 @@ RECSYS_DP_UNSUPPORTED = (
     "parallelism is embedding-table model parallelism (a "
     "different axis — see launch.partition), not this "
     "edge-sharded DP path")
+
+LM_LR = 1e-3
+LM_CPU_BATCH, LM_CPU_SEQ = 8, 64     # the reference's step
+LM_CARD_LAYERS = 2                   # depth cut so one card holds the state
+LM_CARD_BATCH = 2                    # train_4k's 256 cut to 2
+LM_CARD_SEQ = 4096                   # train_4k's sequence
+
+LM_DP_UNSUPPORTED = (
+    "the transformer step shards by batch/sequence, not by graph "
+    "edges; LM data parallelism needs batch-sharded loss plus "
+    "replicated-optimizer wiring the edge-sharded SPMD path does "
+    "not provide (use launch.partition's GSPMD cells)")
 
 GNN_DP_UNSUPPORTED = (
     "gcn-cora trains full-graph from dense node features; the "
@@ -122,14 +142,14 @@ def kg_dp_spec(cfg, graph=None) -> ShardSpec:
 def build_step(arch: str, *, device="cuda", **kw) -> ModelStep:
     """The ``ModelStep`` of ``arch`` on ``device``; the keywords are the
     family's (``_kgnn_step``, ``_gnn_step``, ``_recsys_step``)."""
-    make = {"gnn": _gnn_step, "recsys": _recsys_step}.get(family_of(arch),
-                                                          _kgnn_step)
+    make = {"gnn": _gnn_step, "recsys": _recsys_step, "lm": _lm_step,
+            "moe_lm": _lm_step}.get(family_of(arch), _kgnn_step)
     return make(get(arch), resolve_device(device), **kw)
 
 
 def family_of(arch: str) -> str:
-    """The family of a ported ``arch``; the reference's LM archs raise
-    ``NotImplementedError`` naming the slice that brings them."""
+    """The family of a ported ``arch``; an arch of ``NOT_PORTED`` raises
+    ``NotImplementedError`` naming the slice that brings it."""
     if arch in NOT_PORTED:
         raise NotImplementedError(
             f"--arch {arch} is not ported yet; it comes with "
@@ -414,6 +434,54 @@ def _recsys_step(spec, dev, *, cfg=None, batch_size: int | None = None,
                      else ())
 
 
+# -- lm / moe_lm families: next-token cross entropy on synthetic streams ------
+
+
+def lm_config(arch: str):
+    """``arch``'s published config (widths, heads, vocabulary, MoE, bf16)
+    at ``LM_CARD_LAYERS`` layers: what one card trains and serves."""
+    return dataclasses.replace(get(arch).model_cfg, n_layers=LM_CARD_LAYERS)
+
+
+def _lm_step(spec, dev, *, cfg=None, batch_size: int | None = None,
+             seq: int | None = None) -> ModelStep:
+    """An LM's step (port of ``repro/models/registry.py:_lm_step``): the
+    mean next-token cross entropy (``transformer.lm_loss``) on
+    ``lm_batches(seed=0)``, each batch with the embedding's
+    ``data.csr.lookup_plan`` built on the host. Default config, batch and
+    sequence: on the CPU the reduced config at 8 x 64, on the card
+    ``lm_config``'s at ``LM_CARD_BATCH`` x ``LM_CARD_SEQ``."""
+    from repro_torch.configs.smoke import reduced
+    from repro_torch.data.csr import lookup_plan
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import transformer as tf
+
+    cpu = dev.type == "cpu"
+    if cfg is None:
+        cfg = reduced(spec).model_cfg if cpu else lm_config(spec.name)
+    batch_size = batch_size or (LM_CPU_BATCH if cpu else LM_CARD_BATCH)
+    seq = seq or (LM_CPU_SEQ if cpu else LM_CARD_SEQ)
+
+    def init(seed: int = 0):
+        return trainable(tf.init_params(cfg, seed=seed, device=dev))
+
+    def loss(params, batch, *, ctx=None):
+        with enter_or_null(ctx):
+            return tf.lm_loss(params, batch, cfg)
+
+    def batches():
+        for b in lm_batches(vocab=cfg.vocab, batch=batch_size, seq=seq,
+                            seed=0):
+            yield {"tokens": torch.from_numpy(b["tokens"]).to(dev),
+                   "lookup": lookup_plan(b["tokens"][:, :-1], cfg.vocab,
+                                         dev)}
+
+    return ModelStep(arch=spec.name, family=spec.family, cfg=cfg, init=init,
+                     loss=loss, batches=batches, lr=LM_LR,
+                     data={"device": dev, "batch": batch_size, "seq": seq},
+                     dp_spec=None, dp_unsupported=LM_DP_UNSUPPORTED)
+
+
 def arch_of(model: str) -> str:
     """The arch id whose step trains KG ``model``: R-GCN has none of its
     own and trains as kgat's step with its own config."""
@@ -432,9 +500,9 @@ def model_config(model: str, spec=get):
 
 
 def path_kernels(model: str, packed: bool) -> tuple[str, ...]:
-    """The kernels a training step of ``model`` (a KG model, ``gcn``, or a
-    recsys ``RecsysConfig.model``) launches, with INT-b sites (``packed``)
-    or at FP32."""
+    """The kernels a training step of ``model`` (a KG model, ``gcn``, a
+    recsys ``RecsysConfig.model``, or ``lm``/``moe_lm``) launches, with
+    INT-b sites (``packed``) or at FP32."""
     fp32, more = PATH_KERNELS[model]
     return fp32 + (more if packed else ())
 

@@ -57,9 +57,13 @@ def _flatten(tree, leaves: list) -> str:
 def _host(x, *, copy: bool):
     """A leaf as a host value: numpy for tensors and arrays, the int as it
     is. ``copy`` makes a tensor's copy its own: on the CPU ``.numpy()``
-    shares the live buffer, which the optimizer overwrites in place."""
+    shares the live buffer, which the optimizer overwrites in place. A
+    bfloat16 tensor is stored as its exact fp32 values (``_place`` rounds
+    them back without loss)."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
+        if x.dtype == torch.bfloat16:     # numpy has no bf16: exact fp32
+            return x.to("cpu", torch.float32).numpy()
         return (x.to("cpu", copy=True) if copy else x.cpu()).numpy()
     if isinstance(x, np.ndarray):
         return x.copy() if copy else x

@@ -1449,3 +1449,132 @@ def test_recsys_table_gradient_on_card(cuda, d):
     assert float((got.double() - ref).abs().max()) <= \
         1e-5 * float(ref.abs().max())
 
+
+
+# -- the LM families (slice 6c) ----------------------------------------------
+
+LM_ARCHS = ("mistral-large-123b", "codeqwen1.5-7b", "stablelm-12b",
+            "moonshot-v1-16b-a3b", "grok-1-314b")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits,stochastic", [(2, True), (8, False),
+                                             (4, True)])
+@pytest.mark.parametrize("rows,d,where", [
+    (1031, 5120, "full"), (1031, 2048, "full"), (257, 5120, "slice"),
+    (3001, 37, "full"), (3001, 37, "slice"), (5, 40000, "full")])
+def test_quant_pack_kernel_lm_widths(cuda, dtype, bits, stochastic, rows, d,
+                                     where):
+    """fp32 and bf16 rows at the LM block inputs' widths (stablelm's 5,120,
+    moonshot's 2,048), at an odd width on both routes and on a misaligned
+    base (``x[1:]``: 2 bytes off a 16-byte boundary in bf16), and a row
+    wider than the ring: codes, scale and zero bit-identical to the plain
+    version on the fp32 upcast, twice the same."""
+    gen = torch.Generator(device=cuda).manual_seed(d + bits)
+    x = torch.randn((rows + (where == "slice"), d), generator=gen,
+                    device=cuda).to(dtype)
+    if where == "slice":
+        x = x[1:]
+        assert x.is_contiguous()
+    x[min(3, rows - 1)] = 0.25                             # R == 0
+    got = qp.quant_pack_cuda(x, 0x5EED, bits=bits, stochastic=stochastic)
+    again = qp.quant_pack_cuda(x, 0x5EED, bits=bits, stochastic=stochastic)
+    ref = qp.quant_pack_plain(x.float(), 0x5EED, bits=bits,
+                              stochastic=stochastic)
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, r)
+        assert torch.equal(g, a)
+    plan = qp.quant_pack_plan(rows, d, bits=bits, stochastic=stochastic,
+                              dtype=dtype)
+    assert plan["route"] in ("tiles", "rows")
+
+
+def test_quantize_takes_bf16_without_a_copy(cuda):
+    """``ops.quantize`` hands a bf16 table to the kernel as it is: the
+    QTensor restores bf16 and its codes are the fp32 upcast's."""
+    x = torch.randn((4096, 2048), device=cuda).to(torch.bfloat16)
+    q = ops.quantize(x, 7, bits=2, stochastic=True)
+    ref = qp.quant_pack_plain(x.float(), 7, bits=2, stochastic=True)
+    assert q.dtype == torch.bfloat16
+    for g, r in zip((q.packed, q.scale, q.zero), ref):
+        assert torch.equal(g, r)
+
+
+def reduced_lm_losses(arch, device, *, bits: int = 2, steps: int = 3):
+    """The losses of ``steps`` reduced steps of LM ``arch`` at ``bits``
+    (registry step: batch 8, seq 64) on the CPU and on ``device`` from the
+    same seed-0 parameters, by device name; and the step and run on
+    ``device``. ``chip_smoke.py``'s [lm] phase holds the card to the CPU
+    with it too."""
+    from repro_torch.launch.train import train_model
+    from repro_torch.models import transformer as tf
+
+    cfg = reduced(get(arch)).model_cfg
+    params = tf.init_params(cfg, seed=0, device="cpu")
+    losses = {}
+    for dev in ("cpu", device):
+        step = build_step(arch, device=dev, cfg=cfg, batch_size=8, seq=64)
+        run = train_model(step, {k: [t.to(dev) for t in v]
+                                 if isinstance(v, list) else v.to(dev)
+                                 for k, v in params.items()},
+                          schedule_from_cli(None, bits), steps,
+                          log=lambda _: None)
+        losses[str(dev)] = [r["loss"] for r in run["steps"]]
+    return losses, step, run
+
+
+@pytest.mark.parametrize("bits", [0, 2])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_reduced_lm_training_on_card(cuda, arch, bits):
+    """Three reduced steps on the card follow the CPU's plain versions
+    (losses within 1e-5) from the same parameters and launch exactly the
+    path's kernels every step."""
+    losses, step, run = reduced_lm_losses(arch, cuda, bits=bits)
+    want = set(path_kernels(step.cfg.model, bits != 0))
+    assert all(set(r["launches"]) == want for r in run["steps"])
+    np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-5)
+
+
+def teacher_forced_logits(cfg, params, prompt, feed):
+    """``transformer.prefill`` of ``prompt`` (B, P) into a cache of ``P +
+    feed.shape[1]`` positions, then a ``decode_step`` for each column of
+    ``feed`` (B, n), fed in place of the argmax (teacher forcing): the
+    prefill's logits and each step's, on ``prompt``'s device.
+    ``chip_smoke.py``'s [lm-serve] compares the int8 and bf16 caches with
+    it too."""
+    from repro_torch.models import transformer as tf
+
+    B, P = prompt.shape
+    cache = tf.init_cache(cfg, B, P + feed.shape[1], prompt.device)
+    with torch.no_grad():
+        logits, cache = tf.prefill(params, prompt, cfg, cache)
+        out = [logits]
+        for i in range(feed.shape[1]):
+            logits, cache = tf.decode_step(params, cache, feed[:, i:i + 1],
+                                           cfg)
+            out.append(logits)
+    return out
+
+
+def test_lm_serving_on_card_follows_cpu(cuda):
+    """Prefill and 4 teacher-forced decode steps of reduced stablelm with
+    the int8 cache on the card against the CPU (logits within 1e-5
+    relative)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(reduced(get("stablelm-12b")).model_cfg,
+                              kv_cache_bits=8)
+    params = tf.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)))
+    feed = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 4)))
+    cpu = teacher_forced_logits(cfg, params, prompt, feed)
+    card = teacher_forced_logits(
+        cfg, {k: [t.to(cuda) for t in v] if isinstance(v, list)
+              else v.to(cuda) for k, v in params.items()},
+        prompt.to(cuda), feed.to(cuda))
+    for a, b in zip(card, cpu):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-5 * float(b.abs().max())
