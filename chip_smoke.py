@@ -74,19 +74,26 @@ their plain versions.
    same function) that call, as medians of CUDA-event timings (which read
    the host's pace where a call's launches outlast its device work), beside
    the bound: max(bytes / 3.35 TB/s, ops / peak), the H100 SXM's published
-   peaks, with the bytes the function must move (each input read once,
-   each output written once). The peak is the fp32 rate outside the tensor
-   cores (67 TFLOP/s), except for coarse_topm (its dot multiplies int8
-   query codes by unsigned codes and is exact at the int8 tensor-core rate,
-   1,979 TOP/s) and dequant_matmul (three exact bf16 products at the bf16
-   tensor-core rate, 989 TFLOP/s). For topk_score, coarse_topm and
+   peaks (``launch.roofline``'s "h100" profile), with the bytes and
+   operations of the kernel module's cost function (``spmm_cost``,
+   ``quant_pack_cost``, ...: each input read once, each output written
+   once; the dry run's roofline counts with the same functions). The peak
+   is the fp32 rate outside the tensor cores (67 TFLOP/s), except for
+   coarse_topm (its dot multiplies int8 query codes by unsigned codes and
+   is exact at the int8 tensor-core rate, 1,979 TOP/s) and dequant_matmul
+   (three exact bf16 products at the bf16 tensor-core rate, 989 TFLOP/s).
+   For topk_score, coarse_topm and
    dequant_matmul it also prints the device time of the kernel and of the
    library call (20 calls queued while a spinning kernel holds the stream,
    then run back to back between two CUDA events: no host gaps); for
    topk_score and coarse_topm also the CUDA kernels one wrapper call
-   launches (read from torch.profiler, held to the kernel's own plan, at
-   most 2 at k <= 128; a call whose kernels the profiler does not see
-   fails). For
+   launches, counted by the C entry point at each launch and held to the
+   kernel's own plan (at most 2 at k <= 128), and as torch.profiler reads
+   them in 8 calls with 25 ms of idle time on each side of the call
+   (each read must see the plan's count) and in 8 bare calls (the
+   reads that lost an event are printed). The main path runs the top-K
+   and coarse kernels at the planner's query tiles (an empty autotune
+   cache of its own, no sweeps). For
    top-K at B 1, 2 and 4 it also prints the device time at each query tile
    (8, 16, 32), the results bit-identical.
 4. Cross-checks the reduced KGAT rollout on the card against the CPU.
@@ -335,7 +342,23 @@ their plain versions.
     agreement),
     moonshot-v1-16b-a3b at batch 8, a 4,096-token prompt, 32 steps. The
     phase prints its seconds.
-17. Prints the kernels JSON line (launches per path: serve, serve_tier2,
+17. [tooling]: the autotuner swept over the query tiles (8, 16, 32) at B
+    1, 8 and 128 over KGAT's 24,915-item INT8 table (top-K k 20, coarse m
+    80) and at B 8, k 32 over 1,000,000 INT8 rows of width 33: every
+    tile's values and indices the default's bit for bit, each candidate's
+    device time, a second ``Autotuner`` on the cache returning the winners
+    with no sweep; ``launch.dryrun`` on KGAT INT2 over this script's CKG,
+    xDeepFM INT2 and stablelm-12b INT2 (2 layers): each record ok, its
+    peak and one copy of the parameters (the training phase's caller holds
+    the untrained ones beside the copy it trains) within 5% of the
+    training phase's peak, stablelm's traced FLOPs within
+    5% of ``lm_train_flops``, then ``launch.report`` renders the records;
+    ``embedding_bag`` over 4,096 weighted bags of 1-64 lookups from a
+    2,097,152 x 128 table (sum and mean) against its plain versions, two
+    segment sums and no index_add_; the ``train_kgnn`` example for 20
+    steps at scale 1.0 (600k entities x d 160), loss finite and falling.
+    The phase prints its seconds.
+18. Prints the kernels JSON line (launches per path: serve, serve_tier2,
     train_<schedule>, train_<model>_<schedule>, train_sampled_<model>_
     <schedule>, train_dp_<mesh>_<schedule>_<all-reduce>, train_gcn_
     <schedule>, train_gcn_products_<schedule>, train_gcn_sampled_
@@ -353,6 +376,14 @@ shape this script times the quant-pack at, holds the two to the same bits
 and prints their device times in turns (other, this, this, other); nothing
 else runs.
 
+    python3 chip_smoke.py --serve-host-against DIR
+
+times the host's share of a served top-K and coarse call (``ops.topk`` and
+``ops.coarse_topm`` at B 1 and 8 over the served item table, queued behind a
+held stream) for DIR's tree and this one, each in a process of its own, in
+ten pairs whose first process alternates, with the medians, the pairs this
+tree wins and the other tree's spread; nothing else runs.
+
 Exits non-zero, printing no result, without CUDA, outside a checkout of the
 repository, or when any check fails.
 """
@@ -364,6 +395,7 @@ import functools
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -373,10 +405,7 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
-INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core rate
-BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
+HW = "h100"                    # launch.roofline's profile of the bounds
 TOL = 1e-5
 L2_BYTES = 50e6                # H100 L2: an input this small is rotated
 ROTATION = 3                   # distinct inputs the timed calls cycle over
@@ -493,11 +522,21 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
-def bound_ms(n_bytes: float, n_ops: float,
-             peak: float = FP32_FLOPS) -> tuple[float, str]:
-    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_o = n_ops / peak * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+def bound_ms(c) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time of one call of cost
+    ``c`` (a kernel module's ``*_cost``, ``backend.KernelCost``) on the
+    H100, the larger of its bytes over the memory rate and its operations
+    over their type's peak (``launch.roofline``'s "h100" profile)."""
+    from repro_torch.launch.roofline import get_hw, kernel_bound_ms
+
+    return kernel_bound_ms(c, get_hw(HW))
+
+
+def _cost_str(c) -> str:
+    from repro_torch.launch.roofline import get_hw
+
+    return (f"{c.bytes / 1e6:.3f} MB, {c.flops / 1e9:.3f} G ops at "
+            f"{get_hw(HW)[f'peak_{c.peak}'] / 1e12:g} T/s")
 
 
 # -- kernels against their plain versions -------------------------------------
@@ -552,7 +591,7 @@ def check_quant_pack(torch, qp, gen):
     entries = []
     for rows, d, bits, sr in ((QUANT_ROWS[0], 256, 8, False),
                               (n_kg, 64, 2, True)):
-        label, _, kernel, plain, _, n_bytes, n_ops = quant_case(
+        label, _, kernel, plain, _, cost = quant_case(
             qp, xs[(rows, d)], 1, bits=bits, stochastic=sr)
         got, ref = kernel(), plain()
         err = max(float((g.float() - r.float()).abs().max())
@@ -562,7 +601,7 @@ def check_quant_pack(torch, qp, gen):
         ms = time_ms(kernel, 50)
         plain_ms = time_ms(plain, 10)
         dev = device_ms(torch, kernel)
-        bnd, by = bound_ms(n_bytes, n_ops)
+        bnd, by = bound_ms(cost)
         log(f"  time {label}: kernel {ms:.4f} ms (events), device "
             f"{dev:.4f} ms (held stream), plain {plain_ms:.4f} ms, bound "
             f"{bnd:.4f} ms ({by}; {bnd / dev:.0%} of it)")
@@ -768,15 +807,11 @@ def check_spmm(torch, sp, g, x, gen):
                                               transpose=tr), 5)
         lib = time_ms(lambda: torch.sparse.mm(a, xin), 20)
         n_out = out1.shape[0]
-        # the function's bytes: the table read once, a source index and a
-        # weight per edge, CSR row pointers, the output written once
-        n_bytes = (xin.shape[0] * d * 4 + m.n_edges * 8 + (n_out + 1) * 4
-                   + n_out * d * 4)
         log(f"  {label}: an uncached per-edge row gather would move "
             f"{m.n_edges * d * 4 / 1e9:.3f} GB")
         entries.append(_entry(
             "spmm", "spmm", "src/repro/kernels/spmm.py:91", err, ms, plain,
-            lib, n_bytes, 2 * m.n_edges * d,
+            lib, sp.spmm_cost(g.layout, d, transpose=tr),
             f"E={m.n_edges} n={n_out} {label} weighted",
             also_replaces="src/repro/kernels/spmm.py:180",
             library_call="torch.sparse.mm (CSR)"))
@@ -804,27 +839,39 @@ def _topk_inputs(torch, quantize, gen, b, n_items, d, *, ties):
     return q, items, excl
 
 
-def kernels_per_call(torch, fn, reads: int = 8):
-    """CUDA kernels one call of ``fn`` launches, read from torch.profiler:
-    the most of ``reads`` profiled calls (the profiler can lose a device
-    event, never add one, and has lost one in each of three reads); fails
-    where it sees none of them."""
+def kernels_per_call(torch, tk, fn, name, reads: int = 8):
+    """CUDA kernels one call of ``fn`` launches (``name``: the wrapper's
+    ``LAUNCH_COUNTS`` key): as the C entry point counts them at launch
+    (``backend.CUDA_KERNEL_COUNTS``; must be the same every call), and as
+    ``torch.profiler`` records them in ``reads`` calls each way: bare (the
+    call at the very start of the capture window) and with 25 ms of idle
+    time on both sides (``obs.profiling.profiled_kernels``).
+    Returns (launch count, the bare reads' counts, the padded reads'
+    counts)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import backend
+    from repro_torch.obs.profiling import profiled_kernels
 
     fn()
     torch.cuda.synchronize()
-    counts = []
+    started, bare, padded = set(), [], []
     for _ in range(reads):
+        before = backend.CUDA_KERNEL_COUNTS[name]
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        counts.append(sum(1 for e in prof.events()
-                          if e.device_type == torch.autograd.DeviceType.CUDA
-                          and ("scan_kernel" in e.name
-                               or "merge_" in e.name)))
-    check(max(counts) > 0, "torch.profiler recorded no scan or merge kernel "
-          "of the call: its launches cannot be counted")
-    return max(counts)
+        started.add(backend.CUDA_KERNEL_COUNTS[name] - before)
+        bare.append(sum(1 for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and ("scan_kernel" in e.name
+                             or "merge_" in e.name)))
+        before = backend.CUDA_KERNEL_COUNTS[name]
+        padded.append(len(profiled_kernels(fn)))
+        started.add(backend.CUDA_KERNEL_COUNTS[name] - before)
+    check(len(started) == 1, f"{name}: the launches counted {started} CUDA "
+          f"kernels in calls of one shape")
+    return started.pop(), bare, padded
 
 
 def device_ms(torch, fn, calls: int = 20) -> float:
@@ -861,16 +908,25 @@ def _device_times(torch, kernel, library, label):
 
 
 def _count_kernels(torch, tk, fn, b, items, m, coarse):
-    """Print and check the CUDA kernels a wrapper call launches, as the
-    profiler counts them."""
+    """Print and check the CUDA kernels a wrapper call launches: counted at
+    launch, and read from the profiler with margins, each equal to the
+    plan's in every read; the bare reads' losses are printed."""
     p = tk.plan_for(b, items, m, device=DEV, coarse=coarse)
     note = (f"{p.route} route, query tile {p.qt}, {p.grid} CTAs, "
             f"{p.slots} lists of {p.list_len} a row")
-    n = kernels_per_call(torch, fn)
+    n, bare, padded = kernels_per_call(
+        torch, tk, fn, "coarse_topm" if coarse else "topk_score")
     log(f"  B={b} I={items.rows} m={m}: {note}; CUDA kernels per call {n} "
-        f"(plan {p.n_kernels})")
+        f"counted at launch (plan {p.n_kernels}); profiler, {len(padded)} "
+        f"reads each: with margins {padded}, bare {bare} "
+        f"({sum(x < n for x in bare)} bare reads lost an event)")
     check(n == p.n_kernels,
           f"{n} CUDA kernels a call against the plan's {p.n_kernels}")
+    check(all(x == n for x in padded),
+          f"the profiler read {padded} CUDA kernels a call with margins, "
+          f"the launches {n}")
+    check(max(bare) <= n, f"the bare profiler reads saw {bare} kernels, "
+          f"more than the {n} launched")
     check(m > 128 or n <= 2, f"{n} CUDA kernels a call at m {m} <= 128")
     return n
 
@@ -940,12 +996,11 @@ def check_topk(torch, tk, gen):
         dev = _device_times(
             torch, lambda: tk.topk_cuda(q, items, excl, k=k),
             lambda: torch.topk(q @ dequantize(items).T, k), f"B={b}")
-        dp = items.packed.shape[1]
-        n_bytes = (n_items * dp + 8 * n_items + b * d * 4 + excl.numel() * 4
-                   + b * k * 8)
         entries.append(_entry(
             "topk_score", "topk_score", "src/repro/kernels/topk_score.py:115",
-            err, ms, plain, lib, n_bytes, 2 * b * n_items * d + 2 * n_items * d,
+            err, ms, plain, lib, tk.topk_cost(
+                b, n_items, d, k, dp=items.packed.shape[1],
+                n_excl=excl.numel()),
             f"B={b} I={n_items} d={d} k={k} int8", kernels_per_call=n_k,
             library_call="torch.topk(q @ dequantize(items).T)", **dev))
     _tile_sweep(torch, tk, quantize, gen, n_items, d, k)
@@ -1049,14 +1104,12 @@ def check_coarse(torch, tk, gen):
             torch, lambda: tk.coarse_topm_cuda(q8, qmeta, items, excl, m=m),
             lambda: torch.topk(_unpack_affine(torch, q8, qmeta, items), m),
             f"B={b} I={n}")
-        dp = items.packed.shape[1]
-        n_bytes = (n * dp + 8 * n + b * d * 4 + b * 8 + excl.numel() * 4
-                   + b * m * 8)
         entries.append(_entry(
             "coarse_topm", "coarse_topm",
             "src/repro/kernels/topk_score.py:129", err, ms, plain, lib,
-            n_bytes, 2 * b * n * d, f"B={b} I={n} d={d} m={m} int8",
-            peak=INT8_OPS, kernels_per_call=n_k,
+            tk.coarse_topm_cost(b, n, d, m, items.packed.shape[1],
+                                n_excl=excl.numel()),
+            f"B={b} I={n} d={d} m={m} int8", kernels_per_call=n_k,
             library_call="torch.topk(affine(q8 @ unpack(packed).T), m), "
                          "no exclusions", **dev))
     # the JSON line's shape: B=128, the [accuracy] phase's two-stage calls
@@ -1144,7 +1197,6 @@ def check_dequant_unpack(torch, qp, gen):
         ms = time_ms(fn, 100)
         plain = time_ms(plain_fn, 20)
         dev = device_ms(torch, fn)
-        n_bytes = rows * (dp + 8 + idx_bytes) + rows * d * 4
         extra = dict(device_ms=dev)
         label = f"R={rows} d={d} int8"
         if rows == rerank_rows:
@@ -1158,7 +1210,9 @@ def check_dequant_unpack(torch, qp, gen):
                 f"kernel) {sel_ms:.4f} ms, device {sel_dev:.4f} ms")
         e = _entry("dequant_unpack", "dequant_unpack",
                    "src/repro/kernels/quant_pack.py:171", err, ms, plain,
-                   None, n_bytes, 2 * rows * d, label, **extra)
+                   None, qp.dequant_unpack_cost(rows, d, dp,
+                                                idx_bytes=idx_bytes),
+                   label, **extra)
         log(f"  {label}: device {dev:.4f} ms against the bound "
             f"{e['bound_ms']:.4f} ms ({e['bound_ms'] / dev:.1%} of it)")
         entries.append(e)
@@ -1187,13 +1241,12 @@ def _sddmm_library(torch, g):
     return run, pos
 
 
-def _entry(name, source, replaces, err, ms, plain, lib, n_bytes, n_ops,
-           shape, *, peak=FP32_FLOPS, **extra):
-    bnd, by = bound_ms(n_bytes, n_ops, peak)
+def _entry(name, source, replaces, err, ms, plain, lib, cost, shape,
+           **extra):
+    bnd, by = bound_ms(cost)
     lib_s = "none (no single call)" if lib is None else f"{lib:.4f} ms"
     log(f"  time {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-        f"{lib_s}, bound {bnd:.4f} ms ({by}; {n_bytes / 1e6:.3f} MB, "
-        f"{n_ops / 1e9:.3f} G ops at {peak / 1e12:g} T/s)")
+        f"{lib_s}, bound {bnd:.4f} ms ({by}; {_cost_str(cost)})")
     return dict(name=name, route="cuda",
                 source=f"src/repro_torch/csrc/{source}.cu",
                 replaces=replaces, max_abs_err=err, ms=ms,
@@ -1224,12 +1277,9 @@ def check_sddmm(torch, sp, g, gen):
         ms = time_ms(lambda: sp.sddmm_cuda(x, grad, g.layout), 20)
         plain = time_ms(lambda: sp.sddmm_plain(x, grad, g.layout), 5)
         lib = time_ms(lambda: lib_fn(x, grad), 20)
-        # the function's bytes: x and g read once, two indices in and one
-        # value out per edge
-        n_bytes = (m.n_src + m.n_dst) * d * 4 + m.n_edges * 12
         entries.append(_entry(
             "sddmm", "sddmm", "src/repro/kernels/spmm.py:334", err, ms,
-            plain, lib, n_bytes, 2 * m.n_edges * d,
+            plain, lib, sp.sddmm_cost(g.layout, d),
             f"E={m.n_edges} n={m.n_dst} d={d} fp32",
             library_call="torch.sparse.sampled_addmm (CSR)"))
     return _with_other_shape(*entries)
@@ -1253,7 +1303,7 @@ def spmm_route_segment_sum(torch, sp, y, levels):
     return y
 
 
-def segment_sum_report(torch, sp, y, levels, library, n_bytes, tag):
+def segment_sum_report(torch, sp, y, levels, library, cost, tag):
     """The segment-sum kernel on one grouping beside index_add_ and its
     earlier route (``spmm_route_segment_sum``): the longest run, the chunk
     C, the CUDA kernels each level's launch started (counted by the C entry
@@ -1290,7 +1340,7 @@ def segment_sum_report(torch, sp, y, levels, library, n_bytes, tag):
                       for f in (route, kernel, kernel, route))
     k, rt = (k1 + k2) / 2, (r1 + r2) / 2
     lib = device_ms(torch, library)
-    bnd, by = bound_ms(n_bytes, 0)
+    bnd, by = bound_ms(cost)
     log(f"  {tag}: longest run {longest} slots, C {SEG_CHUNK}, CUDA kernels "
         f"a launch {per_level} (counted at launch; plan {plan}); device "
         f"time kernel "
@@ -1365,16 +1415,14 @@ def check_segment_sum(torch, sp, g, gen):
         ms = time_ms(lambda: sp.segment_sum_cuda(y, levels), 20)
         plain = time_ms(lambda: sp.segment_sum_plain(y, levels), 5)
         lib = time_ms(library, 20)
-        # the function's bytes: the per-edge rows read once, an edge id per
-        # slot, two row pointers and one d-wide row out per output row
-        n_bytes = m.n_edges * (d + 1) * 4 + n_out * (d + 2) * 4
-        report = segment_sum_report(torch, sp, y, levels, library, n_bytes,
+        cost = sp.segment_sum_cost(levels, d)
+        report = segment_sum_report(torch, sp, y, levels, library, cost,
                                     f"by {kind} d={d}")
         entries.append(_entry(
             "segment_sum", "segment_sum",
             "none: port-only, the backward of the attention's gathers "
             "(src/repro/models/kgnn.py:556-559 and :123 leave it to XLA's "
-            "scatter-add)", err, ms, plain, lib, n_bytes, m.n_edges * d,
+            "scatter-add)", err, ms, plain, lib, cost,
             f"E={m.n_edges} by {kind} n={n_out} d={d}",
             library_call="torch.Tensor.index_add_", **report))
     return _with_other_shape(*entries)
@@ -1417,14 +1465,10 @@ def check_dequant_sddmm(torch, sp, g, gen):
         plain = time_ms(lambda: sp.dequant_sddmm_plain(q, grad, g.layout),
                         5)
         lib = time_ms(lambda: lib_fn(dequantize(q), grad), 20)
-        dp = q.packed.shape[1]
-        # packed table, scale/zero, g once; two indices in, one value out
-        # per edge. Operations: dequantize each residual element once, then
-        # the dot
-        n_bytes = m.n_src * (dp + 8) + m.n_dst * d * 4 + m.n_edges * 12
         entries.append(_entry(
             "dequant_sddmm", "sddmm", "src/repro/kernels/spmm.py:398", err,
-            ms, plain, lib, n_bytes, 2 * m.n_edges * d + 2 * m.n_src * d,
+            ms, plain, lib,
+            sp.dequant_sddmm_cost(g.layout, d, q.packed.shape[1]),
             f"E={m.n_edges} n={m.n_dst} d={d} INT{q.bits}",
             also_replaces="src/repro/kernels/spmm.py:466",
             library_call="dequantize + torch.sparse.sampled_addmm (CSR)"))
@@ -1472,12 +1516,11 @@ def check_dequant_matmul(torch, dq, gen):
     plain = time_ms(lambda: dq.dequant_matmul_plain(q, grad), 20)
     lib = time_ms(library, 50)
     dev = _device_times(torch, kernel, library, f"R={rows} {d}x{n} INT2")
-    dp = q.packed.shape[1]
-    n_bytes = rows * (dp + 8) + rows * n * 4 + d * n * 4
     e = _entry("dequant_matmul", "dequant_matmul",
                "src/repro/kernels/dequant_matmul.py:35", err, ms, plain, lib,
-               n_bytes, 3 * 2 * rows * d * n, f"R={rows} {d}x{n} INT2",
-               peak=BF16_FLOPS, library_call="dequantize(q).T @ g (cuBLAS, "
+               dq.dequant_matmul_cost(rows, d, n, q.packed.shape[1]),
+               f"R={rows} {d}x{n} INT2",
+               library_call="dequantize(q).T @ g (cuBLAS, "
                "no TF32)", **dev)
     log(f"  device {dev['device_ms']:.4f} ms against the bound "
         f"{e['bound_ms']:.4f} ms ({e['bound_by']}; "
@@ -2655,33 +2698,21 @@ def check_shard_kernels(torch, sp, dq, qp, ds, gen):
     return check_block_kernels(torch, sp, dq, qp, blk, gen, "shard")
 
 
-def _rows_read(layout, transpose=False):
-    """The distinct table rows the layout's slots gather (pad slots
-    excluded): the rows an SPMM in that direction must read."""
-    dr = layout.direction(transpose)
-    real = dr.perm_blk.reshape(-1) < layout.meta.n_edges
-    return int(dr.gat_blk.reshape(-1)[real].unique().numel())
-
-
 def spmm_case(torch, sp, layout, xin, ew, transpose, where=""):
     """The SPMM of ``xin`` over ``layout`` (weighted by ``ew``, or not) as a
     ``run_case`` case, with ``torch.sparse.mm`` as its library call. Bytes:
     the distinct rows the slots read, a source index (and a weight) a
     slot, the row pointers, the output once; a multiply-add (an add
     unweighted) a slot and column."""
-    m = layout.meta
-    n_out = m.n_src if transpose else m.n_dst
     d = xin.shape[1]
     a = _spmm_library(torch, layout, ew, transpose)
-    per_slot = 4 if ew is None else 8
     return (f"{where}spmm d={d}{' transpose' if transpose else ''}"
             f"{' unweighted' if ew is None else ''}", "spmm",
             lambda: sp.spmm_cuda(xin, ew, layout, transpose=transpose),
             lambda: sp.spmm_plain(xin, ew, layout, transpose=transpose),
             lambda: torch.sparse.mm(a, xin),
-            _rows_read(layout, transpose) * d * 4 + m.n_edges * per_slot
-            + (n_out + 1) * 4 + n_out * d * 4,
-            (1 if ew is None else 2) * m.n_edges * d)
+            sp.spmm_cost(layout, d, weighted=ew is not None,
+                         transpose=transpose))
 
 
 def rotation(x, copies: int = ROTATION):
@@ -2701,9 +2732,7 @@ def quant_case(qp, x, seed, where="", *, bits=2, stochastic=True):
     rows, d = x.shape
     xs = rotation(x)
     turn = itertools.count()
-    dp = -(-d // (8 // bits))
-    n_bytes = rows * d * x.element_size() + rows * (dp + 8)
-    n_ops = 7 * rows * d
+    cost = qp.quant_pack_cost(rows, d, bits=bits, itemsize=x.element_size())
     bf16 = x.dtype == torch.bfloat16
     plan = qp.quant_pack_plan(rows, d, bits=bits, stochastic=stochastic,
                               dtype=x.dtype)
@@ -2711,8 +2740,8 @@ def quant_case(qp, x, seed, where="", *, bits=2, stochastic=True):
     sass_key = f"{plan['route']} INT{bits} {rnd}" + (" bf16" if bf16 else "")
     log(f"  quant_pack {rows}x{d}{' bf16' if bf16 else ''} INT{bits} {rnd}: "
         f"{_plan_str(plan)}; timed calls rotate over {len(xs)} input(s); "
-        + _budget_str(quant_pack_sass().get(sass_key),
-                      bound_ms(n_bytes, n_ops)[0], rows * d))
+        + _budget_str(quant_pack_sass().get(sass_key), bound_ms(cost)[0],
+                      rows * d))
 
     def kernel():
         return qp.quant_pack_cuda(xs[next(turn) % len(xs)], seed, bits=bits,
@@ -2722,7 +2751,7 @@ def quant_case(qp, x, seed, where="", *, bits=2, stochastic=True):
             f"{' bf16' if bf16 else ''}", "quant_pack", kernel,
             lambda: qp.quant_pack_plain(x.float(), seed, bits=bits,
                                         stochastic=stochastic),
-            None, n_bytes, n_ops)
+            None, cost)
 
 
 def dequant_matmul_case(torch, dq, q, g, where=""):
@@ -2735,19 +2764,19 @@ def dequant_matmul_case(torch, dq, q, g, where=""):
             "dequant_matmul", lambda: dq.dequant_matmul_cuda(q, g),
             lambda: dq.dequant_matmul_plain(q, g),
             lambda: dequantize(q).T @ g,
-            rows * (q.packed.shape[1] + 8) + rows * n * 4 + dim * n * 4,
-            3 * 2 * rows * dim * n)
+            dq.dequant_matmul_cost(rows, dim, n, q.packed.shape[1]))
 
 
 def run_case(torch, tag, case, *, shape="", pick=None, iters=20):
-    """One kernel case ``(label, name, kernel, plain, library, bytes,
-    operations)``: the quant-pack's codes, scale and zero bit-identical to
+    """One kernel case ``(label, name, kernel, plain, library, cost)``
+    (``cost`` a kernel module's ``*_cost``): the quant-pack's codes,
+    scale and zero bit-identical to
     its plain version, any other kernel within ``TOL`` relative of it and
     the library call (``pick`` maps its result onto the kernel's) within
     ``LIB_SUM_TOL``; the same bits twice; kernel, plain version and
     library call timed (CUDA events) beside the bound. Returns the record
     of the kernels line (``shape`` prefixes its label)."""
-    label, name, kernel, plain, library, n_bytes, n_ops = case
+    label, name, kernel, plain, library, cost = case
     got, again, ref = kernel(), kernel(), plain()
     if name == "quant_pack":
         same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -2775,12 +2804,11 @@ def run_case(torch, tag, case, *, shape="", pick=None, iters=20):
     ms = time_ms(kernel, iters)
     plain_ms = time_ms(plain, max(iters // 4, 3))
     lib_ms = time_ms(library, iters) if library is not None else None
-    peak = BF16_FLOPS if name == "dequant_matmul" else FP32_FLOPS
-    bnd, by = bound_ms(n_bytes, n_ops, peak)
+    bnd, by = bound_ms(cost)
     log(f"[{tag}]   time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-        f"{bnd:.4f} ms ({by}; {n_bytes / 1e6:.3f} MB, {n_ops / 1e9:.3f} G "
-        f"ops)")
+        f"{bnd:.4f} ms ({by}; {cost.bytes / 1e6:.3f} MB, "
+        f"{cost.flops / 1e9:.3f} G ops)")
     rec = dict(shape=f"{shape}{label}", max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                library_ms=lib_ms)
@@ -2827,7 +2855,7 @@ def check_block_kernels(torch, sp, dq, qp, blk, gen, tag):
                 lambda: sp.segment_sum_plain(yy, levels),
                 lambda: torch.zeros((n_out, d), device=DEV).index_add_(
                     0, ids, yy),
-                E * (d + 1) * 4 + n_out * (d + 2) * 4, E * d)
+                sp.segment_sum_cost(levels, d))
 
     cases = [
         spmm_case(torch, sp, blk.layout, x, ew, False),
@@ -2835,14 +2863,12 @@ def check_block_kernels(torch, sp, dq, qp, blk, gen, tag):
         spmm_case(torch, sp, blk.layout, ones, ew, False),
         ("sddmm d=64", "sddmm", lambda: sp.sddmm_cuda(x, g, blk.layout),
          lambda: sp.sddmm_plain(x, g, blk.layout),
-         lambda: sddmm_lib(x, g), (m.n_src + m.n_dst) * 64 * 4 + E * 12,
-         2 * E * 64),
+         lambda: sddmm_lib(x, g), sp.sddmm_cost(blk.layout, 64)),
         ("dequant_sddmm INT2 d=64", "dequant_sddmm",
          lambda: sp.dequant_sddmm_cuda(q, g, blk.layout),
          lambda: sp.dequant_sddmm_plain(q, g, blk.layout),
          lambda: sddmm_lib(dequantize(q), g),
-         m.n_src * (dp + 8) + m.n_dst * 64 * 4 + E * 12,
-         2 * E * 64 + 2 * m.n_src * 64),
+         sp.dequant_sddmm_cost(blk.layout, 64, dp)),
         dequant_matmul_case(torch, dq, qd, g),
         seg_case("rel", blk.rel_runs, y, 64),
         seg_case("src", blk.layout.runs(transpose=True), y, 64),
@@ -2851,7 +2877,7 @@ def check_block_kernels(torch, sp, dq, qp, blk, gen, tag):
     ]
     out = {}
     for case in cases:
-        label, name, library, n_bytes = case[0], case[1], case[4], case[5]
+        label, name, library, cost = case[0], case[1], case[4], case[5]
         pick = ((lambda v: v.values()[pos])
                 if name in ("sddmm", "dequant_sddmm") else None)
         rec = run_case(torch, f"{tag}-kernels", case, pick=pick,
@@ -2860,7 +2886,7 @@ def check_block_kernels(torch, sp, dq, qp, blk, gen, tag):
         if name == "segment_sum":
             yy, levels = seg_inputs[label]
             rec.update(segment_sum_report(torch, sp, yy, levels, library,
-                                          n_bytes,
+                                          cost,
                                           f"[{tag}-kernels] {label}"))
             if tag == "sampled" and label == "segment_sum by src d=64":
                 check(rec["device_ms"] <= rec["library_device_ms"],
@@ -3796,7 +3822,7 @@ def run_gcn_sampled(torch, host, gen, shapes):
     lay = first["layouts"]
     log(f"[{tag}] first batch: blocks "
         + ", ".join(f"{m.meta.n_src} -> {m.meta.n_dst} ({m.meta.n_edges} "
-                    f"edges, {_rows_read(m)} sources read)" for m in lay)
+                    f"edges, {m.rows_read[0]} sources read)" for m in lay)
         + f"; host {host_s[-1] * 1e3:.1f} ms (sampling and layouts)")
     x = step.data["features"].index_select(0, first["input_nodes"])
     n0, n1 = lay[0].meta.n_dst, lay[1].meta.n_dst
@@ -3858,7 +3884,7 @@ def run_gcn_molecule(torch, gen, shapes):
          lambda: sp.segment_sum_cuda(y, levels),
          lambda: sp.segment_sum_plain(y, levels),
          lambda: torch.zeros((n_out, c), device=DEV).index_add_(0, ids, y),
-         n * (c + 1) * 4 + n_out * (c + 2) * 4, n * c), shape=f"{tag} "))
+         sp.segment_sum_cost(levels, c)), shape=f"{tag} "))
     params = step.init(0)
     _grads(torch, step, params, {}, "int2")          # warm
     torch.cuda.synchronize()
@@ -3959,12 +3985,11 @@ def recsys_topk_case(torch, tk, gen, d, shapes):
     plain = time_ms(lambda: tk.topk_plain(q, items, excl, k=k), 3, warmup=1)
     lib = time_ms(library, 20)
     dev = _device_times(torch, kernel, library, label)
-    n_bytes = (n_items * items.packed.shape[1] + 8 * n_items + b * d * 4
-               + excl.numel() * 4 + b * k * 8)
     shapes.setdefault("topk_score", []).append(_entry(
         "topk_score", "topk_score", "src/repro/kernels/topk_score.py:115",
-        err * float(pv.abs().max()), ms, plain, lib, n_bytes,
-        2 * b * n_items * d + 2 * n_items * d, f"recsys {label}",
+        err * float(pv.abs().max()), ms, plain, lib,
+        tk.topk_cost(b, n_items, d, k, dp=items.packed.shape[1],
+                     n_excl=excl.numel()), f"recsys {label}",
         library_call="torch.topk(q @ dequantize(items).T)", **dev))
 
 
@@ -4033,6 +4058,7 @@ def recsys_table_grad_cases(torch, gen, archs, shapes):
     ``index_add_`` into the table. Records under ``shapes``."""
     from repro_torch.core.act import gather_rows
     from repro_torch.data.synthetic import criteo_batches
+    from repro_torch.kernels.backend import KernelCost
     from repro_torch.kernels import ops
     from repro_torch.kernels import spmm as sp
     from repro_torch.models import recsys
@@ -4058,12 +4084,12 @@ def recsys_table_grad_cases(torch, gen, archs, shapes):
         def library(y=y, d=d):
             return torch.zeros((n_out, d), device=DEV).index_add_(0, inv, y)
 
-        n_bytes = E * (d + 1) * 4 + n_out * (d + 2) * 4
+        cost = sp.segment_sum_cost(levels, d)
         rec = run_case(torch, tag, (
             label, "segment_sum", lambda y=y: sp.segment_sum_cuda(y, levels),
-            lambda y=y: sp.segment_sum_plain(y, levels), library, n_bytes,
-            E * d), shape="recsys ", iters=10)
-        rec.update(segment_sum_report(torch, sp, y, levels, library, n_bytes,
+            lambda y=y: sp.segment_sum_plain(y, levels), library, cost),
+            shape="recsys ", iters=10)
+        rec.update(segment_sum_report(torch, sp, y, levels, library, cost,
                                       f"[{tag}] {label}"))
         shapes.setdefault("segment_sum", []).append(rec)
     d = cfg.embed_dim
@@ -4090,7 +4116,8 @@ def recsys_table_grad_cases(torch, gen, archs, shapes):
     shapes["segment_sum"].append(run_case(torch, tag, (
         f"{who} lookup forward and backward (gather_rows rows=) d={d}, "
         f"{n_rows:,}-row table", "segment_sum", lookup, lookup_plain,
-        lookup_library, n_bytes, E * d), shape="recsys ", iters=10))
+        lookup_library, KernelCost(E * d, n_bytes, "fp32")),
+        shape="recsys ", iters=10))
     del table, g
 
 
@@ -4362,15 +4389,15 @@ def lm_kernel_cases(torch, gen, shapes):
             c = quant_case(qp, xin, seed, where)
             shapes.setdefault("quant_pack", []).append(run_case(
                 torch, tag, c, shape="lm ", iters=10))
-        label, name, _, plain, _, n_bytes, n_ops = quant_case(
+        label, name, _, plain, _, cost = quant_case(
             qp, xb, seed, f"{arch} block input via fp32 copy ")
 
         def copied(xb=xb, seed=seed):
             return qp.quant_pack_cuda(xb.float(), seed, bits=2,
                                       stochastic=True)
 
-        rec = run_case(torch, tag, (label, name, copied, plain, None,
-                                    n_bytes, n_ops), shape="lm ", iters=10)
+        rec = run_case(torch, tag, (label, name, copied, plain, None, cost),
+                       shape="lm ", iters=10)
         shapes["quant_pack"].append(rec)
         del x, xb
         b = next(lm_batches(vocab=cfg.vocab, batch=LM_CARD_BATCH,
@@ -4386,14 +4413,14 @@ def lm_kernel_cases(torch, gen, shapes):
         def library(y=y, inv=inv, n_out=n_out, d=d):
             return torch.zeros((n_out, d), device=DEV).index_add_(0, inv, y)
 
-        n_bytes = E * (d + 1) * 4 + n_out * (d + 2) * 4
+        cost = sp.segment_sum_cost(levels, d)
         label = f"{arch} embedding segment_sum d={d}"
         rec = run_case(torch, tag, (
             label, "segment_sum",
             lambda y=y, lv=levels: sp.segment_sum_cuda(y, lv),
             lambda y=y, lv=levels: sp.segment_sum_plain(y, lv), library,
-            n_bytes, E * d), shape="lm ", iters=10)
-        rec.update(segment_sum_report(torch, sp, y, levels, library, n_bytes,
+            cost), shape="lm ", iters=10)
+        rec.update(segment_sum_report(torch, sp, y, levels, library, cost,
                                       f"[{tag}] {label}"))
         shapes.setdefault("segment_sum", []).append(rec)
         del y, plan, inv
@@ -4861,6 +4888,280 @@ def run_lm(torch, gen, shapes):
     return runs
 
 
+# -- the tooling layer: autotuner, dry run and report, embedding_bag, the
+# train_kgnn example -----------------------------------------------------------
+
+TUNE_CASES = (("topk_score", 1, 20), ("topk_score", 8, 20),
+              ("topk_score", 128, 20), ("coarse_topm", 1, COARSE_M),
+              ("coarse_topm", 8, COARSE_M), ("coarse_topm", 128, COARSE_M))
+TUNE_WIDE = (8, 33, 32)      # B, width, k over RECSYS_RETRIEVAL's 1,000,000
+DRY_PEAK_TOL = 0.05          # dry-run peak vs the training phase's
+DRY_FLOP_TOL = 0.05          # stablelm's traced FLOPs vs lm_train_flops
+BAG = dict(bags=4096, max_len=64, rows=2097152, dim=128)
+EXAMPLE_STEPS = 20
+
+
+def lm_train_flops(cfg, batch: int, seq: int) -> int:
+    """The matmul FLOPs of one LM training step, counted from the config:
+    per token and layer the QKV, output and SwiGLU projections (2·M·N·K
+    each), per layer the chunked causal attention's two products over the
+    chunk pairs ``chunked_causal_attention`` runs (each query chunk only
+    its triangle of key chunks), the head's 2·T·d·V; the block stack runs
+    its forward twice (the step, then the remat's recomputation in the
+    backward) and its backward (2x the forward), the head forward and
+    backward: 4·blocks + 3·head."""
+    d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    tokens = batch * seq
+    proj = 2 * d * (h + 2 * kh) * dh + 2 * h * dh * d + 3 * 2 * d * cfg.d_ff
+    qc, kc = min(cfg.q_chunk, seq), min(cfg.kv_chunk, seq)
+    lcm = math.lcm(qc, kc)
+    s_pad = -(-seq // lcm) * lcm
+    pairs = sum(min(((i + 1) * qc - 1) // kc + 1, s_pad // kc)
+                for i in range(s_pad // qc))
+    attn = batch * h * pairs * 2 * (2 * qc * kc * dh)
+    blocks = cfg.n_layers * (tokens * proj + attn)
+    head = 2 * tokens * d * cfg.vocab
+    return 4 * blocks + 3 * head
+
+
+def tooling_autotune(torch, gen):
+    """The autotuner's sweep over the query tiles at the engine's and the
+    eval's batches over KGAT's item table (top-K k 20, coarse m 80) and at
+    B 8, k 32 over 1,000,000 INT8 rows of width 33: every candidate's
+    values and indices the default's (qt 0) bit for bit, each candidate's
+    device time, the winner cached and returned by a second tuner on the
+    file with no sweep."""
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import topk_score as tk
+    from repro_torch.kernels.backend import BUILD_DIR
+    from repro_torch.serving.scorer import quantize_query
+
+    path = BUILD_DIR.parent / "autotune_smoke.json"
+    path.unlink(missing_ok=True)
+    tuner = autotune.Autotuner(str(path), sweep=True)
+    log(f"[tooling] autotune: fingerprint {tuner.fingerprint}; query tiles "
+        f"{autotune.QUERY_TILES}, {tuner.reps} calls a candidate after a "
+        f"warm-up, queued behind a held stream (CUDA events)")
+    n_items, d = QUANT_ROWS[1], 256     # the served item table (INT8)
+    cases = [(op, b, n_items, d, m, 8) for op, b, m in TUNE_CASES]
+    cases.append(("topk_score", TUNE_WIDE[0], RECSYS_RETRIEVAL["n_cand"],
+                  TUNE_WIDE[1], TUNE_WIDE[2], 8))
+    picked, inputs = {}, {}
+    for op, b, n, width, m, bits in cases:
+        key = (n, width)
+        if key not in inputs:
+            inputs[key] = quantize(torch.randn((n, width), generator=gen,
+                                               device=DEV) * 0.3, 0,
+                                   bits=bits)
+        items = inputs[key]
+        q = torch.randn((b, width), generator=gen, device=DEV) * 0.3
+        excl = torch.randint(-1, n, (b, 12), generator=gen, device=DEV,
+                             dtype=torch.int32)
+        q8, qmeta = quantize_query(q)
+
+        def run(qt, op=op, q=q, q8=q8, qmeta=qmeta, items=items, excl=excl,
+                m=m):
+            if op == "coarse_topm":
+                return tk._coarse_topm_cuda(q8, qmeta, items, excl, m, qt)
+            return tk._topk_cuda(q, items, excl, m, qt)
+
+        want = run(0)
+        for t in autotune.QUERY_TILES:
+            got = run(t)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1]),
+                  f"[tooling] {op} B={b} I={n} d={width}: query tile {t} "
+                  f"differs from the default's bits")
+        spec = dict(shapes=(b, n, width), bits=bits, extra=f"k{m}",
+                    candidates=[{"qt": t} for t in autotune.QUERY_TILES],
+                    measure=lambda p, run=run: run(p["qt"]),
+                    default={"qt": 0})
+        before = tuner.n_sweeps
+        win = tuner.pick(op, **spec)
+        key = tuner.key(op, spec["shapes"], bits=bits, extra=f"k{m}")
+        us = tuner.timings(key)
+        planned = tk.plan_for(b, items, m, device=DEV,
+                              coarse=op == "coarse_topm").qt
+        check(tuner.n_sweeps - before == len(autotune.QUERY_TILES),
+              f"[tooling] {op} {key}: swept {tuner.n_sweeps - before} "
+              f"candidates")
+        log(f"[tooling] autotune {op} B={b} I={n} d={width} m={m} INT{bits}"
+            f" ({key}): device us a call "
+            + ", ".join(f"qt {json.loads(c)['qt']} {v:.3f}"
+                        for c, v in us.items())
+            + f"; planner's tile {planned}; winner qt {win['qt']}; every "
+            f"tile bit-identical to the default's")
+        picked[key] = (op, spec, win)
+    again = autotune.Autotuner(str(path), sweep=True)
+    for key, (op, spec, win) in picked.items():
+        check(again.pick(op, **spec) == win,
+              f"[tooling] the second tuner's {key} is not the winner")
+    check(again.n_sweeps == 0, f"[tooling] the second tuner swept "
+          f"{again.n_sweeps} candidates")
+    log(f"[tooling] autotune: a second Autotuner on {path.name} returned "
+        f"the {len(picked)} winners with n_sweeps {again.n_sweeps}")
+    del inputs
+
+
+def tooling_dryrun(torch, ds, peaks):
+    """``launch.dryrun.run_cell`` on KGAT INT2 over this script's
+    Amazon-Book CKG (batch 1,024), xDeepFM INT2 (batch 4,096) and
+    stablelm-12b INT2 (2 layers, 2 x 4,096): each record ok, its peak and
+    one copy of the parameters (the training phases' callers hold the
+    untrained ones beside the copy ``train_model`` trains) within
+    ``DRY_PEAK_TOL`` of the same step's peak in the training phases
+    (``peaks``), stablelm's traced FLOPs within ``DRY_FLOP_TOL`` of
+    ``lm_train_flops``; then the report rendered (``launch.report``)."""
+    from repro_torch.launch import dryrun, report
+    from repro_torch.models.registry import LM_CARD_BATCH, LM_CARD_SEQ, \
+        lm_config
+
+    cells = (("kgat", "paper_full", dict(ds=ds, batch_size=TRAIN_BATCH)),
+             ("xdeepfm", "train_batch", None),
+             ("stablelm-12b", "train_4k", None))
+    out = dryrun.DEFAULT_OUT
+    for arch, shape, kw in cells:
+        rec = dryrun.run_cell(arch, shape, bits=2, device=DEV, hw=HW,
+                              out_dir=out, step_kw=kw)
+        check(rec["ok"], f"[tooling] dry run {arch}: {rec.get('error')}\n"
+              f"{rec.get('traceback')}")
+        mem, rf = rec["memory"], rec["roofline"]
+        # train_model trains a copy of the parameters it is given, and the
+        # training phase's caller holds the originals through the run: its
+        # peak counts them once more than the dry run's step does
+        peak, want = mem["peak_gb"], peaks[arch] / 2**30
+        log(f"[tooling] dryrun {arch}/{shape} INT2: build {rec['build_s']} "
+            f"s, first step {rec['first_step_s']} s, peak {peak:.3f} GiB; "
+            f"with the caller's copy of the parameters "
+            f"({mem['params_gb']:.3f} GiB) {peak + mem['params_gb']:.3f} "
+            f"GiB against the training phase's {want:.3f}; arguments "
+            f"{mem['argument_gb']:.3f} GiB, ACT "
+            f"{rec['memory']['act_gb'] * 2**10:.2f} MiB; traced "
+            f"{rf['hlo_flops'] / 1e12:.4f} TFLOP, {rf['hlo_bytes'] / 1e9:.3f}"
+            f" GB: compute {rf['compute_s'] * 1e3:.3f} ms, memory "
+            f"{rf['memory_s'] * 1e3:.3f} ms -> {rf['dominant']}; kernels "
+            + json.dumps({k: v[0] for k, v in rec["kernels"].items()},
+                         sort_keys=True))
+        check(abs(peak + mem["params_gb"] - want) <= DRY_PEAK_TOL * want,
+              f"[tooling] dry run {arch}: peak {peak:.3f} GiB and "
+              f"{mem['params_gb']:.3f} GiB of parameters against the "
+              f"training phase's {want:.3f}")
+        if arch == "stablelm-12b":
+            flops = lm_train_flops(lm_config(arch), LM_CARD_BATCH,
+                                   LM_CARD_SEQ)
+            log(f"[tooling] stablelm-12b: traced {rf['hlo_flops']:.6e} "
+                f"FLOPs against the analytic {flops:.6e} "
+                f"({rf['hlo_flops'] / flops:.4f}x)")
+            check(abs(rf["hlo_flops"] - flops) <= DRY_FLOP_TOL * flops,
+                  "[tooling] stablelm-12b's traced FLOPs are not the "
+                  "analytic count")
+        torch.cuda.empty_cache()
+    report.main(["--dryrun", out])
+    with open(report.DEFAULT_REPORT) as f:
+        for line in f.read().splitlines():
+            if line.startswith("|") and "---" not in line:
+                log(f"[tooling] report {line}")
+
+
+def tooling_embedding_bag(torch, gen):
+    """``models.layers.embedding_bag`` at ``BAG``: 4,096 weighted bags of
+    1-64 lookups over a 2,097,152 x 128 table, sum and mean; forward and
+    the table's gradient within ``TOL`` of the plain versions, exactly two
+    segment sums launched (the bag sums, the table's gradient) and no
+    index_add_ kernel in the profile."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import backend, ops
+    from repro_torch.kernels import spmm as sp
+    from repro_torch.models.layers import bag_plan, embedding_bag
+
+    rng = np.random.default_rng(7)
+    lens = rng.integers(1, BAG["max_len"] + 1, BAG["bags"])
+    seg = np.repeat(np.arange(BAG["bags"]), lens)
+    idx = rng.integers(0, BAG["rows"], len(seg))
+    plan = bag_plan(idx, seg, BAG["bags"], BAG["rows"], DEV)
+    table = (torch.randn((BAG["rows"], BAG["dim"]), generator=gen,
+                         device=DEV) * 0.1).requires_grad_(True)
+    w = torch.rand(len(seg), generator=gen, device=DEV)
+    cot = torch.randn((BAG["bags"], BAG["dim"]), generator=gen, device=DEV)
+    for combiner in ("sum", "mean"):
+        def run():
+            out = embedding_bag(table, None, None, BAG["bags"], weights=w,
+                                combiner=combiner, plan=plan)
+            grad, = torch.autograd.grad(out, table, cot)
+            return out.detach(), grad
+
+        torch.cuda.synchronize()
+        backend.reset_counts()
+        out, grad = run()
+        torch.cuda.synchronize()
+        counts = dict(backend.LAUNCH_COUNTS)
+        with plain_versions(ops, segment_sum=sp.segment_sum_plain):
+            pout, pgrad = run()
+        rel = max(_rel(out, pout), _rel(grad, pgrad))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        scatter = [e.key for e in prof.key_averages()
+                   if "indexFunc" in e.key or "index_add" in e.key]
+        ms = time_ms(run, 10)
+        with plain_versions(ops, segment_sum=sp.segment_sum_plain):
+            plain_ms = time_ms(run, 10)
+        log(f"[tooling] embedding_bag {combiner}: {BAG['bags']} bags of "
+            f"1-{BAG['max_len']} lookups ({len(seg):,}) over "
+            f"{BAG['rows']:,} x {BAG['dim']}: forward and table gradient "
+            f"rel {rel:.3e} to the plain versions; launches {counts}; "
+            f"index_add_ kernels {scatter or 'none'}; forward and backward "
+            f"{ms:.3f} ms (plain versions {plain_ms:.3f} ms)")
+        check(rel <= TOL, f"[tooling] embedding_bag {combiner}: rel {rel}")
+        check(counts == {"segment_sum": 2}, f"[tooling] embedding_bag "
+              f"{combiner} launched {counts}")
+        check(not scatter, f"[tooling] embedding_bag {combiner}: {scatter}")
+    del table, plan, w, cot
+
+
+def tooling_example(torch):
+    """``python -m repro_torch.examples.train_kgnn`` for ``EXAMPLE_STEPS``
+    steps at scale 1.0 (600k entities x d 160, batch 4,096, INT2, Adam
+    with a cosine warm-up and clipping): finite and falling loss."""
+    from repro_torch.examples import train_kgnn
+    from repro_torch.kernels.backend import BUILD_DIR
+
+    ckpt = BUILD_DIR.parent / "example_ckpt"
+    subprocess.run(["rm", "-rf", str(ckpt)], check=True)
+    t0 = time.perf_counter()
+    res = train_kgnn.main(["--steps", str(EXAMPLE_STEPS), "--ckpt",
+                           str(ckpt)])
+    losses = res["losses"]
+    log(f"[tooling] train_kgnn example: {res['n_params'] / 1e6:.1f} M "
+        f"parameters, losses {[f'{v:.4f}' for v in losses]}, median step "
+        f"{statistics.median(r['seconds'] for r in res['steps']) * 1e3:.2f}"
+        f" ms, recall@20 {res['recall@20']:.4f} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(len(losses) == EXAMPLE_STEPS
+          and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0],
+          f"[tooling] train_kgnn example: losses {losses}")
+    subprocess.run(["rm", "-rf", str(ckpt)], check=True)
+
+
+def run_tooling(torch, gen, ds, peaks):
+    """[tooling]: the autotuner, the dry run and report, embedding_bag and
+    the train_kgnn example (``tooling_*``)."""
+    t0 = time.perf_counter()
+    tooling_autotune(torch, gen)
+    torch.cuda.empty_cache()
+    tooling_dryrun(torch, ds, peaks)
+    torch.cuda.empty_cache()
+    tooling_embedding_bag(torch, gen)
+    torch.cuda.empty_cache()
+    tooling_example(torch)
+    torch.cuda.empty_cache()
+    log(f"[tooling] phase {time.perf_counter() - t0:.1f} s")
+
+
 # quant_pack in turns against another tree's kernel: (label, rows, d, bits,
 # SR) of every shape this script times the quant-pack at
 QUANT_TURN_SHAPES = (
@@ -4921,7 +5222,7 @@ def quant_pack_turns(torch, other: Path) -> None:
         del a, b
         t = [device_ms(torch, lambda f=f: call(f))
              for f in (theirs, ours, ours, theirs)]
-        bnd, _ = bound_ms(rows * d * 4 + rows * (dp + 8), 7 * rows * d)
+        bnd, _ = bound_ms(qp.quant_pack_cost(rows, d, bits=bits))
         other_ms, this_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
         log(f"  {label} {rows}x{d} INT{bits} {'sr' if sr else 'nearest'}: "
             f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms; other "
@@ -4929,6 +5230,127 @@ def quant_pack_turns(torch, other: Path) -> None:
             f"; bound {bnd:.4f} ms: this {bnd / this_ms:.0%}, other "
             f"{bnd / other_ms:.0%}; bits identical")
         del xs
+
+
+SERVE_HOST_BATCHES = (1, 8)   # the engine's served batches (launch-bound)
+SERVE_HOST_CALLS = 100        # calls queued behind one held stream
+SERVE_HOST_PAIRS = 10         # process pairs, the first of each alternating
+
+
+def serve_host_one(torch, tree: Path) -> None:
+    """``--serve-host-one DIR``: with ``DIR/src`` first on the path, the
+    host time a call of ``ops.topk`` (k 20) and ``ops.coarse_topm`` (m 80)
+    takes over the served 24,915 x 256 INT8 item table at each batch of
+    ``SERVE_HOST_BATCHES``: the calls are queued behind a spinning kernel,
+    so the loop reads the wrappers' Python and launch cost alone, not the
+    card's; median of 9 loops of ``SERVE_HOST_CALLS``. Where the tree has
+    them, also the host time of the pieces a served top-K call gained with
+    the autotuner and the cost bracket (``piece_*``). Prints one JSON
+    line."""
+    import ctypes
+    import timeit
+
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.core.quant import QTensor, quantize
+    from repro_torch.kernels import backend, ops
+    from repro_torch.kernels import topk_score as tk
+    from repro_torch.serving.scorer import quantize_query
+
+    gen = torch.Generator().manual_seed(0)
+    q_cpu = quantize(torch.randn((24915, 256), generator=gen) * 0.3, 0,
+                     bits=8)
+    items = QTensor(q_cpu.packed.to(DEV), q_cpu.scale.to(DEV),
+                    q_cpu.zero.to(DEV), 8, 256)
+    out = {"tree": str(tree)}
+    for b in SERVE_HOST_BATCHES:
+        q = (torch.randn((b, 256), generator=gen) * 0.3).to(DEV)
+        q8, qmeta = quantize_query(q)
+        excl = torch.randint(0, 24915, (b, 12), generator=gen,
+                             dtype=torch.int32).to(DEV)
+        for name, call in (
+                ("topk", lambda: ops.topk(q, items, excl, k=20)),
+                ("coarse", lambda: ops.coarse_topm(q8, qmeta, items, excl,
+                                                   m=80))):
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+            loops = []
+            for _ in range(9):
+                torch.cuda._sleep(int(2e8))
+                t = time.perf_counter()
+                for _ in range(SERVE_HOST_CALLS):
+                    call()
+                loops.append((time.perf_counter() - t) / SERVE_HOST_CALLS)
+                torch.cuda.synchronize()
+            out[f"{name}_b{b}_us"] = statistics.median(loops) * 1e6
+    if hasattr(tk, "_tuned_qt"):
+        from repro_torch.obs import cost
+
+        def bracket():
+            with cost.kernel("topk_score", ops._topk_call_cost, q, items,
+                             excl, 20):
+                pass
+
+        def count():
+            started = ctypes.c_int(0)
+            ctypes.byref(started)
+            backend.count_launch("topk_score", kernels=started.value)
+
+        for name, fn in (("tuned_qt", lambda: tk._tuned_qt(
+                "topk_score", 8, items, 20, None)), ("bracket", bracket),
+                ("count", count)):
+            out[f"piece_{name}_us"] = statistics.median(
+                timeit.repeat(fn, number=10000, repeat=5)) / 10000 * 1e6
+    print(json.dumps(out), flush=True)
+
+
+def serve_host_turns(other: Path) -> None:
+    """``--serve-host-against DIR``: ``serve_host_one`` on ``DIR`` (another
+    tree, e.g. the parent commit's ``git archive``) and on this tree, each
+    in a process of its own (each tree builds its kernels into its own
+    ``build/``), in ``SERVE_HOST_PAIRS`` pairs whose first process
+    alternates between the trees. Prints each pair, then each key's
+    medians, the pairs this tree's call is the cheaper in, and the spread
+    (interquartile distance) of the other tree's runs."""
+    check((other / "src" / "repro_torch").is_dir(),
+          f"no src/repro_torch under {other}")
+    this = Path(__file__).resolve().parent
+    env = dict(os.environ,
+               REPRO_TORCH_AUTOTUNE_CACHE=str(this / "build"
+                                              / "autotune_turns.json"))
+
+    def run(tree):
+        r = subprocess.run([sys.executable, __file__, "--serve-host-one",
+                            str(tree)], env=env, capture_output=True,
+                           text=True, timeout=600)
+        check(r.returncode == 0, f"--serve-host-one {tree}: rc "
+              f"{r.returncode}\n{r.stderr[-4000:]}")
+        return json.loads(r.stdout.strip().splitlines()[-1])
+
+    pairs = []
+    for i in range(SERVE_HOST_PAIRS):
+        order = (other, this) if i % 2 == 0 else (this, other)
+        got = {str(t): run(t) for t in order}
+        pairs.append((got[str(other)], got[str(this)]))
+        first = "other" if i % 2 == 0 else "this"
+        log(f"[serve-host-turns] pair {i} ({first} first), other / this: "
+            + "; ".join(f"{k[:-3]} {a[k]:.2f} / {b[k]:.2f}"
+                        for a, b in pairs[-1:] for k in a
+                        if k.endswith("_us")))
+    log(f"[serve-host-turns] this tree against {other}: host us a call "
+        f"(calls queued behind a held stream), {SERVE_HOST_PAIRS} pairs")
+    for key in [k for k in pairs[0][0] if k.endswith("_us")]:
+        o = [a[key] for a, _ in pairs]
+        t = [b[key] for _, b in pairs]
+        q1, _, q3 = statistics.quantiles(o, n=4)
+        log(f"  {key[:-3]}: median other {statistics.median(o):.2f}, this "
+            f"{statistics.median(t):.2f} "
+            f"({statistics.median(t) - statistics.median(o):+.2f} us); "
+            f"this cheaper in {sum(b < a for a, b in zip(o, t))} of "
+            f"{len(o)} pairs; other's spread (Q3 - Q1) {q3 - q1:.2f}")
+    for key in [k for k in pairs[0][1] if k.startswith("piece_")]:
+        log(f"  this tree's {key[6:-3]}: median "
+            f"{statistics.median(b[key] for _, b in pairs):.3f} us a call")
 
 
 def main() -> int:
@@ -4954,6 +5376,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f"[card] {smi}")
+    if sys.argv[1:2] == ["--serve-host-one"] and len(sys.argv) == 3:
+        serve_host_one(torch, Path(sys.argv[2]).resolve())
+        return 0
+    if sys.argv[1:2] == ["--serve-host-against"] and len(sys.argv) == 3:
+        serve_host_turns(Path(sys.argv[2]).resolve())
+        print(smi)
+        return 0
     if sys.argv[1:2] == ["--quant-pack-against"] and len(sys.argv) == 3:
         quant_pack_turns(torch, Path(sys.argv[2]).resolve())
         print(smi)
@@ -4977,6 +5406,13 @@ def main() -> int:
         f"device {info.name} sm_{info.capability[0]}{info.capability[1]} "
         f"count {info.count}")
     backend.require_sm90(torch.device("cuda", 0))
+    # the main path runs at the planner's query tiles: an empty tile cache
+    # of its own, no sweeps ([tooling] sweeps into another)
+    from repro_torch.kernels import autotune
+
+    main_cache = backend.BUILD_DIR.parent / "autotune_main.json"
+    main_cache.unlink(missing_ok=True)
+    autotune.reset(str(main_cache), sweep=False)
 
     def zipf_graph():
         import numpy as np
@@ -5106,6 +5542,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_shapes = {}
     runs_lm = run_lm(torch, gen, lm_shapes)
+    torch.cuda.empty_cache()
+    run_tooling(torch, gen, ds, {
+        "kgat": runs["int2"]["peak"],
+        "xdeepfm": runs_rs["recsys_xdeepfm_int2"]["peak"],
+        "stablelm-12b": runs_lm["lm_stablelm_int2"]["peak"]})
     # launches: the sum over the main-path runs (serving, then training
     # KGAT under each schedule and KGCN, KGIN, R-GCN under FP32 and INT2,
     # then the sampled, multi-rank and GCN runs), each counted from 0 just

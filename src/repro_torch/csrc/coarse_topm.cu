@@ -301,14 +301,16 @@ cudaError_t dispatch(int bits, int qt, int B, F&& f) {
 // coarse_topm_plan asks for (null where it asks for fewer) -> out_v (B, m)
 // fp32, out_i (B, m) int32. Requires 1 <= m <= n_items. Returns
 // cudaGetLastError() after the last launch, cudaErrorInvalidValue when the
-// inputs or the scratch do not fit.
+// inputs or the scratch do not fit; *started gains one at each CUDA kernel
+// launched.
 extern "C" int coarse_topm_launch(const void* q8, const void* qmeta, int B,
                                   int dim, const void* packed, int dp,
                                   int bits, const void* scale,
                                   const void* zero, const void* excl, int P,
                                   int n_items, int m, int qt, void* cand_a,
                                   void* cand_b, long long scratch_bytes,
-                                  void* out_v, void* out_i, void* stream) {
+                                  void* out_v, void* out_i, void* stream,
+                                  int* started) {
   const ScanArgs a{static_cast<const float*>(q8),
                    static_cast<const float*>(qmeta), B, dim,
                    static_cast<const uint8_t*>(packed), dp, nullptr,
@@ -321,7 +323,7 @@ extern "C" int coarse_topm_launch(const void* q8, const void* qmeta, int B,
         a, m, static_cast<topk_select::Entry*>(cand_a),
         static_cast<topk_select::Entry*>(cand_b), scratch_bytes,
         static_cast<float*>(out_v), static_cast<int*>(out_i),
-        static_cast<cudaStream_t>(stream));
+        static_cast<cudaStream_t>(stream), started);
   }));
 }
 

@@ -373,14 +373,15 @@ cudaError_t dispatch(int bits, int qt, int B, F&& f) {
 // topk_plan asks for (null where it asks for fewer) -> out_v (B, k) fp32,
 // out_i (B, k) int32. Requires 1 <= k <= n_items. Returns
 // cudaGetLastError() after the last launch, cudaErrorInvalidValue when the
-// inputs or the scratch do not fit.
+// inputs or the scratch do not fit; *started gains one at each CUDA kernel
+// launched.
 extern "C" int topk_launch(const void* q, int B, int dim, const void* packed,
                            int dp, int bits, const void* items,
                            const void* scale, const void* zero,
                            const void* excl, int P, int n_items, int k,
                            int qt, void* cand_a, void* cand_b,
                            long long scratch_bytes, void* out_v, void* out_i,
-                           void* stream) {
+                           void* stream, int* started) {
   const ScanArgs a{static_cast<const float*>(q), nullptr, B, dim,
                    static_cast<const uint8_t*>(packed), dp,
                    static_cast<const float*>(items),
@@ -393,7 +394,7 @@ extern "C" int topk_launch(const void* q, int B, int dim, const void* packed,
         a, k, static_cast<topk_select::Entry*>(cand_a),
         static_cast<topk_select::Entry*>(cand_b), scratch_bytes,
         static_cast<float*>(out_v), static_cast<int*>(out_i),
-        static_cast<cudaStream_t>(stream));
+        static_cast<cudaStream_t>(stream), started);
   }));
 }
 

@@ -689,10 +689,11 @@ __global__ void merge_round_kernel(const Entry* __restrict__ in, int n_in,
 }
 
 // n_lists (> 1) sorted lists of len per row in buffer a (row stride `row`
-// entries) -> (B, m) in out_v/out_i, rounds alternating between a and b.
+// entries) -> (B, m) in out_v/out_i, rounds alternating between a and b;
+// one is added to *started at each round's launch.
 inline cudaError_t merge_lists(Entry* a, Entry* b, size_t row, int B,
                                int n_lists, int len, int m, float* out_v,
-                               int* out_i, cudaStream_t st) {
+                               int* out_i, cudaStream_t st, int* started) {
   int last = len;
   while (n_lists > 1) {
     const int n_out = (n_lists + 1) / 2;
@@ -702,6 +703,7 @@ inline cudaError_t merge_lists(Entry* a, Entry* b, size_t row, int B,
     merge_round_kernel<<<dim3(n_out, B), kRoundThreads, 0, st>>>(
         a, n_lists, len, last, row, final_round ? nullptr : b, len_out,
         final_round ? static_cast<size_t>(m) : row, m, out_v, out_i);
+    ++*started;
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     Entry* t = a;
@@ -881,9 +883,10 @@ cudaError_t make_plan(const ScanArgs& a, int m, Plan* p) {
 template <class P, int QT>
 cudaError_t launch_scan(const ScanArgs& a, const Schedule& s, int L,
                         bool per_tile, int S, Entry* cand, float* out_v,
-                        int* out_i, cudaStream_t st) {
+                        int* out_i, cudaStream_t st, int* started) {
   scan_kernel<P, QT><<<s.grid, kThreads, scan_bytes<P, QT>(a, L), st>>>(
       a, s, L, per_tile ? 1 : 0, S, cand, out_v, out_i);
+  ++*started;
   return cudaGetLastError();
 }
 
@@ -891,11 +894,12 @@ cudaError_t launch_scan(const ScanArgs& a, const Schedule& s, int L,
 // (B, m) fp32, out_i (B, m) int32. cand_a and cand_b are the plan's scratch
 // buffers of scratch_bytes each (null where it needs fewer). Returns
 // cudaGetLastError() after the last launch, or cudaErrorInvalidValue when
-// the inputs or the scratch do not fit the plan.
+// the inputs or the scratch do not fit the plan. *started counts the CUDA
+// kernels launched, one at each launch (the plan's n_kernels when all go).
 template <class P, int QT>
 cudaError_t select_topm(const ScanArgs& a, int m, Entry* cand_a,
                         Entry* cand_b, long long scratch_bytes, float* out_v,
-                        int* out_i, cudaStream_t st) {
+                        int* out_i, cudaStream_t st, int* started) {
   Plan p;
   cudaError_t err = make_plan<P, QT>(a, m, &p);
   if (err != cudaSuccess) return err;
@@ -906,18 +910,20 @@ cudaError_t select_topm(const ScanArgs& a, int m, Entry* cand_a,
   const Schedule s = schedule_of<P, QT>(a, p.grid);
   if (m > kMaxList) {  // rounds route
     err = launch_scan<P, QT>(a, s, kTile, true, p.slots, cand_a, nullptr,
-                             nullptr, st);
+                             nullptr, st, started);
     if (err != cudaSuccess) return err;
     return merge_lists(cand_a, cand_b, static_cast<size_t>(p.slots) * kTile,
-                       a.B, s.n_tiles, kTile, m, out_v, out_i, st);
+                       a.B, s.n_tiles, kTile, m, out_v, out_i, st, started);
   }
   if (p.slots == 1)
-    return launch_scan<P, QT>(a, s, m, false, 1, nullptr, out_v, out_i, st);
+    return launch_scan<P, QT>(a, s, m, false, 1, nullptr, out_v, out_i, st,
+                              started);
   err = launch_scan<P, QT>(a, s, m, false, p.slots, cand_a, nullptr, nullptr,
-                           st);
+                           st, started);
   if (err != cudaSuccess) return err;
   merge_rows_kernel<<<a.B, kMergeThreads, merge_smem_bytes(p.slots, m), st>>>(
       cand_a, s, QT, p.slots, m, out_v, out_i);
+  ++*started;
   return cudaGetLastError();
 }
 

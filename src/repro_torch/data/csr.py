@@ -160,6 +160,9 @@ class SpmmLayout:
     meta: CSRMeta
     plan: SegmentPlan          # segment-sum split of the dst runs
     t_plan: SegmentPlan        # and of the src runs
+    # the distinct rows the edges gather, forward (of x) and transpose (of
+    # g): the rows an SPMM in that direction reads (``spmm_cost``)
+    rows_read: tuple[int, int]
 
     def direction(self, transpose: bool = False) -> Direction:
         m = self.meta
@@ -398,6 +401,10 @@ def _build_direction(gather_ids: np.ndarray, out_ids: np.ndarray,
             (row_start + deg).astype(np.int32), n_blocks, n_tiles)
 
 
+def _n_distinct(ids, n: int) -> int:
+    return int(np.count_nonzero(np.bincount(ids, minlength=n)))
+
+
 def build_spmm_layout(src, dst, *, n_dst: int, n_src: int | None = None,
                       block_e: int = 256, block_rows: int = 256,
                       pad_static: bool = False, device="cuda") -> SpmmLayout:
@@ -442,7 +449,8 @@ def build_spmm_layout(src, dst, *, n_dst: int, n_src: int | None = None,
         t_perm_blk=t(t_perm_blk), t_tile_of_blk=t(t_tile_of_blk),
         t_row_start=t(t_row_start), t_row_end=t(t_row_end),
         meta=meta, plan=segment_plan(row_start, row_end, dev),
-        t_plan=segment_plan(t_row_start, t_row_end, dev))
+        t_plan=segment_plan(t_row_start, t_row_end, dev),
+        rows_read=(_n_distinct(src, n_src), _n_distinct(dst, n_dst)))
 
 
 def relation_runs(rel, n_relations: int, *, chunk: int = REL_CHUNK,

@@ -103,10 +103,14 @@ def _one_hop(adj: KGAdjacency, frontier: np.ndarray, fanout: int,
     offs = np.where(exact, np.minimum(ar, np.maximum(deg - 1, 0)[:, None]),
                     drawn)
     mask = np.where(exact, ar < deg[:, None], True)
-    e_ix = np.minimum(adj.indptr[frontier][:, None] + offs,
-                      len(adj.src) - 1)
-    nbr = adj.src[e_ix]
-    rel = adj.rel[e_ix]
+    if len(adj.src):
+        e_ix = np.minimum(adj.indptr[frontier][:, None] + offs,
+                          len(adj.src) - 1)
+        nbr = adj.src[e_ix]
+        rel = adj.rel[e_ix]
+    else:   # no edges: every slot is masked (deg 0); nothing to gather
+        nbr = np.zeros((n_dst, fanout), adj.src.dtype)
+        rel = np.zeros((n_dst, fanout), adj.rel.dtype)
     # a masked slot is a weight-0 self edge: its endpoint must be in the
     # next frontier, and the destination's own id always is
     nbr = np.where(mask, nbr, frontier[:, None])

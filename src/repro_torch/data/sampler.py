@@ -54,8 +54,11 @@ def sample_blocks(indptr: np.ndarray, indices: np.ndarray,
         deg = indptr[frontier + 1] - indptr[frontier]
         offs = rng.integers(0, np.maximum(deg, 1)[:, None],
                             (n_dst, fanout))
-        nbr = indices[np.minimum(indptr[frontier, None] + offs,
-                                 len(indices) - 1)]
+        if len(indices):
+            nbr = indices[np.minimum(indptr[frontier, None] + offs,
+                                     len(indices) - 1)]
+        else:   # no edges: every node self-loops; nothing to gather
+            nbr = np.zeros((n_dst, fanout), indices.dtype)
         nbr = np.where(deg[:, None] > 0, nbr, frontier[:, None])
         src_nodes = np.concatenate([frontier, nbr.reshape(-1)])
         uniq, inv = np.unique(src_nodes, return_inverse=True)

@@ -49,7 +49,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["DeviceInfo", "probe", "resolve_device", "require_sm90",
+__all__ = ["DeviceInfo", "KernelCost", "probe", "sources_hash",
+           "resolve_device", "require_sm90",
            "full_fp32", "build", "build_log",
            "lib_path", "kernel_fn", "launch", "stream_of", "check_cuda",
            "LAUNCH_COUNTS", "CUDA_KERNEL_COUNTS",
@@ -87,11 +88,32 @@ def reset_counts() -> None:
         CUDA_KERNEL_COUNTS.clear()
 
 
+class KernelCost(collections.namedtuple("KernelCost",
+                                         "flops bytes peak")):
+    """The work of one call of a hand-written kernel, from its shapes (each
+    kernel module's ``*_cost``): ``flops`` operations, ``bytes`` moved with
+    each input read once and each output written once, and ``peak`` the
+    rate they run at (``"fp32"``, ``"bf16"`` or ``"int8"``: a key of
+    ``launch.roofline``'s profiles, ``peak_<peak>``). ``chip_smoke.py``'s
+    bound column and ``launch.roofline.trace_step`` count with them."""
+
+    __slots__ = ()
+
+
 @dataclasses.dataclass(frozen=True)
 class DeviceInfo:
     name: str
     capability: tuple[int, int]
     count: int
+
+    @property
+    def fingerprint(self) -> str:
+        """What a measured tile choice depends on (``kernels.autotune``'s
+        cache key): the card's name and capability, the CUDA runtime and
+        torch versions, and a hash of the kernel sources."""
+        return (f"{self.name}|sm_{self.capability[0]}{self.capability[1]}|"
+                f"cuda {torch.version.cuda}|torch {torch.__version__}|"
+                f"src {sources_hash()}")
 
 
 def probe() -> DeviceInfo:
@@ -101,6 +123,16 @@ def probe() -> DeviceInfo:
     return DeviceInfo(name=torch.cuda.get_device_name(0),
                       capability=tuple(torch.cuda.get_device_capability(0)),
                       count=torch.cuda.device_count())
+
+
+@functools.lru_cache(maxsize=1)
+def sources_hash() -> str:
+    """A hash of every kernel source (``csrc/*.cu`` and ``*.cuh``)."""
+    h = hashlib.sha1()
+    for f in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:12]
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -28,10 +28,22 @@ from repro_torch.core.quant import QTensor, dequantize
 
 from . import backend
 
-__all__ = ["dequant_matmul_plain", "dequant_matmul_cuda"]
+__all__ = ["dequant_matmul_plain", "dequant_matmul_cuda",
+           "dequant_matmul_cost"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P)
+
+
+def dequant_matmul_cost(rows: int, dim: int, n: int,
+                        dp: int) -> backend.KernelCost:
+    """One ``dequant(q)ᵀ @ g`` of (rows, dp) packed rows and (rows, n) g:
+    codes, scale, zero and g read once, the (dim, n) output written once;
+    the three bf16 tensor-core products of the exact split (2·rows·dim·n
+    operations each) at the bf16 rate."""
+    return backend.KernelCost(3 * 2 * rows * dim * n,
+                              rows * (dp + 8) + rows * n * 4 + dim * n * 4,
+                              "bf16")
 
 
 def dequant_matmul_plain(q: QTensor, g: torch.Tensor) -> torch.Tensor:

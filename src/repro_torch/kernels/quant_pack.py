@@ -45,7 +45,8 @@ from . import backend
 from .hashrng import hash_uniform
 
 __all__ = ["quant_pack_plain", "quant_pack_cuda", "quant_pack_plan",
-           "dequant_unpack_plain", "dequant_unpack_cuda"]
+           "quant_pack_cost", "dequant_unpack_plain", "dequant_unpack_cuda",
+           "dequant_unpack_cost"]
 
 _EPS = 1e-12
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -111,6 +112,16 @@ def quant_pack_cuda(x: torch.Tensor, seed: int, *, bits: int,
                        scale.data_ptr(), zero.data_ptr(), backend.stream_of(x))
     backend.count_launch("quant_pack")
     return packed, scale, zero
+
+
+def quant_pack_cost(rows: int, d: int, *, bits: int,
+                    itemsize: int = 4) -> backend.KernelCost:
+    """One quant-pack of a (rows, d) table of ``itemsize``-byte floats: the
+    table read once, codes, scale and zero written once; 7 fp32 operations
+    an element (min, max, scale, round, clamp, shift, or)."""
+    dp = -(-d // (8 // bits))
+    return backend.KernelCost(7 * rows * d,
+                              rows * d * itemsize + rows * (dp + 8), "fp32")
 
 
 def quant_pack_plan(rows: int, d: int, *, bits: int, stochastic: bool = True,
@@ -180,3 +191,14 @@ def dequant_unpack_cuda(packed: torch.Tensor, scale: torch.Tensor,
     if out.numel():                  # the C entry launches nothing if empty
         backend.count_launch("dequant_unpack")
     return out
+
+
+def dequant_unpack_cost(rows: int, d: int, dp: int, *,
+                        idx_bytes: int = 0) -> backend.KernelCost:
+    """One unpack of ``rows`` packed rows of ``dp`` bytes (gathered through
+    an index of ``idx_bytes`` a row, or every row): codes, scale and zero
+    (and the index) read once, the (rows, d) fp32 output written once; a
+    multiply and an add an element."""
+    return backend.KernelCost(2 * rows * d,
+                              rows * (dp + 8 + idx_bytes) + rows * d * 4,
+                              "fp32")

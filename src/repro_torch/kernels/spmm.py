@@ -48,7 +48,8 @@ from . import backend
 
 __all__ = ["spmm_plain", "spmm_cuda", "segment_sum_plain",
            "segment_sum_cuda", "sddmm_plain", "sddmm_cuda",
-           "dequant_sddmm_plain", "dequant_sddmm_cuda"]
+           "dequant_sddmm_plain", "dequant_sddmm_cuda", "spmm_cost",
+           "segment_sum_cost", "sddmm_cost", "dequant_sddmm_cost"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P, _I, _P, _P, _P, _P, _P, _I, _P, _P)
@@ -56,6 +57,52 @@ _SDDMM_ARGTYPES = (_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P)
 _DQ_SDDMM_ARGTYPES = (_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P)
 _SEG_ARGTYPES = (_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P,
                  _P, _P)
+
+
+# -- the kernels' work, from their shapes (backend.KernelCost) ----------------
+
+
+def spmm_cost(layout, d: int, *, weighted: bool = True,
+              transpose: bool = False) -> backend.KernelCost:
+    """One SPMM of d columns over ``layout``: the input rows that the edges
+    gather read once (``layout.rows_read``), a source index (and a weight)
+    an edge, the row pointers and the output written once; a multiply-add
+    (an add unweighted) an edge and column."""
+    m = layout.meta
+    rows = layout.rows_read[1 if transpose else 0]
+    n_out = m.n_src if transpose else m.n_dst
+    return backend.KernelCost(
+        (2 if weighted else 1) * m.n_edges * d,
+        rows * d * 4 + m.n_edges * (8 if weighted else 4)
+        + (n_out + 1) * 4 + n_out * d * 4, "fp32")
+
+
+def segment_sum_cost(levels: tuple, d: int) -> backend.KernelCost:
+    """One segment sum of d columns over a grouping: the input rows read
+    once, an input id a slot, two row pointers and one d-wide row out an
+    output row of the last level; an add an input element."""
+    n_rows, n_out = levels[0].n_rows, levels[-1].n_out
+    return backend.KernelCost(n_rows * d, n_rows * (d + 1) * 4
+                              + n_out * (d + 2) * 4, "fp32")
+
+
+def sddmm_cost(layout, d: int) -> backend.KernelCost:
+    """The fp32 SDDMM: x and g read once, two indices in and one value out
+    an edge; a multiply-add an edge and column."""
+    m = layout.meta
+    return backend.KernelCost(2 * m.n_edges * d,
+                              (m.n_src + m.n_dst) * d * 4 + m.n_edges * 12,
+                              "fp32")
+
+
+def dequant_sddmm_cost(layout, d: int, dp: int) -> backend.KernelCost:
+    """The packed SDDMM: the packed table, its scale and zero and g read
+    once, two indices in and one value out an edge; each residual element
+    dequantized once, then the dot."""
+    m = layout.meta
+    return backend.KernelCost(2 * m.n_edges * d + 2 * m.n_src * d,
+                              m.n_src * (dp + 8) + m.n_dst * d * 4
+                              + m.n_edges * 12, "fp32")
 
 
 def spmm_plain(x: torch.Tensor, ew: torch.Tensor | None, layout, *,

@@ -18,7 +18,9 @@ bounds them) share one schedule and selection (``csrc/topk_select.cuh``):
 a persistent scan keeps each query's running top ``min(k, 128)`` per run
 of item tiles, then one CTA per query row merges the runs' lists (``k <=
 128``), or merge rounds take any ``k <= n_items``. The C launcher picks the
-query tile, the grid and the route from (B, n_items, k); the wrapper reads
+grid and the route from (B, n_items, k), and the query tile where the
+wrapper passes 0: the wrapper passes the autotuner's measured tile for the
+call's shape bucket (``kernels.autotune``; 0 until one is cached). It reads
 that plan (:func:`plan_for`, the kernel's ``*_plan`` entry) only to
 allocate the scratch. Both versions dequantize with the same two roundings;
 their dot products sum in different orders, so values agree to fp32
@@ -42,16 +44,16 @@ import torch
 
 from repro_torch.core.quant import QTensor, unpack_bits
 
-from . import backend
+from . import autotune, backend
 
 __all__ = ["topk_plain", "topk_cuda", "coarse_topm_plain", "coarse_topm_cuda",
-           "plan_for", "Plan"]
+           "plan_for", "Plan", "topk_cost", "coarse_topm_cost"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-             _L, _P, _P, _P)
+             _L, _P, _P, _P, _P)
 _COARSE_ARGTYPES = (_P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
-                    _P, _P, _L, _P, _P, _P)
+                    _P, _P, _L, _P, _P, _P, _P)
 _PLAN_ARGTYPES = (_I,) * 7 + (_P,)
 _ENTRY = {False: ("topk_score", "topk"), True: ("coarse_topm", "coarse_topm")}
 _NEG_INF = float("-inf")
@@ -120,6 +122,34 @@ def coarse_topm_plain(q8: torch.Tensor, qmeta: torch.Tensor, items: QTensor,
     block_i = max(min(block_i, n_items), m)
     return _chunk_merge(q8.shape[0], excl, m, n_items, block_i,
                         chunk_scores, q8.device)
+
+
+def topk_cost(b: int, n_items: int, d: int, k: int, *, dp: int | None = None,
+              n_excl: int = 0) -> backend.KernelCost:
+    """One top-K call of ``b`` queries over ``n_items`` rows of width d,
+    packed in ``dp`` bytes a row (``None``: a dense fp32 table): the table
+    (codes, scale, zero) read once, the queries and the ``n_excl``
+    exclusion ids read once, k values and ids written a query; an FMA a
+    query and element, and a packed element's dequantization once."""
+    if dp is None:
+        return backend.KernelCost(
+            2 * b * n_items * d,
+            n_items * d * 4 + b * d * 4 + n_excl * 4 + b * k * 8, "fp32")
+    return backend.KernelCost(
+        2 * b * n_items * d + 2 * n_items * d,
+        n_items * dp + 8 * n_items + b * d * 4 + n_excl * 4 + b * k * 8,
+        "fp32")
+
+
+def coarse_topm_cost(b: int, n_items: int, d: int, m: int, dp: int, *,
+                     n_excl: int = 0) -> backend.KernelCost:
+    """One coarse scan: the packed table read once, the query codes, their
+    two scalars and the exclusion ids read once, m values and ids written
+    a query; an int8 multiply-add a query and element."""
+    return backend.KernelCost(
+        2 * b * n_items * d,
+        n_items * dp + 8 * n_items + b * d * 4 + b * 8 + n_excl * 4
+        + b * m * 8, "int8")
 
 
 def _check_packed(items: QTensor, dim: int) -> int:
@@ -198,13 +228,38 @@ def _outputs(b: int, items, m: int, dev, qt: int, *, coarse: bool):
             p.scratch_bytes)
 
 
+_QT_CANDIDATES = tuple({"qt": t} for t in autotune.QUERY_TILES)
+
+
+def _tuned_qt(op: str, b: int, items, m: int, run) -> int:
+    """The query tile of a call: the autotuner's cached winner for its
+    shape bucket (``kernels.autotune``: a sweep over ``QUERY_TILES`` where
+    sweeps are enabled), else 0, the planner's choice by B. Every tile
+    gives the same bits. The answer for the call's exact shape is kept on
+    the autotuner (``picked``), so a served call resolves it with one dict
+    lookup."""
+    tuner = autotune.get()
+    n_items, dim, _, bits = _table(items)
+    call = (op, b, n_items, dim, bits, m)
+    qt = tuner.picked.get(call)
+    if qt is None:
+        qt = tuner.pick(
+            op, shapes=(b, n_items, dim), bits=bits or None, extra=f"k{m}",
+            candidates=_QT_CANDIDATES, measure=lambda p: run(p["qt"]),
+            default={"qt": 0})["qt"]
+        tuner.picked[call] = qt
+    return qt
+
+
 def topk_cuda(q: torch.Tensor, items, excl: torch.Tensor, *, k: int):
-    """Launch ``csrc/topk_score.cu``; its launcher picks the query tile."""
-    return _topk_cuda(q, items, excl, k, 0)
+    """Launch ``csrc/topk_score.cu`` at the query tile the autotuner picks
+    (``_tuned_qt``)."""
+    return _topk_cuda(q, items, excl, k, None)
 
 
 def _topk_cuda(q, items, excl, k: int, qt: int):
-    """:func:`topk_cuda` at query tile ``qt`` (0: picked by B)."""
+    """:func:`topk_cuda` at query tile ``qt`` (0: picked by B; None: the
+    autotuner's)."""
     backend.check_cuda(q, torch.float32, 2, "q")
     backend.check_cuda(excl, torch.int32, 2, "excl")
     backend.require_sm90(q.device)
@@ -224,26 +279,32 @@ def _topk_cuda(q, items, excl, k: int, qt: int):
         ptrs = (None, 0, 0, items.data_ptr(), None, None)
     if not 0 < k <= n_items:
         raise ValueError(f"k={k} must be in [1, n_items={n_items}]")
+    if qt is None:
+        qt = _tuned_qt("topk_score", B, items, k,
+                       lambda t: _topk_cuda(q, items, excl, k, t))
     vals, idx, bufs, cand, n_bytes = _outputs(B, items, k, q.device, qt,
                                               coarse=False)
     fn = backend.kernel_fn("topk_score", "topk_launch", _ARGTYPES)
+    started = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         backend.launch(fn, q.data_ptr(), B, dim, *ptrs, excl.data_ptr(),
                        excl.shape[1], n_items, k, qt, *cand, n_bytes,
-                       vals.data_ptr(), idx.data_ptr(), backend.stream_of(q))
-    backend.count_launch("topk_score")
+                       vals.data_ptr(), idx.data_ptr(), backend.stream_of(q),
+                       ctypes.byref(started))
+    backend.count_launch("topk_score", kernels=started.value)
     return vals, idx
 
 
 def coarse_topm_cuda(q8: torch.Tensor, qmeta: torch.Tensor, items: QTensor,
                      excl: torch.Tensor, *, m: int):
-    """Launch ``csrc/coarse_topm.cu``; its launcher picks the query
-    tile."""
-    return _coarse_topm_cuda(q8, qmeta, items, excl, m, 0)
+    """Launch ``csrc/coarse_topm.cu`` at the query tile the autotuner
+    picks (``_tuned_qt``)."""
+    return _coarse_topm_cuda(q8, qmeta, items, excl, m, None)
 
 
 def _coarse_topm_cuda(q8, qmeta, items, excl, m: int, qt: int):
-    """:func:`coarse_topm_cuda` at query tile ``qt`` (0: picked by B)."""
+    """:func:`coarse_topm_cuda` at query tile ``qt`` (0: picked by B;
+    None: the autotuner's)."""
     backend.check_cuda(q8, torch.float32, 2, "q8")
     backend.check_cuda(qmeta, torch.float32, 2, "qmeta")
     backend.check_cuda(excl, torch.int32, 2, "excl")
@@ -260,16 +321,22 @@ def _coarse_topm_cuda(q8, qmeta, items, excl, m: int, qt: int):
                          f"would pass 2^24 and stop being exact in fp32")
     if not 0 < m <= n_items:
         raise ValueError(f"m={m} must be in [1, n_items={n_items}]")
+    if qt is None:
+        qt = _tuned_qt("coarse_topm", B, items, m,
+                       lambda t: _coarse_topm_cuda(q8, qmeta, items, excl,
+                                                   m, t))
     vals, idx, bufs, cand, n_bytes = _outputs(B, items, m, q8.device, qt,
                                               coarse=True)
     fn = backend.kernel_fn("coarse_topm", "coarse_topm_launch",
                            _COARSE_ARGTYPES)
+    started = ctypes.c_int(0)
     with torch.cuda.device(q8.device):
         backend.launch(fn, q8.data_ptr(), qmeta.data_ptr(), B, dim,
                        items.packed.data_ptr(), items.packed.shape[1],
                        items.bits, items.scale.data_ptr(),
                        items.zero.data_ptr(), excl.data_ptr(), excl.shape[1],
                        n_items, m, qt, *cand, n_bytes, vals.data_ptr(),
-                       idx.data_ptr(), backend.stream_of(q8))
-    backend.count_launch("coarse_topm")
+                       idx.data_ptr(), backend.stream_of(q8),
+                       ctypes.byref(started))
+    backend.count_launch("coarse_topm", kernels=started.value)
     return vals, idx

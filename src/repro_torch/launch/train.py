@@ -195,10 +195,11 @@ def train_kgnn(cfg, ds, params, schedule, steps: int, *, batch: int = 1024,
 def train_model(step, params, schedule, steps: int, *, log_every: int = 1,
                 log=None, ckpt_dir: str | None = None, ckpt_every: int = 10,
                 schedule_spec: str | None = None, step_writer=None,
-                opt_state=None) -> dict:
+                opt_state=None, opt=None) -> dict:
     """Train ``step`` (a ``ModelStep``: a KG model's, or ``gcn-cora``'s on
     any of its shapes) up to step ``steps`` from a copy of ``params`` under
-    ``schedule``, Adam at ``step.lr``, rounding seeds from ``ROOT_SEED``;
+    ``schedule``, ``opt`` (an ``training.optimizer.Optimizer``; default
+    Adam at ``step.lr``), rounding seeds from ``ROOT_SEED``;
     the throughput series counts ``step.data["n_edges"]`` edges a step.
 
     With ``ckpt_dir`` the run restores the latest checkpoint there first
@@ -213,7 +214,7 @@ def train_model(step, params, schedule, steps: int, *, log_every: int = 1,
     and ``params``, the trained parameters.
     """
     dev = step.data["device"]
-    opt = adam(step.lr)
+    opt = opt or adam(step.lr)
     p = trainable(params)
     train_step = _measured(make_train_step(step, opt, schedule=schedule,
                                            root_seed=ROOT_SEED), dev,

@@ -12,22 +12,35 @@ An MLP's parameters are two lists, ``{"w": [W_0, ...], "b": [b_0, ...]}``
 top-level lists, so every parameter dict stays one level of tensors and
 lists of tensors). ``mlp_apply`` runs its layers through the ACT ops at
 the reference's sites, ``<scope>/fc<i>`` and ``<scope>/relu<i>``.
-``embedding_bag`` is not ported (ROADMAP Queue 1).
+
+``embedding_bag`` (port of ``repro/models/layers.py:85``) sums or averages
+multi-hot bags of table rows. The reference builds it from ``jnp.take``
+and ``jax.ops.segment_sum``; the port from ``core.act.lookup_rows`` and
+``sum_rows`` over a ``BagPlan`` built on the host (``bag_plan``: the
+lookups' table rows and their grouping by bag, ``data.csr``'s runs), so on
+the card the bag sums and the table gradient are fixed-order segment sums
+(``csrc/segment_sum.cu``), with no ``index_add_``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
-from repro_torch.core.act import act_dense, act_nonlin, act_relu
+from repro_torch.core.act import act_dense, act_nonlin, act_relu, \
+    lookup_rows, sum_rows
 from repro_torch.core.context import current_context
+from repro_torch.data.csr import LookupPlan, lookup_plan, segment_runs, \
+    stable_argsort
 
 __all__ = ["glorot", "lecun", "normal_init", "dense_params", "mlp_params",
-           "mlp_apply", "param_leaves"]
+           "mlp_apply", "param_leaves", "BagPlan", "bag_plan",
+           "embedding_bag"]
 
 
 def glorot(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
@@ -92,4 +105,65 @@ def param_leaves(params: dict) -> list:
     for k in sorted(params):
         v = params[k]
         out.extend(v if isinstance(v, (list, tuple)) else [v])
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class BagPlan:
+    """The host-built grouping of an ``embedding_bag`` call: ``lookup``
+    the lookups' table rows (``data.csr.LookupPlan``), ``bag`` each
+    lookup's bag id, ``runs`` one ``SegmentRuns`` level whose output row
+    ``b`` sums bag ``b``'s lookups in lookup order, and ``counts`` each
+    bag's lookups (fp32)."""
+
+    lookup: LookupPlan
+    bag: torch.Tensor      # (nnz,) int64
+    runs: tuple
+    counts: torch.Tensor   # (num_segments,) fp32
+
+
+def bag_plan(idx, segment_ids, num_segments: int, n_rows: int,
+             device="cpu") -> BagPlan:
+    """The ``BagPlan`` of lookups ``idx`` (table rows in ``[0, n_rows)``)
+    into bags ``segment_ids`` (in ``[0, num_segments)``), host arrays,
+    moved to ``device`` without waiting."""
+    idx = np.asarray(idx, np.int64).reshape(-1)
+    seg = np.asarray(segment_ids, np.int64).reshape(-1)
+    if idx.shape != seg.shape:
+        raise ValueError(f"{len(idx)} lookups against {len(seg)} bag ids")
+    counts = np.bincount(seg, minlength=num_segments)
+    end = np.cumsum(counts)
+    runs = (segment_runs(stable_argsort(seg, num_segments), end - counts,
+                         end, num_segments, len(seg), device),)
+    return BagPlan(lookup_plan(idx, n_rows, device),
+                   torch.from_numpy(seg).to(device, non_blocking=True), runs,
+                   torch.from_numpy(counts.astype(np.float32)).to(
+                       device, non_blocking=True))
+
+
+def embedding_bag(table: torch.Tensor, idx, segment_ids, num_segments: int,
+                  *, weights: torch.Tensor | None = None,
+                  combiner: str = "sum",
+                  plan: BagPlan | None = None) -> torch.Tensor:
+    """(num_segments, dim): bag ``b`` is the sum (``combiner="sum"``) or
+    the mean (``"mean"``; an empty bag gives 0) of the table rows
+    ``idx[e]`` over the lookups ``e`` with ``segment_ids[e] == b``, each
+    row scaled by ``weights[e]`` where given.
+
+    table : (vocab, dim); idx, segment_ids : (nnz,) host ints (``plan``,
+    from ``bag_plan``, replaces them: a caller that reuses a batch's
+    grouping builds it once). Both sums run in a fixed order: the bags'
+    through ``sum_rows``, the table gradient through ``lookup_rows``.
+    """
+    if combiner not in ("sum", "mean"):
+        raise ValueError(f"unknown combiner {combiner}")
+    if plan is None:
+        plan = bag_plan(idx, segment_ids, num_segments, table.shape[0],
+                        table.device)
+    rows = lookup_rows(table, plan.lookup)
+    if weights is not None:
+        rows = rows * weights[:, None]
+    out = sum_rows(rows, plan.bag, plan.runs)
+    if combiner == "mean":
+        out = out / torch.clamp_min(plan.counts, 1.0)[:, None]
     return out

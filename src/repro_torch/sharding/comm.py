@@ -32,6 +32,14 @@ of its own (``launch.mesh.rank_device``), takes the same route: its
 machine with several cards to be tested on. CPU tensors on gloo take the
 same route too, so the CPU tests run what the card runs.
 
+Each collective is reported to ``obs.cost`` by its kind as the reference's
+HLO names it (``all_gather``: "all-gather" of the gathered bytes;
+``psum_scatter``: "reduce-scatter" of the slice; ``psum``/``pmax``:
+"all-reduce") and the ranks of its axes, so that a traced step
+(``launch.roofline.trace_step``) prices it with the reference's per-kind
+model. The ``allreduce`` route moves more than that model's all-gather and
+reduce-scatter on the wire.
+
 Every element of a result is the same bits on every rank (the ring
 all-reduce reduces each chunk once and broadcasts it), and all compute
 stays where the tensors are: this is a transport, not a fallback.
@@ -44,6 +52,8 @@ import itertools
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.obs import cost
 
 ROUTE = "allreduce"     # how every collective travels; module docstring
 
@@ -136,8 +146,14 @@ class TorchMesh:
         return self.groups[self.axes(axes)]
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _all_reduce(t: torch.Tensor, mesh: TorchMesh, axes, op) -> torch.Tensor:
-    if mesh.size(axes) > 1:
+    n = mesh.size(axes)
+    if n > 1:
+        cost.collective("all-reduce", _nbytes(t), n)
         dist.all_reduce(t, op=op, group=mesh.group(axes))
     return t
 
@@ -163,6 +179,7 @@ def _gather(x: torch.Tensor, mesh: TorchMesh, axes, dim: int):
     out = xm.new_zeros((n * rows,) + xm.shape[1:])
     i = mesh.index(axes)
     out[i * rows:(i + 1) * rows] = xm
+    cost.collective("all-gather", _nbytes(out), n)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group(axes))
     return out.movedim(0, dim)
 
@@ -176,6 +193,7 @@ def _scatter(x: torch.Tensor, mesh: TorchMesh, axes, dim: int):
         raise ValueError(f"psum_scatter of {xm.shape[0]} rows over {n} "
                          f"ranks")
     rows = xm.shape[0] // n
+    cost.collective("reduce-scatter", _nbytes(xm) // n, n)
     dist.all_reduce(xm, op=dist.ReduceOp.SUM, group=mesh.group(axes))
     i = mesh.index(axes)
     return xm[i * rows:(i + 1) * rows].movedim(0, dim)

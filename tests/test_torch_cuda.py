@@ -11,6 +11,7 @@ training paths' full-width shapes.
 
 from __future__ import annotations
 
+import ctypes
 import shutil
 
 import numpy as np
@@ -23,7 +24,7 @@ from repro_torch.core.quant import QTensor, dequantize, pack_bits, quantize
 from repro_torch.data.csr import SEG_CHUNK, build_spmm_layout, \
     relation_runs, segment_runs
 from repro_torch.core.policy import schedule_from_cli
-from repro_torch.kernels import backend
+from repro_torch.kernels import autotune, backend
 from repro_torch.kernels import dequant_matmul as dq
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant_pack as qp
@@ -33,6 +34,7 @@ from repro_torch.launch.serve import reduced_dataset, serve_kgnn
 from repro_torch.launch.train import train_kgnn
 from repro_torch.models import kgnn
 from repro_torch.models.layers import param_leaves
+from repro_torch.obs.profiling import profiled_kernels
 from repro_torch.models.registry import arch_of, build_step, model_config, \
     path_kernels
 from repro_torch.serving.engine import ServingEngine
@@ -54,6 +56,18 @@ def cuda():
         pytest.skip("needs an NVIDIA Hopper GPU and nvcc: the CUDA kernels "
                     "have no CPU mode")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture(autouse=True)
+def _empty_tile_cache(tmp_path):
+    """Every card test runs the top-K and coarse kernels at the planner's
+    query tile: the autotuner reads an empty cache of its own and never
+    sweeps (a cache left in the checkout would change the plans the tests
+    hold the launches to)."""
+    if torch.cuda.is_available():
+        autotune.reset(str(tmp_path / "autotune.json"), sweep=False)
+    yield
+    autotune.reset()
 
 
 QP_WIDTHS = [1, 3, 5, 16, 31, 32, 33, 37, 64, 100, 129, 602, 1433, 12288,
@@ -782,26 +796,28 @@ def test_topk_kernel_random_values_close(cuda, b):
 
 
 def test_kernel_plans_launch_at_most_two_kernels(cuda):
-    """The plan's launch count, read from the profiler: one scan and one
-    merge at m <= 128, 1 + ceil(log2(tiles)) at m > 128."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """The plan's launch count, counted by the C entry point at each launch
+    (``backend.CUDA_KERNEL_COUNTS``) and read from the profiler: one scan
+    and one merge at m <= 128, 1 + ceil(log2(tiles)) at m > 128. The
+    profiled call sits 25 ms inside the profiler's capture window on both
+    sides (``profiled_kernels``): the profiler drops a device event that
+    its clock conversion places outside the window, and that conversion
+    is off by up to a few milliseconds."""
     q, items, excl = _ragged_case(cuda, 8, 8, 64, 7)
     q8, qmeta = quantize_query(q)
     for m in (20, 128, 200):
-        for run, coarse in ((lambda: tk.topk_cuda(q, items, excl, k=m),
-                             False),
-                            (lambda: tk.coarse_topm_cuda(q8, qmeta, items,
-                                                         excl, m=m), True)):
+        for run, coarse, name in (
+                (lambda: tk.topk_cuda(q, items, excl, k=m), False,
+                 "topk_score"),
+                (lambda: tk.coarse_topm_cuda(q8, qmeta, items, excl, m=m),
+                 True, "coarse_topm")):
             run()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                run()
-                torch.cuda.synchronize()
-            names = [e.name for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and ("scan_kernel" in e.name or "merge_" in e.name)]
+            before = backend.CUDA_KERNEL_COUNTS[name]
+            names = profiled_kernels(run)
+            started = backend.CUDA_KERNEL_COUNTS[name] - before
             p = tk.plan_for(8, items, m, device=cuda, coarse=coarse)
+            assert started == p.n_kernels, (started, p)
             assert len(names) == p.n_kernels, names
             assert m > 128 or p.n_kernels <= 2
 
@@ -902,9 +918,13 @@ def test_kernel_rejects_scratch_smaller_than_its_plan(cuda):
             items.packed.shape[1], 8, None, items.scale.data_ptr(),
             items.zero.data_ptr(), excl.data_ptr(), excl.shape[1],
             N_RAGGED, 20, 0, buf.data_ptr(), None]
-    tail = [v.data_ptr(), i.data_ptr(), backend.stream_of(q)]
+    started = ctypes.c_int(0)
+    tail = [v.data_ptr(), i.data_ptr(), backend.stream_of(q),
+            ctypes.byref(started)]
     assert fn(*args, p.scratch_bytes - 8, *tail) != 0
+    assert started.value == 0
     assert fn(*args, p.scratch_bytes, *tail) == 0
+    assert started.value == p.n_kernels
     pv, pi = tk.topk_plain(q, items, excl, k=20)
     assert torch.equal(v, pv) and torch.equal(i, pi)
 
@@ -1578,3 +1598,69 @@ def test_lm_serving_on_card_follows_cpu(cuda):
     for a, b in zip(card, cpu):
         assert float((a.cpu() - b).abs().max()) <= \
             1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("coarse", [False, True])
+def test_autotuned_tile_same_bits_and_cached(cuda, coarse, tmp_path):
+    """A sweep over the query tiles: every candidate's values and indices
+    the default's bit for bit, the winner the one the cache then returns
+    to a second tuner with no sweep, and the wrapper's call at the cached
+    tile the default's bits too."""
+    q, items, excl = _ragged_case(cuda, 8, 8, 64, 11, n_items=N_COARSE)
+    q8, qmeta = quantize_query(q)
+    op, m = ("coarse_topm", 80) if coarse else ("topk_score", 20)
+
+    def run(qt):
+        if coarse:
+            return tk._coarse_topm_cuda(q8, qmeta, items, excl, m, qt)
+        return tk._topk_cuda(q, items, excl, m, qt)
+
+    want = run(0)
+    for t in autotune.QUERY_TILES:
+        got = run(t)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    path = str(tmp_path / "swept.json")
+    pick = dict(shapes=(8, N_COARSE, 64), bits=8, extra=f"k{m}",
+                candidates=[{"qt": t} for t in autotune.QUERY_TILES],
+                measure=lambda p: run(p["qt"]), default={"qt": 0})
+    first = autotune.Autotuner(path, sweep=True)
+    winner = first.pick(op, **pick)
+    assert first.n_sweeps == 3 and winner["qt"] in autotune.QUERY_TILES
+    second = autotune.reset(path, sweep=True)
+    assert second.pick(op, **pick) == winner and second.n_sweeps == 0
+    got = (tk.coarse_topm_cuda(q8, qmeta, items, excl, m=m) if coarse
+           else tk.topk_cuda(q, items, excl, k=m))
+    assert second.n_sweeps == 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_embedding_bag_on_card_follows_cpu(cuda, combiner):
+    """Weighted bags on the card against the CPU's plain run, forward and
+    the table's gradient within 1e-6; the bag sums and the table gradient
+    go through the segment-sum kernel, twice bit-identical."""
+    from repro_torch.models.layers import embedding_bag
+
+    rng = np.random.default_rng(5)
+    idx = rng.integers(0, 300, 900)
+    seg = np.sort(rng.integers(0, 64, 900))
+    table = rng.standard_normal((300, 16)).astype(np.float32)
+    w = rng.random(900).astype(np.float32)
+    cot = rng.standard_normal((64, 16)).astype(np.float32)
+
+    def run(dev):
+        t = torch.tensor(table, device=dev, requires_grad=True)
+        out = embedding_bag(t, idx, seg, 64, combiner=combiner,
+                            weights=torch.tensor(w, device=dev))
+        (out * torch.tensor(cot, device=dev)).sum().backward()
+        return out.detach().cpu(), t.grad.cpu()
+
+    before = backend.LAUNCH_COUNTS["segment_sum"]
+    out, grad = run(cuda)
+    assert backend.LAUNCH_COUNTS["segment_sum"] - before == 2
+    again = run(cuda)
+    assert torch.equal(out, again[0]) and torch.equal(grad, again[1])
+    ref = run("cpu")
+    assert float((out - ref[0]).abs().max()) <= 1e-6
+    assert float((grad - ref[1]).abs().max()) <= 1e-6
+
